@@ -7,12 +7,22 @@ and PyTorch built for CUDA. It
 
 1. builds every CUDA kernel of ``rdfc_gan_torch/csrc`` with ``nvcc``;
 2. holds each kernel against its plain PyTorch version on the card, at the
-   shapes of the NLSPN serving path (B=4, 224x304, T=18), and times both;
+   shapes of the NLSPN serving and training paths (B=4, 224x304, T=18;
+   S=8 and 10; preserve off and on; f32 and bf16 stacks), and times both;
 3. serves ``configs/rdf_gan_nlspn_config.yaml`` at full width through
    ``python -m rdfc_gan_torch.test``'s code path, with random weights from a
-   seed and non-zero NLSPN offsets, and checks that both kernels carried it;
+   seed and non-zero NLSPN offsets, and checks that its kernels carried it;
 4. profiles a few served batches (device time by kernel);
-5. prints the card's name and power limit, one ``{"kernels": [...]}`` line,
+5. trains the same config one epoch (16 steps at batch 4, its bfloat16
+   compute type) through ``python -m rdfc_gan_torch.train``'s code path
+   from seeded G and D, checks the losses, the launch counts of every
+   kernel, that G and D moved, and that ``rdfc_gan_torch.test`` serves the
+   written ``best.pth``; prints step times and peak memory; profiles two
+   steps;
+6. runs one f32 train step through the kernels and one with their plain
+   versions patched in (deterministic cuDNN) and compares the losses and
+   every parameter gradient;
+7. prints the card's name and power limit, one ``{"kernels": [...]}`` line,
    and ``{"ok": true, "device": {...}}`` as the last line.
 
 It exits non-zero, printing no result, when there is no card or no
@@ -21,6 +31,7 @@ It exits non-zero, printing no result, when there is no card or no
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -213,39 +224,153 @@ def kernel_phase():
     return rows
 
 
+def backward_kernel_phase():
+    """The four kernels of the NLSPN backward against their plain versions
+    at the training shapes: S=8 (R=2) and S=10 (R=3), preserve off and on,
+    f32 and bf16 stacks. Returns the numbers of the train step's own case
+    (R=2, no preserve, bf16 stacks: the config's bfloat16 compute type)."""
+    import torch
+
+    from rdfc_gan_torch.ops import nlspn_stencil as st
+    from rdfc_gan_torch.ops.kernels import mask_kernel, nlspn_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = {}
+    HW = H * W
+    print("backward kernel checks (B=4, 224x304, T=18):")
+    for R in (2, 3):
+        offsets, aff, feat, fix = mask_inputs(gen, R)
+        a, M = scatter_args(offsets, aff, R)
+        sy, sx, S = a["sy"], a["sx"], a["S"]
+        K = sy.shape[1]
+        lo = st.shift_window(R)[0]
+        M16 = M.reshape(B, S, S, H, W).to(torch.bfloat16)
+        feat0 = feat[:, 0].contiguous()
+        fix0 = fix[:, 0].contiguous()
+        g0 = torch.randn((B, H, W), device="cuda", generator=gen)
+        for dt in (torch.float32, torch.bfloat16):
+            dM = torch.randn((B, S * S, H, W), device="cuda",
+                             generator=gen).to(dt)
+            got = mask_kernel.shift_mask_gather(dM, sy, sx, S, dt)
+            torch.cuda.synchronize()
+            err_g = compare(f"shift_mask_gather S={S} {dt}", got,
+                            mask_kernel.shift_mask_gather_plain(
+                                dM, sy, sx, S, dt), 0.0, 0.0)
+            for preserve in (False, True):
+                fx = fix0 if preserve else None
+                tag = f"R={R} preserve={preserve} {dt}"
+                out, X = nlspn_kernel.propagate_x(feat0, M16, fx, T, R, dt)
+                G, dfeat, dfix = nlspn_kernel.reverse_chain(g0, M16, fx, T,
+                                                            R, dt)
+                dMk = mask_kernel.shift_correlation(G, X, S, lo)
+                torch.cuda.synchronize()
+                pout, pX = st.propagate_x_plain(feat0, M16, fx, T, R, dt)
+                pG, pdfeat, pdfix = st.reverse_chain_plain(g0, M16, fx, T, R,
+                                                           dt)
+                err_x = max(compare(f"nlspn_propagate_x out {tag}", out,
+                                    pout, PROP_RTOL, PROP_ATOL),
+                            compare(f"nlspn_propagate_x X {tag}", X, pX,
+                                    PROP_RTOL, PROP_ATOL))
+                err_c = max(compare(f"nlspn_reverse_chain G {tag}", G, pG,
+                                    PROP_RTOL, PROP_ATOL),
+                            compare(f"nlspn_reverse_chain dfeat {tag}",
+                                    dfeat, pdfeat, PROP_RTOL, PROP_ATOL),
+                            compare(f"nlspn_reverse_chain dfix {tag}",
+                                    dfix, pdfix, PROP_RTOL, PROP_ATOL))
+                err_s = compare(f"shift_correlation {tag}", dMk,
+                                mask_kernel.shift_correlation_plain(
+                                    G, X, S, lo), PROP_RTOL, PROP_ATOL)
+                if R != 2 or preserve or dt != torch.bfloat16:
+                    continue
+                plane = B * HW * 4
+                stack = T * B * HW * 2
+                mbytes = B * S * S * HW * 2
+                chain_ops = 2.0 * T * S * S * B * HW
+                idx = (sy * S + sx).long().reshape(B, K, HW)
+                dMf = dM.reshape(B, S * S, HW)
+
+                def row(name, src, replaces, err, kernel, plain, n_bytes,
+                        n_ops, library=None, plain_reps=20):
+                    bnd, by = bound_ms(n_bytes, n_ops)
+                    rows[name] = dict(
+                        name=name, route="cuda",
+                        source=f"rdfc_gan_torch/csrc/{src}.cu",
+                        replaces=replaces, max_abs_err=err,
+                        ms=time_ms(kernel),
+                        plain_ms=time_ms(plain, reps=plain_reps),
+                        bound_ms=bnd, bound_by=by,
+                        library_ms=None if library is None
+                        else time_ms(library))
+
+                row("shift_mask_gather", "shift_mask_gather",
+                    "rdfc_gan_tpu/ops/pallas/mask_kernel.py:54", err_g,
+                    lambda: mask_kernel.shift_mask_gather(dM, sy, sx, S, dt),
+                    lambda: mask_kernel.shift_mask_gather_plain(
+                        dM, sy, sx, S, dt),
+                    B * HW * (S * S * 2 + K * (4 + 4 + 2)), B * K * HW,
+                    library=lambda: torch.gather(dMf, 1, idx))
+                row("nlspn_propagate_x", "nlspn_propagate",
+                    "rdfc_gan_tpu/ops/pallas/nlspn_kernel.py:35", err_x,
+                    lambda: nlspn_kernel.propagate_x(feat0, M16, None, T, R,
+                                                     dt),
+                    lambda: st.propagate_x_plain(feat0, M16, None, T, R, dt),
+                    mbytes + 2 * plane + stack, chain_ops, plain_reps=3)
+                row("nlspn_reverse_chain", "nlspn_reverse_chain",
+                    "rdfc_gan_tpu/ops/pallas/nlspn_kernel.py:89", err_c,
+                    lambda: nlspn_kernel.reverse_chain(g0, M16, None, T, R,
+                                                       dt),
+                    lambda: st.reverse_chain_plain(g0, M16, None, T, R, dt),
+                    mbytes + 2 * plane + stack, chain_ops, plain_reps=3)
+                row("shift_correlation", "shift_correlation",
+                    "rdfc_gan_tpu/ops/pallas/mask_kernel.py:167", err_s,
+                    lambda: mask_kernel.shift_correlation(G, X, S, lo),
+                    lambda: mask_kernel.shift_correlation_plain(G, X, S, lo),
+                    2 * stack + B * S * S * HW * 4, chain_ops, plain_reps=3)
+    for r in rows.values():
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
+              f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
+    return rows
+
+
 # offsets of the served model: the scale of conv_offset_aff is set so that
 # the probe batch's max |offset| is this, inside the R=2 stencil window
 # with the guard's 1.25 margin
 TARGET_MAX_OFFSET = 1.5
 
 
-def _seeded_generator(cfg, device, batch):
+def _seeded_generator(cfg, device, batch, train: bool = False):
     """The config's generator with torch's default init from a seed, and
     conv_offset_aff (zero-initialised, as in the reference, which would make
     the propagation the identity) set from a seeded generator, its offset
-    channels scaled to TARGET_MAX_OFFSET on ``batch``."""
+    channels scaled to TARGET_MAX_OFFSET on ``batch`` with BatchNorm in
+    eval mode (``train`` False: as served) or train mode (batch
+    statistics: as trained; the running statistics are put back after)."""
     import torch
 
     from rdfc_gan_torch import models  # noqa: F401
     from rdfc_gan_torch.registry import build_generator
 
     torch.manual_seed(0)
-    g = build_generator(cfg.model.G.to_dict()).to(device).eval()
+    g = build_generator(cfg.model.G.to_dict()).to(device).train(train)
     oa = g.nlspn_refine_module.prop_layer.conv_offset_aff
     gen = torch.Generator(device=device).manual_seed(1)
     with torch.no_grad():
         oa.weight.uniform_(-1.0, 1.0, generator=gen)
         oa.bias.uniform_(-1.0, 1.0, generator=gen)
+        buffers = {k: v.clone() for k, v in g.named_buffers()}
         seen = {}
         hook = oa.register_forward_hook(
             lambda m, i, o: seen.setdefault("raw", o))
         g(batch["rgb"], batch["raw_depth"])
         hook.remove()
+        for k, v in g.named_buffers():
+            v.copy_(buffers[k])
         n_off = 2 * (oa.out_channels // 3)
         scale = TARGET_MAX_OFFSET / float(seen["raw"][:, :n_off].abs().max())
         oa.weight[:n_off] *= scale
         oa.bias[:n_off] *= scale
-    return g
+    return g.eval()
 
 
 def serve_phase(workdir):
@@ -347,6 +472,236 @@ def serve_phase(workdir):
     return counts, engine, batch
 
 
+def _train_args(workdir, pth):
+    return ["--dataset", "synthetic", "--model_cfg_path",
+            os.path.join(ROOT, "configs", "rdf_gan_nlspn_config.yaml"),
+            "--work_dir", os.path.join(workdir, "train"),
+            "--batch_size", str(B), "--out_height", str(H),
+            "--out_width", str(W), "--device", "cuda", "--n_epochs", "1",
+            "--log_interval", "1", "--save_interval", "1",
+            "--val_interval", "1", "--start_eval_epoch", "0",
+            "--load_from", pth]
+
+
+def _seeded_nets(cfg, workdir):
+    """The seeded generator of the serve phase and a PatchGAN from a seed,
+    saved as one reference-schema checkpoint."""
+    import torch
+
+    from rdfc_gan_torch import test as port_test
+    from rdfc_gan_torch.registry import build_discriminator
+
+    first = next(iter(port_test.build_val_loader(cfg, torch.device("cuda"))))
+    g = _seeded_generator(cfg, "cuda", first, train=True)
+    torch.manual_seed(2)
+    d = build_discriminator(cfg.model.D.to_dict())
+    pth = os.path.join(workdir, "GD.pth")
+    torch.save({"G_state_dict": g.state_dict(),
+                "D_state_dict": d.state_dict()}, pth)
+    return pth
+
+
+def train_phase(workdir):
+    """Train the config one epoch at full width through
+    rdfc_gan_torch.train.run at the config's compute type, counting kernel
+    launches; check the losses, that G and D moved, the counts, and that
+    rdfc_gan_torch.test serves best.pth to the in-train metrics. Returns
+    (launch counts, engine, a batch, the checkpoint of the seeded nets)."""
+    import numpy as np
+    import torch
+
+    from rdfc_gan_torch import test as port_test
+    from rdfc_gan_torch import train as port_train
+    from rdfc_gan_torch.cli import parse_config
+    from rdfc_gan_torch.ops.kernels import build
+    from rdfc_gan_torch.ops.nlspn_guard import escalate_nlspn_cfg
+
+    pth = _seeded_nets(parse_config(_train_args(workdir, "")[:-2]), workdir)
+    args = _train_args(workdir, pth)
+    cfg = parse_config(args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    res = port_train.run(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    engine, steps = res["engine"], res["steps"]
+    T_cfg = engine.modules["G"].nlspn_spec.prop_time
+    evals = engine.n_forward
+    want = {"shift_mask_scatter": steps + evals, "shift_mask_gather": steps,
+            "nlspn_propagate_x": steps * T_cfg,
+            "nlspn_reverse_chain": steps * T_cfg,
+            "shift_correlation": steps, "nlspn_propagate": evals * T_cfg}
+    sec = np.asarray(res["step_seconds"][1:]) * 1e3  # the first warms up
+    print(f"train: {os.path.basename(cfg.model_cfg_path)} at {H}x{W}, batch "
+          f"{B}, {steps} steps + {evals} eval forwards, compute dtype "
+          f"{engine.compute_dtype}, {cfg.gan_loss_type}, wall {wall:.2f} s")
+    print("  last losses: " + ", ".join(
+        f"{k}={v:.6g}" for k, v in sorted(res["losses"].items())))
+    print(f"  step ms (host clock, each ending in its loss readback; first "
+          f"step left out): median {np.median(sec):.3f}, p90 "
+          f"{np.percentile(sec, 90):.3f}, max {sec.max():.3f}; "
+          f"{B / (np.median(sec) / 1e3):.2f} img/s trained; peak device "
+          f"memory {peak / 2**20:.1f} MiB")
+    print(f"  kernel launches {counts}; expected {want}")
+    print("  metrics after the epoch: " + ", ".join(
+        f"{k}={v:.6g}" for k, v in res["metrics"].items()))
+    if not all(np.isfinite(v) for v in res["losses"].values()):
+        fail(f"non-finite losses {res['losses']}")
+    if counts != want:
+        fail(f"launch counts {counts} are not {want}")
+    before = torch.load(pth, map_location="cpu", weights_only=True)
+    for net in ("G", "D"):
+        sd = engine.modules[net].state_dict()
+        moved = sum(int(not torch.equal(sd[k].cpu(), v))
+                    for k, v in before[f"{net}_state_dict"].items()
+                    if "running" not in k and "num_batches" not in k)
+        print(f"  {net}: {moved} parameter tensors changed")
+        if moved == 0:
+            fail(f"{net}'s parameters did not change")
+    best = os.path.join(cfg.work_dir, "best.pth")
+    res_best = port_test.run(parse_config(
+        ["--dataset", "synthetic", "--model_cfg_path", cfg.model_cfg_path,
+         "--work_dir", os.path.join(workdir, "serve_best"),
+         "--batch_size", str(B), "--out_height", str(H), "--out_width",
+         str(W), "--device", "cuda", "--load_from", best]))
+    served = res_best["metrics"]
+    if not all(np.isfinite(v) for v in served.values()):
+        fail(f"rdfc_gan_torch.test on best.pth: non-finite {served}")
+    _, escalated = escalate_nlspn_cfg(cfg.model.G.to_dict(),
+                                      res_best["max_offset"])
+    if escalated:
+        # the offset guard rebuilt the generator (larger radius or the
+        # gather), so the served metrics differ from the in-train ones by
+        # design
+        print(f"  rdfc_gan_torch.test serves best.pth (max|offset| "
+              f"{res_best['max_offset']:.3f}: the guard rebuilt G, so its "
+              f"metrics are not compared): " + ", ".join(
+                  f"{k}={v:.6g}" for k, v in served.items()))
+    else:
+        for k, v in served.items():
+            if not np.isclose(v, res["metrics"][k], rtol=SERVE_RTOL,
+                              atol=SERVE_ATOL):
+                fail(f"rdfc_gan_torch.test on best.pth: {k}={v}, the "
+                     f"epoch's evaluation {res['metrics'][k]}")
+        print(f"  rdfc_gan_torch.test serves best.pth to the same metrics "
+              f"(rtol {SERVE_RTOL:g}, max|offset| "
+              f"{res_best['max_offset']:.3f})")
+    batch = next(iter(port_train.build_train_loader(cfg, engine.device)))
+    return counts, engine, batch, pth
+
+
+# kernels vs plain on one f32 train step: relative to each gradient
+# tensor's largest entry (the kernels agree bit for bit with their plain
+# versions; deterministic cuDNN leaves only atomics elsewhere)
+STEP_RTOL = 1e-4
+
+
+def step_compare_phase(workdir, pth):
+    """One f32 train step with deterministic cuDNN from the seeded nets,
+    once through the kernels and once with the plain versions patched in;
+    the losses and every parameter gradient of G and D must agree."""
+    import torch
+
+    from rdfc_gan_torch.cli import parse_config
+    from rdfc_gan_torch.engines import build_engine
+    from rdfc_gan_torch.ops import nlspn_stencil as st
+    from rdfc_gan_torch.ops.kernels import build, mask_kernel, nlspn_kernel
+    from rdfc_gan_torch.train import build_train_loader
+    from rdfc_gan_torch.utils.checkpoint import load_checkpoint
+
+    cfg = parse_config(_train_args(workdir, pth))
+    cfg["compute_dtype"] = "float32"
+    batch = next(iter(build_train_loader(cfg, torch.device("cuda"))))
+    plain = {(mask_kernel, "_scatter"): mask_kernel.scatter_shift_masks_plain,
+             (mask_kernel, "shift_mask_gather"):
+                 mask_kernel.shift_mask_gather_plain,
+             (mask_kernel, "shift_correlation"):
+                 mask_kernel.shift_correlation_plain,
+             (nlspn_kernel, "propagate_x"): st.propagate_x_plain,
+             (nlspn_kernel, "reverse_chain"): st.reverse_chain_plain}
+    out = {}
+    for path in ("kernels", "plain"):
+        engine = build_engine(cfg, is_train=True, steps_per_epoch=16)
+        load_checkpoint(engine.modules, pth)
+        build.reset_launches()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(torch.backends.cudnn.flags(
+                enabled=True, benchmark=False, deterministic=True,
+                allow_tf32=False))
+            if path == "plain":
+                for (mod, name), fn in plain.items():
+                    stack.enter_context(mock.patch.object(mod, name, fn))
+            losses = engine.train_step(batch)
+            torch.cuda.synchronize()
+        grads = {f"{net}.{n}": p.grad.detach().clone()
+                 for net in ("G", "D")
+                 for n, p in engine.modules[net].named_parameters()
+                 if p.grad is not None}
+        out[path] = (losses, grads, dict(build.LAUNCHES))
+        del engine
+    (lk, gk, ck), (lp, gp, cp) = out["kernels"], out["plain"]
+    print(f"kernels vs plain, one f32 train step (deterministic cuDNN): "
+          f"launches {ck} vs {cp}")
+    if cp or not ck:
+        fail("the plain step launched a kernel, or the kernel step none")
+    worst = max((float((lk[k] - lp[k]).abs()) / max(float(lp[k].abs()),
+                                                     1e-30), k) for k in lp)
+    print(f"  losses: max relative difference {worst[0]:.3e} ({worst[1]})")
+    if set(gk) != set(gp) or worst[0] > STEP_RTOL:
+        fail("losses or the set of gradients differ")
+    errs = sorted(((float((gk[k] - gp[k]).abs().max())
+                    / max(float(gp[k].abs().max()), 1e-30), k) for k in gp),
+                  reverse=True)
+    print(f"  {len(errs)} gradients: max |kernel - plain| / max|plain| "
+          f"{errs[0][0]:.3e} ({errs[0][1]}); next {errs[1][0]:.3e} "
+          f"({errs[1][1]}) (tolerance {STEP_RTOL:g})")
+    if errs[0][0] > STEP_RTOL:
+        fail("a gradient of the kernel step disagrees with the plain step")
+
+
+def train_profile_phase(engine, batch, n: int = 2):
+    """Device time by kernel over ``n`` train steps, and the device's busy
+    share of the host wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    engine.train_step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            engine.train_step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    _print_profile(prof, f"train profile ({n} steps of batch {B})", "step",
+                   wall_ms, n, top=20)
+
+
+def _print_profile(prof, title, unit, wall_ms, n, top=15):
+    import torch
+
+    # device-side events only: the aten ops that launch them report the
+    # same time again
+    evts = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in evts) / 1e3 / n
+    print(f"{title}: wall {wall_ms:.3f} ms per {unit}, device busy "
+          f"{total:.3f} ms "
+          + (f"({100 * total / wall_ms:.1f}%)" if total else
+             "(not measured: the profiler saw no device time)"))
+    evts.sort(key=lambda e: -e.self_device_time_total)
+    for e in evts[:top]:
+        print(f"  {e.self_device_time_total / 1e3 / n:9.3f} ms "
+              f"x{e.count // n:<4d} {e.key[:90]}")
+
+
 def profile_phase(engine, batch, n: int = 3):
     """Device time by kernel over ``n`` served batches, and the device's
     busy share of the host wall time."""
@@ -364,20 +719,8 @@ def profile_phase(engine, batch, n: int = 3):
                                 raw_depth=batch["raw_depth"])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    # device-side events only: the aten ops that launch them report the
-    # same time again
-    evts = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    total = sum(e.self_device_time_total for e in evts) / 1e3 / n
-    print(f"profile ({n} forwards of batch {B}): wall {wall_ms:.3f} ms per "
-          f"forward, device busy {total:.3f} ms "
-          + (f"({100 * total / wall_ms:.1f}%)" if total else
-             "(not measured: the profiler saw no device time)"))
-    evts.sort(key=lambda e: -e.self_device_time_total)
-    for e in evts[:15]:
-        print(f"  {e.self_device_time_total / 1e3 / n:9.3f} ms "
-              f"x{e.count // n:<4d} {e.key[:90]}")
+    _print_profile(prof, f"profile ({n} forwards of batch {B})", "forward",
+                   wall_ms, n)
 
 
 def main():
@@ -402,11 +745,22 @@ def main():
         print(f"  {name}: " + " | ".join(lines))
 
     rows = kernel_phase()
+    train_rows = backward_kernel_phase()
     with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=ROOT) as workdir:
         counts, engine, batch = serve_phase(workdir)
         profile_phase(engine, batch)
+        del engine
+        train_counts, engine, batch, pth = train_phase(workdir)
+        train_profile_phase(engine, batch)
+        del engine
+        step_compare_phase(workdir, pth)
+    # launches: the scatter and the served chain from the serve run, the
+    # backward kernels from the train run
     for name, row in rows.items():
         row["launches"] = counts[name]
+    for name, row in train_rows.items():
+        row["launches"] = train_counts[name]
+    rows.update(train_rows)
     print(gpu_line())
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

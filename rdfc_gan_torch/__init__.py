@@ -1,6 +1,9 @@
 """rdfc_gan_torch — the PyTorch/CUDA port of rdfc_gan_tpu for NVIDIA H100.
 
-Slice 1: the RDF-GAN NLSPN serving path (``python -m rdfc_gan_torch.test``),
-with hand-written CUDA kernels for the shift-mask scatter and the
-propagation chain (``csrc/``). Imports torch, never JAX.
+Slice 1: the RDF-GAN NLSPN serving path (``python -m rdfc_gan_torch.test``).
+Slice 2: its train step, G and the PatchGAN D (``python -m
+rdfc_gan_torch.train``). Hand-written CUDA kernels (``csrc/``) carry the
+NLSPN shift-mask scatter and gather, the propagation chain with and without
+its input stack, the reverse gradient chain and the shift correlation.
+Imports torch, never JAX.
 """

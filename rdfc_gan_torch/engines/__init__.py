@@ -3,11 +3,12 @@ from .base import BaseEngine, resolve_device
 from .rdf_gan import RDFGAN
 
 
-def build_engine(cfg, is_train: bool = False):
+def build_engine(cfg, is_train: bool = False, steps_per_epoch: int = 1):
     """Dispatch on ``cfg.model.type`` (reference train.py:84-103)."""
-    from .. import models  # noqa: F401  (registers the generators)
+    from .. import models  # noqa: F401  (registers the models)
 
-    return MODELS.get(cfg.model.type)(cfg, is_train=is_train)
+    return MODELS.get(cfg.model.type)(cfg, is_train=is_train,
+                                      steps_per_epoch=steps_per_epoch)
 
 
 __all__ = ["BaseEngine", "RDFGAN", "build_engine", "resolve_device"]

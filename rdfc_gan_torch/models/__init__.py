@@ -1,4 +1,6 @@
-"""Models of the port; importing registers them with ``GENERATORS``."""
+"""Models of the port; importing registers them with ``GENERATORS`` and
+``DISCRIMINATORS``."""
+from .discriminators import PatchGANDiscriminator
 from .rdf_generator import RDFGenerator
 
-__all__ = ["RDFGenerator"]
+__all__ = ["PatchGANDiscriminator", "RDFGenerator"]

@@ -1,7 +1,11 @@
-"""Layers of the RDFGenerator (port of rdfc_gan_tpu/models/layers.py, the
-subset the generator uses), NCHW, with the reference PyTorch state-dict
-names:
+"""Layers of the RDFGenerator and the PatchGAN (port of
+rdfc_gan_tpu/models/layers.py, the subset they use), NCHW, with the
+reference PyTorch state-dict names:
 
+  * ``BatchNorm2d`` — the JAX ``BatchNorm`` (layers.py:150-208): in train
+    mode f32 batch statistics with the biased variance, for normalising and
+    for the running update (torch momentum 0.1 = flax 0.9); eval mode is
+    torch's. The state dict is ``nn.BatchNorm2d``'s.
   * ``ConvBNAct`` / ``ConvTBNAct`` — encoder_decoder/common.py:29-63:
     Sequential(conv[, BatchNorm2d(eps 1e-5)][, LeakyReLU(0.2)]), conv bias
     iff no BN; the transposed conv has torch ConvTranspose2d(3, 2, 1, 1)
@@ -22,6 +26,33 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose running variance follows the JAX package:
+    in train mode torch updates ``running_var`` with the unbiased batch
+    variance, the JAX ``BatchNorm`` (layers.py:150-208) with the biased one,
+    which both use to normalise. The batch statistics are f32 whatever the
+    activation type (ATen's and cuDNN's batch norm accumulate in f32).
+
+    Train mode runs torch's own fused batch norm, which updates the running
+    statistics in place, then moves ``running_var`` from the unbiased to
+    the biased variance: with n values per channel,
+    rv_new = (1 - m) rv_old + m u and u = b n / (n - 1), so the wanted
+    (1 - m) rv_old + m b is rv_new (n - 1) / n + (1 - m) rv_old / n."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        n = x.numel() // x.shape[1]
+        old = self.running_var.clone()
+        y = super().forward(x)
+        # through .data, as batch norm's own in-place update: autograd may
+        # hold running_var (unused by a train-mode backward), and a version
+        # bump would fail a backward through an earlier forward
+        self.running_var.data.mul_((n - 1) / n).add_(
+            old, alpha=(1 - self.momentum) / n)
+        return y
+
+
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Per-image, per-channel normalization with biased variance; no affine
     (torch InstanceNorm2d default)."""
@@ -36,7 +67,7 @@ class ConvBNAct(nn.Sequential):
         pad = (kernel - 1) // 2 if padding is None else padding
         layers = [nn.Conv2d(cin, cout, kernel, stride, pad, bias=not bn)]
         if bn:
-            layers.append(nn.BatchNorm2d(cout, eps=1e-5))
+            layers.append(BatchNorm2d(cout, eps=1e-5))
         if relu:
             layers.append(nn.LeakyReLU(0.2))
         super().__init__(*layers)
@@ -50,7 +81,7 @@ class ConvTBNAct(nn.Sequential):
                  relu: bool = True):
         layers = [nn.ConvTranspose2d(cin, cout, 3, 2, 1, 1, bias=not bn)]
         if bn:
-            layers.append(nn.BatchNorm2d(cout, eps=1e-5))
+            layers.append(BatchNorm2d(cout, eps=1e-5))
         if relu:
             layers.append(nn.LeakyReLU(0.2))
         super().__init__(*layers)

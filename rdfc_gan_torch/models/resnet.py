@@ -10,6 +10,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .layers import BatchNorm2d
+
 BLOCKS = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3)}
 
 
@@ -17,14 +19,14 @@ class BasicBlock(nn.Module):
     def __init__(self, cin: int, planes: int, stride: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, planes, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.bn1 = BatchNorm2d(planes, eps=1e-5)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.bn2 = BatchNorm2d(planes, eps=1e-5)
         self.downsample = None
         if stride != 1 or cin != planes:
             self.downsample = nn.Sequential(
                 nn.Conv2d(cin, planes, 1, stride, bias=False),
-                nn.BatchNorm2d(planes, eps=1e-5))
+                BatchNorm2d(planes, eps=1e-5))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x)))

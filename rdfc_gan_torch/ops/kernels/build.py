@@ -7,7 +7,9 @@ loaded with ``ctypes``. ``build_all`` starts one ``nvcc`` per source at once.
 Nothing here runs at import: the CPU tests import every module.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a wrapper adds
-to it right after a launch succeeds and nowhere else.
+to it right after a launch succeeds and nowhere else. One source may hold
+two kernels: ``nlspn_propagate.cu`` is counted as ``nlspn_propagate`` (the
+served chain) and ``nlspn_propagate_x`` (the chain that also stores X).
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("shift_mask_scatter", "nlspn_propagate")
+SOURCES = ("shift_mask_scatter", "shift_mask_gather", "nlspn_propagate",
+           "nlspn_reverse_chain", "shift_correlation")
 
 LAUNCHES: collections.Counter = collections.Counter()
 # ptxas report (registers, shared memory, spills) of each built kernel
@@ -40,9 +43,18 @@ _SIGNATURES = {
     "shift_mask_scatter": (
         "shift_mask_scatter",
         [_P, _P, _P, _P, _I, _I, ctypes.c_longlong, _I, _I, _P]),
+    "shift_mask_gather": (
+        "shift_mask_gather",
+        [_P, _P, _P, _P, _I, _I, ctypes.c_longlong, _I, _I, _I, _P]),
     "nlspn_propagate": (
         "nlspn_propagate",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "nlspn_reverse_chain": (
+        "nlspn_reverse_chain",
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "shift_correlation": (
+        "shift_correlation",
+        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 

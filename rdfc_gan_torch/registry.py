@@ -1,6 +1,7 @@
 """String-keyed component registries (port of rdfc_gan_tpu/registry.py):
 YAML ``type:`` strings dispatch to the constructors registered here, under
-the reference configs' keys (``RDFGenerator``, ``RDFGAN``, ``synthetic``).
+the reference configs' keys (``RDFGenerator``, ``PatchGANDiscriminator``,
+``RDFGAN``, ``synthetic``).
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ class Registry:
 
 
 GENERATORS = Registry("generators")
+DISCRIMINATORS = Registry("discriminators")
 MODELS = Registry("models")  # GAN engines: RDFCGAN / RDFGAN
 DATASETS = Registry("datasets")
 
@@ -50,6 +52,10 @@ DATASETS = Registry("datasets")
 def build_generator(cfg: Dict[str, Any], **extra):
     """Mirror of the (missing) reference ``build_generator`` factory."""
     return GENERATORS.build(cfg, **extra)
+
+
+def build_discriminator(cfg: Dict[str, Any], **extra):
+    return DISCRIMINATORS.build(cfg, **extra)
 
 
 def build_dataset(cfg: Dict[str, Any], **extra):

@@ -64,15 +64,19 @@ def cal_fps(engine, loader, n_images: int = 300, warmup: int = 5,
     return fps
 
 
-def build_val_loader(cfg, device) -> DataLoader:
+def build_split(cfg, mode: str):
+    """The ``mode`` ("train" or "val") split of ``cfg.dataset``."""
     from . import data  # noqa: F401  (registers the datasets)
 
     common = dict(num_classes=cfg.num_classes, seed=cfg.seed)
     ds_kwargs = dict(data_root=cfg.data_root, **common)
     if cfg.dataset == "synthetic":
         ds_kwargs = dict(height=cfg.out_height, width=cfg.out_width, **common)
-    val_ds = build_dataset(dict(type=cfg.dataset, mode="val", **ds_kwargs))
-    return DataLoader(val_ds, cfg.batch_size, device=device,
+    return build_dataset(dict(type=cfg.dataset, mode=mode, **ds_kwargs))
+
+
+def build_val_loader(cfg, device) -> DataLoader:
+    return DataLoader(build_split(cfg, "val"), cfg.batch_size, device=device,
                       num_workers=cfg.num_workers)
 
 

@@ -1,4 +1,4 @@
-from .logger import Logger
+from .logger import Logger, MovingAverage
 from .seed import set_random_seed
 
-__all__ = ["Logger", "set_random_seed"]
+__all__ = ["Logger", "MovingAverage", "set_random_seed"]

@@ -1,14 +1,30 @@
-"""Checkpoint loading. The port's checkpoint is the reference ``.pth``: a
-raw generator state dict, or the reference multi-net schema with one
-``{net}_state_dict`` entry per engine module (lib/utils/checkpoint.py:
-27-30), read with ``weights_only=True`` (a tensor-only load; full unpickling
-of a downloaded file could run arbitrary code)."""
+"""Checkpoints. The port's checkpoint is the reference ``.pth``: a raw
+generator state dict, or the reference multi-net schema with one
+``{net}_state_dict`` entry per engine module and a ``meta`` dict
+(lib/utils/checkpoint.py:27-30), read with ``weights_only=True`` (a
+tensor-only load; full unpickling of a downloaded file could run arbitrary
+code). Optimizer state and resume wait for a later slice."""
 
 from __future__ import annotations
 
-from typing import Dict
+import os
+from typing import Dict, Optional
 
 import torch
+
+
+def save_checkpoint(modules: Dict[str, torch.nn.Module], filename: str,
+                    meta: Optional[Dict] = None):
+    """Write ``{net}_state_dict`` for every module (on the CPU) and
+    ``meta`` (e.g. epoch, best), atomically."""
+    obj = {f"{name}_state_dict": {k: v.detach().cpu()
+                                  for k, v in mod.state_dict().items()}
+           for name, mod in modules.items()}
+    obj["meta"] = dict(meta or {})
+    os.makedirs(os.path.dirname(os.path.abspath(filename)), exist_ok=True)
+    tmp = f"{filename}.tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, filename)
 
 
 def load_checkpoint(modules: Dict[str, torch.nn.Module],

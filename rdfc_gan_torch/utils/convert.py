@@ -1,4 +1,9 @@
-"""JAX (Flax) RDFGenerator weights -> the port's state dict.
+"""JAX (Flax) RDFGenerator and PatchGAN weights -> the port's state dicts.
+
+``patchgan_state_dict_from_jax`` is the exact inverse of
+``tools/convert_torch_ckpt.py:convert_patchgan``: ``Conv_{i}`` (HWIO) ->
+``model.{i}.conv`` (OIHW) and ``BatchNorm_{j}`` -> ``model.{i}.bn`` for the
+middle layers.
 
 ``rdf_generator_state_dict_from_jax`` is the exact inverse of the JAX
 package's ``utils/torch_convert.py:convert_rdf_generator``: it takes the
@@ -164,4 +169,22 @@ def rdf_generator_state_dict_from_jax(params: Dict[str, Any],
                                ("Conv_1", "beta_weight_layer")):
                 sd[f"{pre}.{name}.weight"] = _oihw(fl[conv]["kernel"])
                 sd[f"{pre}.{name}.bias"] = _t(fl[conv]["bias"])
+    return sd
+
+
+def patchgan_state_dict_from_jax(params: Dict[str, Any],
+                                 batch_stats: Dict[str, Any]
+                                 ) -> Dict[str, torch.Tensor]:
+    """Flax PatchGANDiscriminator (params, batch_stats) numpy trees -> state
+    dict of ``rdfc_gan_torch.models.PatchGANDiscriminator``. The JAX tree
+    counts no batches, so the BatchNorms' ``num_batches_tracked`` are 0."""
+    sd: Dict[str, torch.Tensor] = {}
+    n = sum(1 for k in params if k.startswith("Conv_"))
+    for i in range(n):
+        conv = params[f"Conv_{i}"]
+        sd[f"model.{i}.conv.weight"] = _oihw(conv["kernel"])
+        sd[f"model.{i}.conv.bias"] = _t(conv["bias"])
+        if 0 < i < n - 1:
+            j = f"BatchNorm_{i - 1}"
+            _bn(sd, f"model.{i}.bn", params[j], batch_stats[j])
     return sd

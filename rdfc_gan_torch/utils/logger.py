@@ -1,11 +1,29 @@
-"""Logger to stdout and ``work_dir/test.log`` (reference helper.py:79-170,
-single process)."""
+"""Logger to stdout and a file in ``work_dir`` (reference helper.py:79-170,
+single process), and the windowed moving average of the train losses
+(rdfc_gan_tpu/utils/logger.py:MovingAverage)."""
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Optional
+from collections import deque
+from typing import Dict, Optional
+
+
+class MovingAverage:
+    """Windowed moving average over dicts of scalar losses."""
+
+    def __init__(self, window: int = 100):
+        self.window = window
+        self._buffers: Dict[str, deque] = {}
+
+    def update(self, stats: Dict[str, float]):
+        for k, v in stats.items():
+            self._buffers.setdefault(k, deque(maxlen=self.window)).append(
+                float(v))
+
+    def mean(self) -> Dict[str, float]:
+        return {k: sum(b) / max(len(b), 1) for k, b in self._buffers.items()}
 
 
 class Logger:

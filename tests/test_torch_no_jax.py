@@ -1,6 +1,7 @@
-"""The port stands alone and never hides the device: it imports no JAX and
-nothing of the JAX package, ``--device cuda`` without a card raises, and a
-wrapper given a non-CPU tensor never falls back to its plain version."""
+"""The port stands alone and never hides the device: no module of it
+imports JAX or anything of the JAX package, ``--device cuda`` without a
+card raises, a wrapper given a non-CPU tensor never falls back to its plain
+version, and the results of the kernel path stay in the autograd graph."""
 
 import os
 import subprocess
@@ -13,12 +14,19 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_imports_no_jax():
+    """Every module of the package, walked, and chip_smoke."""
     code = (
-        "import sys\n"
-        "import chip_smoke, rdfc_gan_torch, rdfc_gan_torch.test\n"
-        "import rdfc_gan_torch.utils.convert, rdfc_gan_torch.models\n"
+        "import importlib, pkgutil, sys\n"
+        "import chip_smoke, rdfc_gan_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    rdfc_gan_torch.__path__, 'rdfc_gan_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "assert {'rdfc_gan_torch.train', 'rdfc_gan_torch.losses.gan_loss',\n"
+        "        'rdfc_gan_torch.ops.kernels.mask_kernel'} <= set(names)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'optax', 'rdfc_gan_tpu'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'rdfc_gan_tpu',\n"
+        "              'tools'))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -26,14 +34,24 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr
 
 
-def test_device_cuda_without_card_raises(monkeypatch, tmp_path):
-    from rdfc_gan_torch.test import main
-
+def _cuda_without_card_raises(main, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--dataset", "synthetic", "--model_cfg_path",
               os.path.join(ROOT, "configs", "rdf_gan_nlspn_config.yaml"),
               "--work_dir", str(tmp_path), "--device", "cuda"])
+
+
+def test_device_cuda_without_card_raises(monkeypatch, tmp_path):
+    from rdfc_gan_torch.test import main
+
+    _cuda_without_card_raises(main, monkeypatch, tmp_path)
+
+
+def test_train_device_cuda_without_card_raises(monkeypatch, tmp_path):
+    from rdfc_gan_torch.train import main
+
+    _cuda_without_card_raises(main, monkeypatch, tmp_path)
 
 
 class _OnCard:
@@ -67,3 +85,70 @@ def test_propagation_wrappers_never_take_plain_on_cuda(monkeypatch):
                  lambda: nlspn_kernel.propagate_auto(x, x, 18)):
         with pytest.raises(RuntimeError, match="needs a CUDA device"):
             call()
+
+
+def test_backward_wrappers_never_take_plain_on_cuda(monkeypatch):
+    from rdfc_gan_torch.ops import nlspn_stencil
+    from rdfc_gan_torch.ops.kernels import mask_kernel, nlspn_kernel
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for mod, name in ((mask_kernel, "shift_mask_gather_plain"),
+                      (mask_kernel, "shift_correlation_plain"),
+                      (nlspn_kernel, "propagate_x_plain"),
+                      (nlspn_kernel, "reverse_chain_plain"),
+                      (nlspn_stencil, "propagate_x_plain"),
+                      (nlspn_stencil, "reverse_chain_plain")):
+        monkeypatch.setattr(mod, name, _never)
+    x = _OnCard()
+    for call in (
+            lambda: mask_kernel.shift_mask_gather(x, x, x, 8, torch.float32),
+            lambda: mask_kernel.shift_correlation(x, x, 8, -3),
+            lambda: nlspn_kernel.propagate_x(x, x, None, 18, 2,
+                                             torch.float32),
+            lambda: nlspn_kernel.reverse_chain(x, x, None, 18, 2,
+                                               torch.float32)):
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            call()
+
+
+class _FakeLib:
+    """Stands in for a built kernel library: every launch succeeds and
+    writes nothing."""
+
+    def __getattr__(self, name):
+        return lambda *args: 0
+
+
+def test_kernel_results_carry_grad_fn(monkeypatch):
+    """Fault 1 of slice 1: a ctypes launch returns a tensor outside the
+    autograd graph. The kernel path (here on meta tensors, which are not
+    CPU tensors, with the launch faked) must hand back results with a
+    grad_fn whenever an input requires grad, and route their backward
+    through the backward kernels."""
+    from rdfc_gan_torch.ops.kernels import build, mask_kernel, nlspn_kernel
+
+    monkeypatch.setattr(build, "library", lambda name: _FakeLib())
+    monkeypatch.setattr(build, "require_cuda", lambda name, *t: None)
+    monkeypatch.setattr(build, "stream_handle", lambda: None)
+    build.reset_launches()
+    meta = dict(device="meta")
+    B, K, S, H, W, T = 2, 36, 8, 5, 6, 3
+    w = torch.empty((B, K, H, W), **meta).requires_grad_(True)
+    idx = torch.empty((B, K, H, W), dtype=torch.int32, **meta)
+    M = mask_kernel.scatter_shift_masks(w, idx, idx, S)
+    assert M.grad_fn is not None
+    feat = torch.empty((B, 1, H, W), **meta).requires_grad_(True)
+    out = nlspn_kernel.nlspn_stencil_propagate(
+        feat, M.reshape(B, S, S, H, W), None, T, 2, False)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert w.grad is not None and feat.grad is not None
+    assert dict(build.LAUNCHES) == {
+        "shift_mask_scatter": 1, "nlspn_propagate_x": T,
+        "nlspn_reverse_chain": T, "shift_correlation": 1,
+        "shift_mask_gather": 1}
+    with torch.no_grad():  # no gradient wanted: the served chain
+        nlspn_kernel.nlspn_stencil_propagate(feat, M.reshape(B, S, S, H, W),
+                                             None, T, 2, False)
+    assert build.LAUNCHES["nlspn_propagate"] == T
+    build.reset_launches()
