@@ -22,7 +22,15 @@ and PyTorch built for CUDA. It
 6. runs one f32 train step through the kernels and one with their plain
    versions patched in (deterministic cuDNN) and compares the losses and
    every parameter gradient;
-7. prints the card's name and power limit, one ``{"kernels": [...]}`` line,
+7. holds the instance-norm kernels against their plain versions at the four
+   W-AdaIN shapes (f32 and bf16), then serves the flagship RDFC-GAN
+   (``configs/rdf_cycle_patchgan_config.yaml``: G_label -> G_normal ->
+   G_A2B) at full width through ``python -m rdfc_gan_torch.test``'s code
+   path, with and without ``--depth_only``, from seeded weights: latency,
+   img/s, ``--cal_fps``, peak memory, 4 IN launches per forward, pred_depth
+   against the plain IN path, the time of each net and of its convolution
+   kinds, and a profile;
+8. prints the card's name and power limit, one ``{"kernels": [...]}`` line,
    and ``{"ok": true, "device": {...}}`` as the last line.
 
 It exits non-zero, printing no result, when there is no card or no
@@ -31,6 +39,7 @@ It exits non-zero, printing no result, when there is no card or no
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -46,11 +55,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# f64 FLOP/s outside the tensor cores (the same data sheet)
+PEAK_F64_FLOPS = 34e12
 
 B, H, W, T = 4, 224, 304, 18
 SCATTER_RTOL, SCATTER_ATOL = 1e-6, 1e-6
 PROP_RTOL, PROP_ATOL = 1e-4, 1e-5
 SERVE_RTOL, SERVE_ATOL = 1e-4, 1e-5
+# instance norm kernels vs plain: the plain versions sum in the kernels'
+# order and take a correctly rounded rsqrt, so the two agree bit for bit
+IN_RTOL, IN_ATOL = 0.0, 0.0
+# W-AdaIN shapes of the generator at 224x304, batch 4 (fuse_layer1..4)
+IN_SHAPES = ((B, 512, 14, 19), (B, 768, 28, 38), (B, 384, 56, 76),
+             (B, 192, 112, 152))
 
 
 def fail(msg: str):
@@ -410,7 +427,8 @@ def serve_phase(workdir):
     engine, metrics = res["engine"], res["metrics"]
     G = engine.modules["G"]
     T_cfg = G.nlspn_spec.prop_time
-    per_forward = {"shift_mask_scatter": 1, "nlspn_propagate": T_cfg}
+    per_forward = {"shift_mask_scatter": 1, "nlspn_propagate": T_cfg,
+                   "instance_norm_fwd": 4}
     print(f"serve: {os.path.basename(cfg.model_cfg_path)} at {H}x{W}, batch "
           f"{B}, {len(res['batch_seconds'])} batches; nlspn_max_offset of "
           f"the probe batch {res['max_offset']:.4f}, stencil radius "
@@ -513,17 +531,25 @@ def train_phase(workdir):
     from rdfc_gan_torch import test as port_test
     from rdfc_gan_torch import train as port_train
     from rdfc_gan_torch.cli import parse_config
-    from rdfc_gan_torch.ops.kernels import build
+    from rdfc_gan_torch.ops.kernels import build, norm_kernel
     from rdfc_gan_torch.ops.nlspn_guard import escalate_nlspn_cfg
 
     pth = _seeded_nets(parse_config(_train_args(workdir, "")[:-2]), workdir)
     args = _train_args(workdir, pth)
     cfg = parse_config(args)
+    in_dtypes = collections.Counter()
+    real_in_fwd = norm_kernel.instance_norm_fwd
+
+    def in_fwd(x, eps):  # the type autocast hands to the IN Function
+        in_dtypes[str(x.dtype)] += 1
+        return real_in_fwd(x, eps)
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
     t0 = time.perf_counter()
-    res = port_train.run(cfg)
+    with mock.patch.object(norm_kernel, "instance_norm_fwd", in_fwd):
+        res = port_train.run(cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(build.LAUNCHES)
@@ -535,7 +561,9 @@ def train_phase(workdir):
     want = {"shift_mask_scatter": steps + evals, "shift_mask_gather": steps,
             "nlspn_propagate_x": steps * T_cfg,
             "nlspn_reverse_chain": steps * T_cfg,
-            "shift_correlation": steps, "nlspn_propagate": evals * T_cfg}
+            "shift_correlation": steps, "nlspn_propagate": evals * T_cfg,
+            "instance_norm_fwd": 4 * (steps + evals),
+            "instance_norm_bwd": 4 * steps}
     sec = np.asarray(res["step_seconds"][1:]) * 1e3  # the first warms up
     print(f"train: {os.path.basename(cfg.model_cfg_path)} at {H}x{W}, batch "
           f"{B}, {steps} steps + {evals} eval forwards, compute dtype "
@@ -548,6 +576,8 @@ def train_phase(workdir):
           f"{B / (np.median(sec) / 1e3):.2f} img/s trained; peak device "
           f"memory {peak / 2**20:.1f} MiB")
     print(f"  kernel launches {counts}; expected {want}")
+    print(f"  instance norm inputs by type (W-AdaIN under the step's "
+          f"autocast, and the evaluation): {dict(in_dtypes)}")
     print("  metrics after the epoch: " + ", ".join(
         f"{k}={v:.6g}" for k, v in res["metrics"].items()))
     if not all(np.isfinite(v) for v in res["losses"].values()):
@@ -601,31 +631,81 @@ def train_phase(workdir):
 STEP_RTOL = 1e-4
 
 
+def _f32_stats_instance_norm_fwd(x, eps):
+    """The IN forward with its statistics summed in f32 by ATen's ``mean``
+    (the JAX package's f32 sums, in another order): the same function,
+    its last bits moved as another summation order moves them."""
+    import torch
+
+    xf = x.float()
+    m = xf.mean(dim=(2, 3))
+    a = torch.rsqrt(torch.clamp_min((xf * xf).mean(dim=(2, 3)) - m * m,
+                                    0.0) + eps)
+    b = -m * a
+    return (x * a[:, :, None, None].to(x.dtype)
+            + b[:, :, None, None].to(x.dtype)), a
+
+
+def _step_diff(title, a, b):
+    """Losses and gradients of steps ``a`` and ``b`` (losses, grads):
+    returns (the losses' largest relative difference, each gradient's
+    max|a - b| / max|b| sorted from the largest); prints them and each
+    net's whole-gradient relative L2 difference."""
+    import torch
+
+    (la, ga), (lb, gb) = a, b
+    worst = max((float((la[k] - lb[k]).abs()) / max(float(lb[k].abs()),
+                                                     1e-30), k) for k in lb)
+    errs = sorted(((float((ga[k] - gb[k]).abs().max())
+                    / max(float(gb[k].abs().max()), 1e-30), k) for k in gb),
+                  reverse=True)
+    l2 = {}
+    for net in ("G", "D"):
+        keys = [k for k in gb if k.startswith(f"{net}.")]
+        va = torch.cat([ga[k].flatten() for k in keys])
+        vb = torch.cat([gb[k].flatten() for k in keys])
+        l2[net] = float((va - vb).norm() / vb.norm())
+    print(f"  {title}: losses max relative difference {worst[0]:.3e} "
+          f"({worst[1]}); {len(errs)} gradients, max|a - b| / max|b|: "
+          + "; ".join(f"{e:.3e} ({k})" for e, k in errs[:3])
+          + "; whole-gradient relative L2: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in l2.items()))
+    return worst[0], errs
+
+
 def step_compare_phase(workdir, pth):
     """One f32 train step with deterministic cuDNN from the seeded nets,
     once through the kernels and once with the plain versions patched in;
-    the losses and every parameter gradient of G and D must agree."""
+    the losses and every parameter gradient of G and D must agree. A third
+    step, the plain one with the IN statistics summed in f32 by ATen, shows
+    how far a last-bit change of the IN statistics moves the same
+    gradients."""
     import torch
 
     from rdfc_gan_torch.cli import parse_config
     from rdfc_gan_torch.engines import build_engine
     from rdfc_gan_torch.ops import nlspn_stencil as st
-    from rdfc_gan_torch.ops.kernels import build, mask_kernel, nlspn_kernel
+    from rdfc_gan_torch.ops.kernels import (build, mask_kernel, nlspn_kernel,
+                                            norm_kernel)
     from rdfc_gan_torch.train import build_train_loader
     from rdfc_gan_torch.utils.checkpoint import load_checkpoint
 
     cfg = parse_config(_train_args(workdir, pth))
     cfg["compute_dtype"] = "float32"
     batch = next(iter(build_train_loader(cfg, torch.device("cuda"))))
-    plain = {(mask_kernel, "_scatter"): mask_kernel.scatter_shift_masks_plain,
-             (mask_kernel, "shift_mask_gather"):
-                 mask_kernel.shift_mask_gather_plain,
-             (mask_kernel, "shift_correlation"):
-                 mask_kernel.shift_correlation_plain,
+    mk, nk = mask_kernel, norm_kernel
+    plain = {(mk, "_scatter"): mk.scatter_shift_masks_plain,
+             (mk, "shift_mask_gather"): mk.shift_mask_gather_plain,
+             (mk, "shift_correlation"): mk.shift_correlation_plain,
              (nlspn_kernel, "propagate_x"): st.propagate_x_plain,
-             (nlspn_kernel, "reverse_chain"): st.reverse_chain_plain}
-    out = {}
-    for path in ("kernels", "plain"):
+             (nlspn_kernel, "reverse_chain"): st.reverse_chain_plain,
+             (nk, "instance_norm_fwd"): nk.instance_norm_fwd_plain,
+             (nk, "instance_norm_bwd"): nk.instance_norm_bwd_plain}
+    paths = {"kernels": {}, "plain": plain,
+             "f32": {**plain, (nk, "instance_norm_fwd"):
+                     _f32_stats_instance_norm_fwd}}
+    out, launches = {}, {}
+    for path, patches in paths.items():
         engine = build_engine(cfg, is_train=True, steps_per_epoch=16)
         load_checkpoint(engine.modules, pth)
         build.reset_launches()
@@ -633,33 +713,27 @@ def step_compare_phase(workdir, pth):
             stack.enter_context(torch.backends.cudnn.flags(
                 enabled=True, benchmark=False, deterministic=True,
                 allow_tf32=False))
-            if path == "plain":
-                for (mod, name), fn in plain.items():
-                    stack.enter_context(mock.patch.object(mod, name, fn))
+            for (mod, name), fn in patches.items():
+                stack.enter_context(mock.patch.object(mod, name, fn))
             losses = engine.train_step(batch)
             torch.cuda.synchronize()
         grads = {f"{net}.{n}": p.grad.detach().clone()
                  for net in ("G", "D")
                  for n, p in engine.modules[net].named_parameters()
                  if p.grad is not None}
-        out[path] = (losses, grads, dict(build.LAUNCHES))
+        out[path] = (losses, grads)
+        launches[path] = dict(build.LAUNCHES)
         del engine
-    (lk, gk, ck), (lp, gp, cp) = out["kernels"], out["plain"]
     print(f"kernels vs plain, one f32 train step (deterministic cuDNN): "
-          f"launches {ck} vs {cp}")
-    if cp or not ck:
+          f"launches {launches['kernels']} vs {launches['plain']}")
+    if launches["plain"] or launches["f32"] or not launches["kernels"]:
         fail("the plain step launched a kernel, or the kernel step none")
-    worst = max((float((lk[k] - lp[k]).abs()) / max(float(lp[k].abs()),
-                                                     1e-30), k) for k in lp)
-    print(f"  losses: max relative difference {worst[0]:.3e} ({worst[1]})")
-    if set(gk) != set(gp) or worst[0] > STEP_RTOL:
+    worst, errs = _step_diff("kernels vs plain", out["kernels"],
+                             out["plain"])
+    _step_diff("plain with the IN statistics summed in f32 vs plain (for "
+               "the record, not checked)", out["f32"], out["plain"])
+    if set(out["kernels"][1]) != set(out["plain"][1]) or worst > STEP_RTOL:
         fail("losses or the set of gradients differ")
-    errs = sorted(((float((gk[k] - gp[k]).abs().max())
-                    / max(float(gp[k].abs().max()), 1e-30), k) for k in gp),
-                  reverse=True)
-    print(f"  {len(errs)} gradients: max |kernel - plain| / max|plain| "
-          f"{errs[0][0]:.3e} ({errs[0][1]}); next {errs[1][0]:.3e} "
-          f"({errs[1][1]}) (tolerance {STEP_RTOL:g})")
     if errs[0][0] > STEP_RTOL:
         fail("a gradient of the kernel step disagrees with the plain step")
 
@@ -702,7 +776,7 @@ def _print_profile(prof, title, unit, wall_ms, n, top=15):
               f"x{e.count // n:<4d} {e.key[:90]}")
 
 
-def profile_phase(engine, batch, n: int = 3):
+def profile_phase(engine, batch, n: int = 3, title: str = "profile"):
     """Device time by kernel over ``n`` served batches, and the device's
     busy share of the host wall time."""
     import torch
@@ -719,8 +793,258 @@ def profile_phase(engine, batch, n: int = 3):
                                 raw_depth=batch["raw_depth"])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    _print_profile(prof, f"profile ({n} forwards of batch {B})", "forward",
+    _print_profile(prof, f"{title} ({n} forwards of batch {B})", "forward",
                    wall_ms, n)
+
+
+def instance_norm_phase():
+    """The IN forward and backward kernels against their plain versions at
+    the four W-AdaIN shapes, f32 and bf16. Returns the two kernel rows:
+    the forward at the served f32 and the backward at the train step's
+    bf16, each time the sum over the four shapes of one forward or step."""
+    import torch
+    import torch.nn.functional as F
+
+    from rdfc_gan_torch.ops.kernels import norm_kernel as nk
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    print("instance norm kernel checks (the four W-AdaIN shapes):")
+    acc = {(k, dt): collections.defaultdict(float)
+           for k in ("fwd", "bwd")
+           for dt in (torch.float32, torch.bfloat16)}
+    for shape in IN_SHAPES:
+        n_el = 1
+        for d in shape:
+            n_el *= d
+        planes = shape[0] * shape[1]
+        xf = torch.randn(shape, device="cuda", generator=gen) * 3 + 1.5
+        gf = torch.randn(shape, device="cuda", generator=gen)
+        for dt in (torch.float32, torch.bfloat16):
+            x, dy = xf.to(dt), gf.to(dt)
+            tag = f"{tuple(shape)} {dt}"
+            y, a = nk.instance_norm_fwd(x, 1e-5)
+            dx = nk.instance_norm_bwd(dy, y, a)
+            torch.cuda.synchronize()
+            py, pa = nk.instance_norm_fwd_plain(x, 1e-5)
+            err_f = max(compare(f"instance_norm_fwd y {tag}", y, py, IN_RTOL,
+                                IN_ATOL),
+                        compare(f"instance_norm_fwd a {tag}", a, pa, IN_RTOL,
+                                IN_ATOL))
+            err_b = compare(f"instance_norm_bwd dx {tag}", dx,
+                            nk.instance_norm_bwd_plain(dy, y, a), IN_RTOL,
+                            IN_ATOL)
+            isz = x.element_size()
+            f = acc[("fwd", dt)]
+            f["err"] = max(f["err"], err_f)
+            f["ms"] += time_ms(lambda: nk.instance_norm_fwd(x, 1e-5))
+            f["plain_ms"] += time_ms(
+                lambda: nk.instance_norm_fwd_plain(x, 1e-5))
+            f["library_ms"] += time_ms(lambda: F.instance_norm(x, eps=1e-5))
+            # f64: a convert, an add, a multiply and an add an element;
+            # f32: a multiply and an add for y; counted at the f32 rate
+            f["bytes"] += 2 * n_el * isz + planes * 4
+            f["ops"] += n_el * (2.0 + 4.0 * PEAK_F32_FLOPS / PEAK_F64_FLOPS)
+            b = acc[("bwd", dt)]
+            b["err"] = max(b["err"], err_b)
+            b["ms"] += time_ms(lambda: nk.instance_norm_bwd(dy, y, a))
+            b["plain_ms"] += time_ms(
+                lambda: nk.instance_norm_bwd_plain(dy, y, a))
+            b["bytes"] += 3 * n_el * isz + planes * 4
+            b["ops"] += n_el * (4.0 + 5.0 * PEAK_F32_FLOPS / PEAK_F64_FLOPS)
+            if dt == torch.bfloat16 and shape == IN_SHAPES[0]:
+                # what F.instance_norm, the port's IN before these kernels,
+                # gives under the train step's autocast
+                with torch.autocast("cuda", dtype=torch.bfloat16):
+                    lib = F.instance_norm(x, eps=1e-5)
+                print(f"  F.instance_norm of a bf16 input under bf16 "
+                      f"autocast: dtype {lib.dtype}, "
+                      f"{float((lib != py).float().mean()) * 100:.2f}% of "
+                      f"elements differ from the JAX rounding, max "
+                      f"{float((lib.float() - py.float()).abs().max()):.3e}")
+    for (kind, dt), r in acc.items():
+        bnd, by = bound_ms(r["bytes"], r["ops"])
+        print(f"  instance_norm_{kind} {dt}, 4 shapes: kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms'] if kind == 'fwd' else None} ms, bound "
+              f"{bnd * 1e3:.2f} us ({by})")
+    rows = {}
+    for kind, dt, replaces in (
+            ("fwd", torch.float32, "attic/norm_kernel.py:211"),
+            ("bwd", torch.bfloat16, "attic/norm_kernel.py:230")):
+        r = acc[(kind, dt)]
+        bnd, by = bound_ms(r["bytes"], r["ops"])
+        rows[f"instance_norm_{kind}"] = dict(
+            name=f"instance_norm_{kind}", route="cuda",
+            source="rdfc_gan_torch/csrc/instance_norm.cu",
+            replaces=replaces, max_abs_err=r["err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=bnd, bound_by=by,
+            library_ms=r["library_ms"] if kind == "fwd" else None)
+    return rows
+
+
+def _flagship_args(workdir, extra=()):
+    return ["--dataset", "synthetic", "--model_cfg_path",
+            os.path.join(ROOT, "configs", "rdf_cycle_patchgan_config.yaml"),
+            "--work_dir", os.path.join(workdir, "flagship"),
+            "--batch_size", str(B), "--out_height", str(H),
+            "--out_width", str(W), "--device", "cuda", *extra]
+
+
+def flagship_serve_phase(workdir):
+    """Serve the flagship RDFC-GAN through rdfc_gan_torch.test.run with and
+    without --depth_only (seeded weights: rdfc_gan_torch.test seeds torch
+    before it builds the nets), counting kernel launches; check the
+    metrics, the outputs and 4 IN launches per forward, and hold pred_depth
+    against the plain IN path. Returns (launch counts of the full run,
+    engine, batch)."""
+    import numpy as np
+    import torch
+
+    from rdfc_gan_torch import test as port_test
+    from rdfc_gan_torch.cli import parse_config
+    from rdfc_gan_torch.ops.kernels import build, norm_kernel
+
+    # --depth_only first, so that its engine is gone before the full run,
+    # whose engine the checks below keep
+    for depth_only in (True, False):
+        engine = None
+        extra = ("--depth_only",) if depth_only else ()
+        args = _flagship_args(workdir, extra)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        res = port_test.run(parse_config(args))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        metrics, fwd = res["metrics"], res["forwards"]
+        bs = np.asarray(res["batch_seconds"]) * 1e3
+        n_img = len(res["loader"].dataset)
+        mode = "--depth_only" if depth_only else "full"
+        print(f"flagship serve ({mode}): rdf_cycle_patchgan_config.yaml at "
+              f"{H}x{W}, batch {B}, {len(bs)} batches, f32")
+        print("  metrics: " + ", ".join(f"{k}={v:.6g}"
+                                        for k, v in metrics.items()))
+        print(f"  per-request (batch of {B}) latency ms: median "
+              f"{np.median(bs):.3f}, p90 {np.percentile(bs, 90):.3f}, max "
+              f"{bs.max():.3f}; {n_img / (bs.sum() / 1e3):.2f} img/s served "
+              f"(forward + metrics), run wall {wall:.2f} s incl. build")
+        print(f"  peak device memory {peak / 2**20:.1f} MiB; forwards {fwd}; "
+              f"kernel launches {counts}")
+        if not all(np.isfinite(v) for v in metrics.values()):
+            fail(f"flagship {mode}: non-finite metrics {metrics}")
+        if counts != {"instance_norm_fwd": 4 * fwd}:
+            fail(f"flagship {mode}: launches {counts}, expected "
+                 f"{{'instance_norm_fwd': {4 * fwd}}}")
+        fps = port_test.run(parse_config(args + ["--cal_fps"]))["fps"]
+        print(f"  --cal_fps: {fps:.2f} img/s (300 images, batch {B}, loader "
+              f"included, synchronized per batch)")
+        engine = res["engine"]
+        del res
+    batch = next(iter(port_test.build_val_loader(
+        parse_config(_flagship_args(workdir)), engine.device)))
+
+    def forward(depth_only=False):
+        return engine.forward_test(rgb=batch["rgb"],
+                                   raw_depth=batch["raw_depth"],
+                                   depth_only=depth_only)
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        got = forward()
+        short = forward(depth_only=True)
+        with mock.patch.object(norm_kernel, "instance_norm_fwd",
+                               norm_kernel.instance_norm_fwd_plain):
+            want = forward()
+    torch.cuda.synchronize()
+    shapes = {k: tuple(v.shape) for k, v in got.items()}
+    print(f"  outputs {shapes}; depth_only gives {sorted(short)}")
+    if shapes != {"pred_depth": (B, 1, H, W), "pred_normal": (B, 3, H, W),
+                  "pred_label": (B, 14, H, W)} or "pred_label" in short:
+        fail(f"flagship outputs {shapes}, depth_only {sorted(short)}")
+    norm = got["pred_normal"].norm(dim=1)
+    if not (torch.isfinite(got["pred_label"]).all()
+            and float((norm - 1).abs().max()) < 1e-3
+            and float(got["pred_depth"].abs().max()) <= 1.0):
+        fail("flagship outputs: non-finite labels, normals off the unit "
+             "sphere or pred_depth outside [-1, 1]")
+    compare("flagship pred_depth, depth_only vs full", short["pred_depth"],
+            got["pred_depth"], 0.0, 0.0)
+    for k in ("pred_depth", "pred_normal"):
+        compare(f"flagship {k}, IN kernels vs plain IN (deterministic "
+                f"cuDNN)", got[k], want[k], SERVE_RTOL, SERVE_ATOL)
+    return counts, engine, batch
+
+
+def _device_ms(fn, n: int = 2) -> float:
+    """Device time (ms) of the kernels ``fn`` launches, per call, from the
+    profiler over ``n`` calls after one warm-up: idle gaps left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
+
+
+def flagship_breakdown_phase(engine, batch):
+    """Device time of one served forward, of each net, and of each kind of
+    layer in it: every Conv2d / ConvTranspose2d / SqueezeExcite is replayed
+    on the inputs it saw in one forward, under the profiler."""
+    import torch
+    import torch.nn as nn
+
+    from rdfc_gan_torch.losses import norm_normalize
+    from rdfc_gan_torch.models.normal_net import SqueezeExcite
+
+    rgb, raw = batch["rgb"], batch["raw_depth"]
+    nets = engine.modules
+    with torch.inference_mode():
+        normal = norm_normalize(nets["G_normal"](rgb))
+        total = _device_ms(lambda: engine.forward_test(rgb=rgb,
+                                                       raw_depth=raw))
+        per_net = {"G_label": _device_ms(lambda: nets["G_label"](rgb)),
+                   "G_normal": _device_ms(lambda: nets["G_normal"](rgb)),
+                   "G_A2B": _device_ms(lambda: nets["G_A2B"](rgb, raw,
+                                                              normal))}
+        kinds = collections.defaultdict(list)
+        in_se = {id(c) for m in nets.values()
+                 for s in m.modules() if isinstance(s, SqueezeExcite)
+                 for c in s.modules() if c is not s}
+        hooks = []
+        for net_name, net in nets.items():
+            for m in net.modules():
+                if isinstance(m, SqueezeExcite):
+                    kind = "NNET squeeze-excite"
+                elif id(m) in in_se:
+                    continue
+                elif isinstance(m, nn.ConvTranspose2d):
+                    kind = "transposed conv"
+                elif isinstance(m, nn.Conv2d):
+                    kind = ("NNET depthwise conv" if m.groups > 1 else
+                            f"{net_name} conv")
+                else:
+                    continue
+                hooks.append(m.register_forward_hook(
+                    lambda mod, a, o, k=kind: kinds[k].append((mod, a))))
+        engine.forward_test(rgb=rgb, raw_depth=raw)
+        for h in hooks:
+            h.remove()
+        kind_ms = {k: _device_ms(lambda c=c: [m(*a) for m, a in c])
+                   for k, c in kinds.items()}
+    print(f"flagship forward, device time (profiler, idle gaps left out, "
+          f"f32): {total:.3f} ms; by net: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in per_net.items()))
+    for k, v in sorted(kind_ms.items(), key=lambda kv: -kv[1]):
+        print(f"  {k}: {v:.3f} ms over {len(kinds[k])} calls "
+              f"({100 * v / total:.1f}% of the forward's device time)")
 
 
 def main():
@@ -746,6 +1070,7 @@ def main():
 
     rows = kernel_phase()
     train_rows = backward_kernel_phase()
+    in_rows = instance_norm_phase()
     with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=ROOT) as workdir:
         counts, engine, batch = serve_phase(workdir)
         profile_phase(engine, batch)
@@ -754,13 +1079,23 @@ def main():
         train_profile_phase(engine, batch)
         del engine
         step_compare_phase(workdir, pth)
+        flagship_counts, engine, batch = flagship_serve_phase(workdir)
+        flagship_breakdown_phase(engine, batch)
+        profile_phase(engine, batch, title="flagship profile")
+        del engine
     # launches: the scatter and the served chain from the serve run, the
-    # backward kernels from the train run
+    # backward kernels from the train run, the IN forward from the flagship
+    # serve run, its backward from the train run
     for name, row in rows.items():
         row["launches"] = counts[name]
     for name, row in train_rows.items():
         row["launches"] = train_counts[name]
+    in_rows["instance_norm_fwd"]["launches"] = flagship_counts[
+        "instance_norm_fwd"]
+    in_rows["instance_norm_bwd"]["launches"] = train_counts[
+        "instance_norm_bwd"]
     rows.update(train_rows)
+    rows.update(in_rows)
     print(gpu_line())
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

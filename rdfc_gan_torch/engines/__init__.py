@@ -1,6 +1,7 @@
 from ..registry import MODELS
 from .base import BaseEngine, resolve_device
 from .rdf_gan import RDFGAN
+from .rdfc_gan import RDFCGAN
 
 
 def build_engine(cfg, is_train: bool = False, steps_per_epoch: int = 1):
@@ -11,4 +12,5 @@ def build_engine(cfg, is_train: bool = False, steps_per_epoch: int = 1):
                                       steps_per_epoch=steps_per_epoch)
 
 
-__all__ = ["BaseEngine", "RDFGAN", "build_engine", "resolve_device"]
+__all__ = ["BaseEngine", "RDFCGAN", "RDFGAN", "build_engine",
+           "resolve_device"]

@@ -1,5 +1,6 @@
-"""Losses of the RDFGAN train step (port of rdfc_gan_tpu/losses/gan_loss.py;
-reference RDFC-GAN/lib/losses/gan_loss.py), NCHW.
+"""Losses of the RDFGAN train step and the RDFCGAN's normal helper (port of
+rdfc_gan_tpu/losses/gan_loss.py; reference RDFC-GAN/lib/losses/
+gan_loss.py), NCHW.
 
 Every loss is a weighted SUM of elementwise terms in f32. The default
 weight is uniform 1 / (numel + 1e-6), which is a mean up to that 1e-6 and
@@ -70,6 +71,14 @@ class GANLoss:
             return crit(prediction, target, weight)
         p = prediction.float()
         return -p.mean() if target_is_real else p.mean()
+
+
+def norm_normalize(norm_out: torch.Tensor) -> torch.Tensor:
+    """The first 3 channels of a (B, C, H, W) normal map, L2-normalised
+    over the channels with eps inside the square root (gan_loss.py:87-96),
+    which keeps the gradient finite at a zero vector."""
+    xyz = norm_out[:, :3]
+    return xyz / torch.sqrt(torch.sum(xyz ** 2, dim=1, keepdim=True) + 1e-12)
 
 
 def gradient_penalty(disc: Callable[[torch.Tensor], torch.Tensor],

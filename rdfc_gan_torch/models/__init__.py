@@ -1,6 +1,8 @@
-"""Models of the port; importing registers them with ``GENERATORS`` and
-``DISCRIMINATORS``."""
+"""Models of the port; importing registers the generators and the
+discriminator with ``GENERATORS`` and ``DISCRIMINATORS``."""
 from .discriminators import PatchGANDiscriminator
+from .label_net import PSPNet
+from .normal_net import NNET
 from .rdf_generator import RDFGenerator
 
-__all__ = ["PatchGANDiscriminator", "RDFGenerator"]
+__all__ = ["NNET", "PSPNet", "PatchGANDiscriminator", "RDFGenerator"]

@@ -15,15 +15,24 @@ reference PyTorch state-dict names:
   * ``AdaptiveInstanceNorm`` (W-AdaIN) — model_utils.py:53-99: per-pixel
     (gamma, beta) from the style feature through an EqualLinear, applied to
     the instance-normalized content (eps 1e-5, no affine).
+  * ``instance_norm`` — layers.py:219-281, the hand-written kernels of
+    ``ops/kernels/norm_kernel`` on the card.
+  * ``bilinear_resize`` — layers.py:675-714 with align_corners=True, in the
+    JAX package's matmul form.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops.kernels.norm_kernel import instance_norm
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -53,10 +62,37 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
-def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Per-image, per-channel normalization with biased variance; no affine
-    (torch InstanceNorm2d default)."""
-    return F.instance_norm(x, eps=eps)
+@functools.lru_cache(maxsize=None)
+def _interp_matrix(src: int, dst: int) -> np.ndarray:
+    """(dst, src) align-corners bilinear interpolation matrix
+    (layers.py:_interp_matrix)."""
+    m = np.zeros((dst, src), np.float32)
+    if dst == 1 or src == 1:
+        m[:, 0] = 1.0
+        return m
+    pos = np.linspace(0.0, src - 1, dst)
+    lo = np.floor(pos).astype(np.int64)
+    hi = np.minimum(lo + 1, src - 1)
+    frac = (pos - lo).astype(np.float32)
+    m[np.arange(dst), lo] += 1.0 - frac
+    m[np.arange(dst), hi] += frac
+    return m
+
+
+def bilinear_resize(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Align-corners bilinear resize of (B, C, H, W) to ``size``, as two
+    interpolation matmuls (rows, then columns) summed in f32, each rounded
+    to x's type with the weights in x's type, as the JAX package computes
+    it. ``F.interpolate(..., align_corners=True)`` agrees to rounding."""
+    B, C, H, W = x.shape
+    h, w = size
+    if (H, W) == (h, w):
+        return x
+    wy, wx = (torch.from_numpy(_interp_matrix(s, d)).to(x.device, x.dtype)
+              .float() for s, d in ((H, h), (W, w)))
+    out = torch.matmul(wy, x.float().reshape(B * C, H, W)).to(x.dtype)
+    out = torch.matmul(out.float(), wx.t()).to(x.dtype)
+    return out.reshape(B, C, h, w)
 
 
 class ConvBNAct(nn.Sequential):

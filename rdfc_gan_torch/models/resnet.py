@@ -1,6 +1,13 @@
-"""ResNet BasicBlock stages (port of rdfc_gan_tpu/models/resnet.py, the
-resnet18/34 path), with torchvision state-dict names (conv1/bn1/conv2/bn2/
-downsample.{0,1}) so torchvision and reference weights load as they are."""
+"""ResNet stages (port of rdfc_gan_tpu/models/resnet.py), with torchvision
+state-dict names (conv1/bn1/conv2/bn2[/conv3/bn3]/downsample.{0,1}) so
+torchvision and reference weights load as they are:
+
+  * ``BasicBlock`` stages of resnet18/34, the RDFGenerator's torsos;
+  * ``Bottleneck`` stages of resnet50, plain or dilated (PSPNet's output
+    stride 8, backbone_resnet50.py:126-235);
+  * ``DeepStem``, the PSPNet backbone's deep_base stem
+    (backbone_resnet50.py:139-154).
+"""
 
 from __future__ import annotations
 
@@ -12,15 +19,21 @@ import torch.nn.functional as F
 
 from .layers import BatchNorm2d
 
-BLOCKS = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3)}
+BLOCKS = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3),
+          "resnet50": (3, 4, 6, 3)}
 
 
 class BasicBlock(nn.Module):
-    def __init__(self, cin: int, planes: int, stride: int = 1):
+    expansion = 1
+
+    def __init__(self, cin: int, planes: int, stride: int = 1,
+                 dilation: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(cin, planes, 3, stride, 1, bias=False)
+        self.conv1 = nn.Conv2d(cin, planes, 3, stride, dilation, dilation,
+                               bias=False)
         self.bn1 = BatchNorm2d(planes, eps=1e-5)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.conv2 = nn.Conv2d(planes, planes, 3, 1, dilation, dilation,
+                               bias=False)
         self.bn2 = BatchNorm2d(planes, eps=1e-5)
         self.downsample = None
         if stride != 1 or cin != planes:
@@ -35,14 +48,76 @@ class BasicBlock(nn.Module):
         return F.relu(out + idn)
 
 
-def make_stages(encoder_type: str, cin: int,
-                planes: Sequence[int]) -> list:
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 (stride, dilation) -> 1x1 x4, BN eps 1e-5, projection
+    when the stride or the width changes (resnet.py:Bottleneck)."""
+
+    expansion = 4
+
+    def __init__(self, cin: int, planes: int, stride: int = 1,
+                 dilation: int = 1):
+        super().__init__()
+        cout = planes * self.expansion
+        self.conv1 = nn.Conv2d(cin, planes, 1, bias=False)
+        self.bn1 = BatchNorm2d(planes, eps=1e-5)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride, dilation, dilation,
+                               bias=False)
+        self.bn2 = BatchNorm2d(planes, eps=1e-5)
+        self.conv3 = nn.Conv2d(planes, cout, 1, bias=False)
+        self.bn3 = BatchNorm2d(cout, eps=1e-5)
+        self.downsample = None
+        if stride != 1 or cin != cout:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(cin, cout, 1, stride, bias=False),
+                BatchNorm2d(cout, eps=1e-5))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        idn = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + idn)
+
+
+def make_stages(encoder_type: str, cin: int, planes: Sequence[int],
+                dilated: bool = False) -> list:
     """torchvision layer1..layer4: strides (1, 2, 2, 2); the first block of
-    each stage strides and projects."""
+    each stage strides and projects. ``dilated`` (resnet.py:make_stages):
+    output stride 8, strides (1, 2, 1, 1) and dilations (1, 1, 2, 4), where
+    layer3's first block runs at dilation 1 and layer4 takes the multi-grid
+    (1, 2, 4), i.e. dilations 4, 8, 16."""
+    block = Bottleneck if encoder_type == "resnet50" else BasicBlock
+    strides, dils = ((1, 2, 1, 1), (1, 1, 2, 4)) if dilated else (
+        (1, 2, 2, 2), (1, 1, 1, 1))
     stages = []
-    for p, n, s in zip(planes, BLOCKS[encoder_type], (1, 2, 2, 2)):
-        blocks = [BasicBlock(cin, p, s)] + [BasicBlock(p, p)
-                                            for _ in range(n - 1)]
+    for li, (p, n, s, d) in enumerate(zip(planes, BLOCKS[encoder_type],
+                                          strides, dils)):
+        blocks = []
+        for i in range(n):
+            di = d
+            if dilated and li == 2 and i == 0:
+                di = 1
+            if dilated and li == 3:
+                di = d * (1, 2, 4)[i % 3]
+            blocks.append(block(cin, p, s if i == 0 else 1, di))
+            cin = p * block.expansion
         stages.append(nn.Sequential(*blocks))
-        cin = p
     return stages
+
+
+class DeepStem(nn.Sequential):
+    """3x3/2 conv -> BN -> ReLU -> 3x3 conv -> BN -> ReLU -> 3x3 conv to
+    2x ``features``, then BN -> ReLU -> 3x3/2 max-pool (resnet.py:
+    DeepStem). As a Sequential its state dict is the reference's
+    ``initial``: ``0.{0,1,3,4,6}`` and ``1``."""
+
+    def __init__(self, features: int = 64):
+        f = features
+        conv1 = nn.Sequential(
+            nn.Conv2d(3, f, 3, 2, 1, bias=False), BatchNorm2d(f, eps=1e-5),
+            nn.ReLU(),
+            nn.Conv2d(f, f, 3, 1, 1, bias=False), BatchNorm2d(f, eps=1e-5),
+            nn.ReLU(),
+            nn.Conv2d(f, 2 * f, 3, 1, 1, bias=False))
+        super().__init__(conv1, BatchNorm2d(2 * f, eps=1e-5), nn.ReLU(),
+                         nn.MaxPool2d(3, 2, 1))

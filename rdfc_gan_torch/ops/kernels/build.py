@@ -9,7 +9,8 @@ Nothing here runs at import: the CPU tests import every module.
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a wrapper adds
 to it right after a launch succeeds and nowhere else. One source may hold
 two kernels: ``nlspn_propagate.cu`` is counted as ``nlspn_propagate`` (the
-served chain) and ``nlspn_propagate_x`` (the chain that also stores X).
+served chain) and ``nlspn_propagate_x`` (the chain that also stores X),
+``instance_norm.cu`` as ``instance_norm_fwd`` and ``instance_norm_bwd``.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("shift_mask_scatter", "shift_mask_gather", "nlspn_propagate",
-           "nlspn_reverse_chain", "shift_correlation")
+           "nlspn_reverse_chain", "shift_correlation", "instance_norm")
 
 LAUNCHES: collections.Counter = collections.Counter()
 # ptxas report (registers, shared memory, spills) of each built kernel
@@ -40,21 +41,24 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "shift_mask_scatter": (
-        "shift_mask_scatter",
-        [_P, _P, _P, _P, _I, _I, ctypes.c_longlong, _I, _I, _P]),
-    "shift_mask_gather": (
-        "shift_mask_gather",
-        [_P, _P, _P, _P, _I, _I, ctypes.c_longlong, _I, _I, _I, _P]),
-    "nlspn_propagate": (
-        "nlspn_propagate",
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "nlspn_reverse_chain": (
-        "nlspn_reverse_chain",
-        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "shift_correlation": (
-        "shift_correlation",
-        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "shift_mask_scatter": {
+        "shift_mask_scatter":
+            [_P, _P, _P, _P, _I, _I, ctypes.c_longlong, _I, _I, _P]},
+    "shift_mask_gather": {
+        "shift_mask_gather":
+            [_P, _P, _P, _P, _I, _I, ctypes.c_longlong, _I, _I, _I, _P]},
+    "nlspn_propagate": {
+        "nlspn_propagate":
+            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
+    "nlspn_reverse_chain": {
+        "nlspn_reverse_chain":
+            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
+    "shift_correlation": {
+        "shift_correlation":
+            [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
+    "instance_norm": {
+        "instance_norm_fwd": [_P, _P, _P, _I, _I, ctypes.c_float, _I, _P],
+        "instance_norm_bwd": [_P, _P, _P, _P, _I, _I, _I, _P]},
 }
 
 
@@ -119,10 +123,10 @@ def library(name: str) -> ctypes.CDLL:
         raise RuntimeError(f"kernel {name!r} needs a CUDA device; none found")
     path = build_all([name])[name]
     lib = ctypes.CDLL(path)
-    fn_name, argtypes = _SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in _SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     lib.error_string.argtypes = [ctypes.c_int]
     lib.error_string.restype = ctypes.c_char_p
     _LIBS[name] = lib

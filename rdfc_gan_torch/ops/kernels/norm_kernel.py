@@ -1,0 +1,173 @@
+"""Instance norm on the card: wrappers of ``csrc/instance_norm.cu`` with
+their plain PyTorch versions, and the differentiable ``instance_norm``
+(port of rdfc_gan_tpu/models/layers.py:219-281, the JAX ``instance_norm``
+and its output-residual ``custom_vjp``; the TPU kernels were
+attic/norm_kernel.py:_in_fwd_kernel and _in_bwd_kernel).
+
+    forward:   a = rsqrt(max(E[x^2] - E[x]^2, 0) + eps), b = -E[x] a   (f32)
+               y = x * T(a) + T(b)                    in x's type T
+    backward:  dx = T(a) * (dy - T(E[dy]) - y * T(E[dy y]))   in dy's type
+
+The statistics are f32 whatever the activation type, E over each (b, c)
+plane, NCHW, each summed and divided in f64 and rounded to f32 once (the
+JAX package sums in f32; its order cannot be followed, and the f32 train
+step amplifies a last-bit change of these statistics far beyond rounding,
+PERF.md). The backward reads the forward's output y and the (B, C)
+f32 scale a, not x (the JAX residuals). Each wrapper takes its plain
+version for a tensor on the CPU and launches its kernel, or raises, for
+any other. The JAX function's ``pack`` (a TPU lane layout) has no
+counterpart here.
+
+The plain versions sum in the kernels' order (``_block_sum``), divide as
+IEEE does and take a correctly rounded rsqrt, as the kernels do, so the
+two agree bit for bit.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import build
+
+SOURCE = "instance_norm"
+FWD = "instance_norm_fwd"
+BWD = "instance_norm_bwd"
+_FLOATS = (torch.float32, torch.bfloat16)
+
+
+def block_threads(n: int) -> int:
+    """Threads of the kernels' block for a plane of n values
+    (instance_norm.cu:threads_for)."""
+    return 128 if n <= 1024 else 256 if n <= 4096 else 512
+
+
+def _block_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum of each (B, C) plane of ``v`` in the kernels' order and type:
+    thread t adds elements t, t + T, ... in turn; each warp adds by xor
+    shuffles over 16, 8, 4, 2, 1 lanes; the warp sums are added in order.
+    Returns (B, C)."""
+    B, C, H, W = v.shape
+    n = H * W
+    T = block_threads(n)
+    rows = -(-n // T)
+    # zeros past the plane add nothing to a thread's sum
+    v = F.pad(v.reshape(B * C, n), (0, rows * T - n)).reshape(B * C, rows, T)
+    acc = v[:, 0]
+    for r in range(1, rows):
+        acc = acc + v[:, r]
+    acc = acc.reshape(B * C, T // 32, 32)
+    lanes = torch.arange(32, device=v.device)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., lanes ^ o]
+    total = acc[:, 0, 0]
+    for w in range(1, T // 32):
+        total = total + acc[:, w, 0]
+    return total.reshape(B, C)
+
+
+def _block_mean(v: torch.Tensor) -> torch.Tensor:
+    """``_block_sum`` of the f64 ``v`` / n, rounded to f32. The divisor is
+    a tensor: ATen's CUDA division by a Python number multiplies by its
+    reciprocal, which is not the kernels' IEEE division."""
+    s = _block_sum(v)
+    return (s / torch.full_like(s, v.shape[2] * v.shape[3])).float()
+
+
+def instance_norm_fwd_plain(x: torch.Tensor, eps: float
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y, a): the JAX ``_instance_norm_fwd_impl`` in torch, one-pass f32
+    statistics; a is the (B, C) f32 scale."""
+    xf = x.double()
+    m = _block_mean(xf)
+    var = torch.clamp_min(_block_mean(xf * xf) - m * m, 0.0) + eps
+    a = (1.0 / torch.sqrt(var.double())).float()
+    b = -m * a
+    y = x * a[:, :, None, None].to(x.dtype) + b[:, :, None, None].to(x.dtype)
+    return y, a
+
+
+def instance_norm_bwd_plain(dy: torch.Tensor, y: torch.Tensor,
+                            a: torch.Tensor) -> torch.Tensor:
+    """The JAX ``_instance_norm_bwd``: f32 reductions (the product in f32),
+    the combination in dy's type with the statistics rounded once."""
+    dt = dy.dtype
+    m1 = _block_mean(dy.double())[:, :, None, None].to(dt)
+    m2 = _block_mean(dy.double() * y.double())[:, :, None, None].to(dt)
+    return a[:, :, None, None].to(dt) * (dy - m1 - y * m2)
+
+
+def _check(name, *tensors):
+    build.require_cuda(name, *tensors)
+    x = tensors[0]
+    if x.dim() != 4 or x.dtype not in _FLOATS:
+        raise ValueError(f"{name}: (B,C,H,W) f32 or bf16 expected, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    for t in tensors[1:]:
+        if t.shape != x.shape or t.dtype != x.dtype:
+            raise ValueError(f"{name}: inputs must share one shape and type")
+
+
+def instance_norm_fwd(x: torch.Tensor, eps: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, C, H, W) f32 or bf16. Returns (y in x.dtype, a (B, C) f32)."""
+    if x.device.type == "cpu":
+        return instance_norm_fwd_plain(x, eps)
+    lib = build.library(SOURCE)
+    _check(FWD, x)
+    B, C, H, W = x.shape
+    y = torch.empty_like(x)
+    a = torch.empty((B, C), dtype=torch.float32, device=x.device)
+    rc = lib.instance_norm_fwd(x.data_ptr(), y.data_ptr(), a.data_ptr(),
+                               B * C, H * W, float(eps),
+                               int(x.dtype == torch.bfloat16),
+                               build.stream_handle())
+    build.check(lib, FWD, rc)
+    build.LAUNCHES[FWD] += 1
+    return y, a
+
+
+def instance_norm_bwd(dy: torch.Tensor, y: torch.Tensor,
+                      a: torch.Tensor) -> torch.Tensor:
+    """dy, y: (B, C, H, W), one type, f32 or bf16; a: (B, C) f32. Returns
+    dx in dy.dtype."""
+    if dy.device.type == "cpu":
+        return instance_norm_bwd_plain(dy, y, a)
+    lib = build.library(SOURCE)
+    _check(BWD, dy, y)
+    build.require_cuda(BWD, a)
+    B, C, H, W = dy.shape
+    if tuple(a.shape) != (B, C) or a.dtype != torch.float32:
+        raise ValueError(f"{BWD}: a must be (B, C) f32")
+    dx = torch.empty_like(dy)
+    rc = lib.instance_norm_bwd(dy.data_ptr(), y.data_ptr(), a.data_ptr(),
+                               dx.data_ptr(), B * C, H * W,
+                               int(dy.dtype == torch.bfloat16),
+                               build.stream_handle())
+    build.check(lib, BWD, rc)
+    build.LAUNCHES[BWD] += 1
+    return dx
+
+
+class _InstanceNorm(torch.autograd.Function):
+    """The JAX ``custom_vjp`` of layers.py:239-281: the forward keeps its
+    output y and the scale a; the backward is the output-residual formula."""
+
+    @staticmethod
+    def forward(ctx, x, eps):
+        y, a = instance_norm_fwd(x, eps)
+        ctx.save_for_backward(y, a)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        y, a = ctx.saved_tensors
+        return instance_norm_bwd(dy.contiguous(), y, a), None
+
+
+def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Per-image, per-channel normalisation, biased variance, no affine:
+    (B, C, H, W) f32 or bf16 in, the same type out, differentiable in x."""
+    return _InstanceNorm.apply(x, eps)

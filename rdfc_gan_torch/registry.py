@@ -1,7 +1,7 @@
 """String-keyed component registries (port of rdfc_gan_tpu/registry.py):
 YAML ``type:`` strings dispatch to the constructors registered here, under
 the reference configs' keys (``RDFGenerator``, ``PatchGANDiscriminator``,
-``RDFGAN``, ``synthetic``).
+``RDFGAN``, ``RDFCGAN``, ``synthetic``).
 """
 
 from __future__ import annotations

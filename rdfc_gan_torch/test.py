@@ -4,12 +4,18 @@ reference RDFC-GAN/test.py:1-92).
     python -m rdfc_gan_torch.test --dataset synthetic \\
         --model_cfg_path configs/rdf_gan_nlspn_config.yaml --work_dir work/t \\
         [--load_from G.pth] [--cal_fps] [--device cuda|cpu]
+    python -m rdfc_gan_torch.test --dataset synthetic \\
+        --model_cfg_path configs/rdf_cycle_patchgan_config.yaml \\
+        --work_dir work/f [--depth_only] [--cal_fps] [--load_from x.pth]
 
-Builds the engine on ``--device`` (default cuda, which raises without a
-card), optionally loads a reference ``.pth``, runs the val split through
-``forward_test`` and prints the 8 metrics. After a load, one probe batch
-checks the NLSPN offsets against the stencil radius and rebuilds the
-generator with a larger radius or the gather path when needed.
+Builds the engine of ``model.type`` (RDFGAN, or the flagship RDFCGAN) on
+``--device`` (default cuda, which raises without a card), optionally loads
+a reference ``.pth`` (the nets the engine has; the others are logged as
+left unread), runs the val split through ``forward_test`` and prints the 8
+depth metrics. ``--depth_only`` skips the RDFCGAN's G_label, whose labels
+pred_depth never reads. After a load, one probe batch checks an RDFGAN's
+NLSPN offsets against the stencil radius and rebuilds the generator with a
+larger radius or the gather path when needed.
 ``--cal_fps`` runs the FPS harness instead (RDF-GAN/lib/tools/main.py:
 318-350): 300 images after 5 warm-up forwards, each bracketed by a device
 synchronize.
@@ -90,11 +96,13 @@ def run(cfg) -> dict:
     forwards = 0
     max_offset = None
     if cfg.load_from:
-        meta = load_checkpoint(engine.modules, cfg.load_from)
+        meta = load_checkpoint(engine.modules, cfg.load_from, logger.log)
         logger.log(f"loaded {cfg.load_from} (epoch {meta.get('epoch')})")
         g_node = cfg.model.get("G")
-        max_offset = probe_max_offset(engine, next(iter(loader)))
-        g_cfg, changed = escalate_nlspn_cfg(g_node.to_dict(), max_offset)
+        changed = False
+        if g_node is not None:
+            max_offset = probe_max_offset(engine, next(iter(loader)))
+            g_cfg, changed = escalate_nlspn_cfg(g_node.to_dict(), max_offset)
         if changed:
             logger.log(f"NLSPN max|offset|={max_offset:.2f}: rebuilding the "
                        f"generator with {g_cfg.get('nlspn_impl', 'auto')!r} "

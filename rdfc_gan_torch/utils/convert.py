@@ -1,4 +1,13 @@
-"""JAX (Flax) RDFGenerator and PatchGAN weights -> the port's state dicts.
+"""JAX (Flax) weights -> the port's state dicts: the RDFGenerator, the
+PatchGAN, NNET (G_normal), PSPNet (G_label) and the serving RDFCGAN's three
+nets. Each takes the Flax ``params`` / ``batch_stats`` trees as numpy arrays.
+
+``nnet_state_dict_from_jax`` and ``pspnet_state_dict_from_jax`` are the
+inverses of the JAX package's ``utils/torch_convert.py:convert_nnet`` and
+``convert_pspnet``. The JAX NNET has no ``bn2`` after the head conv (the
+decoder never reads it), so the returned dict gives it its identity values;
+a JAX PSPNet initialised in eval mode has no aux head, and the dict then
+leaves ``auxiliary_branch`` out (load with ``strict=False``).
 
 ``patchgan_state_dict_from_jax`` is the exact inverse of
 ``tools/convert_torch_ckpt.py:convert_patchgan``: ``Conv_{i}`` (HWIO) ->
@@ -35,6 +44,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from ..models.normal_net import B0_BLOCKS, round_repeats
 
 # per-head output channels of the fused dec1 / dec0 stacks
 # (rdfc_gan_tpu/models/rdf_generator.py:124-141)
@@ -188,3 +199,136 @@ def patchgan_state_dict_from_jax(params: Dict[str, Any],
             j = f"BatchNorm_{i - 1}"
             _bn(sd, f"model.{i}.bn", params[j], batch_stats[j])
     return sd
+
+
+def _conv(sd, name, p):
+    sd[f"{name}.weight"] = _oihw(p["kernel"])
+    if "bias" in p:
+        sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def _identity_bn(sd, prefix, c):
+    sd[f"{prefix}.weight"] = torch.ones(c)
+    sd[f"{prefix}.bias"] = torch.zeros(c)
+    sd[f"{prefix}.running_mean"] = torch.zeros(c)
+    sd[f"{prefix}.running_var"] = torch.ones(c)
+    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+
+
+# MBConv layers in order: (JAX conv or BN, reference name), by expand == 1
+_MBCONV = {
+    True: (("Conv_0", "conv_dw"), ("BatchNorm_0", "bn1"),
+           ("Conv_1", "conv_pw"), ("BatchNorm_1", "bn2")),
+    False: (("Conv_0", "conv_pw"), ("BatchNorm_0", "bn1"),
+            ("Conv_1", "conv_dw"), ("BatchNorm_1", "bn2"),
+            ("Conv_2", "conv_pwl"), ("BatchNorm_2", "bn3")),
+}
+
+
+def nnet_state_dict_from_jax(params: Dict[str, Any],
+                             batch_stats: Dict[str, Any],
+                             depth: float = 2.2
+                             ) -> Dict[str, torch.Tensor]:
+    """Flax NNET (params, batch_stats) numpy trees -> state dict of
+    ``rdfc_gan_torch.models.normal_net.NNET`` at the same ``depth``."""
+    sd: Dict[str, torch.Tensor] = {}
+    ep = params["EfficientNetEncoder_0"]
+    es = batch_stats["EfficientNetEncoder_0"]
+    pre = "encoder.original_model"
+    _conv(sd, f"{pre}.conv_stem", ep["Conv_0"])
+    _bn(sd, f"{pre}.bn1", ep["BatchNorm_0"], es["BatchNorm_0"])
+    mb = 0
+    for si, (e, _c, r, _s, _k) in enumerate(B0_BLOCKS):
+        for bi in range(round_repeats(r, depth)):
+            bp, p, st = (f"{pre}.blocks.{si}.{bi}", ep[f"MBConv_{mb}"],
+                         es[f"MBConv_{mb}"])
+            for src, dst in _MBCONV[e == 1]:
+                if src.startswith("Conv"):
+                    _conv(sd, f"{bp}.{dst}", p[src])
+                else:
+                    _bn(sd, f"{bp}.{dst}", p[src], st[src])
+            se = p["SqueezeExcite_0"]
+            _conv(sd, f"{bp}.se.conv_reduce", se["Conv_0"])
+            _conv(sd, f"{bp}.se.conv_expand", se["Conv_1"])
+            mb += 1
+    _conv(sd, f"{pre}.conv_head", ep["Conv_1"])
+    _identity_bn(sd, f"{pre}.bn2",
+                 np.asarray(ep["Conv_1"]["kernel"]).shape[-1])
+
+    dp = params["NormalDecoder_0"]
+    ds = batch_stats["NormalDecoder_0"]
+    _conv(sd, "decoder.conv2", dp["Conv_0"])
+    for i in range(4):
+        up, ust = dp[f"UpSampleBN_{i}"], ds[f"UpSampleBN_{i}"]
+        for j, (ci, bi) in enumerate(((0, 1), (3, 4))):
+            _conv(sd, f"decoder.up{i + 1}._net.{ci}", up[f"Conv_{j}"])
+            _bn(sd, f"decoder.up{i + 1}._net.{bi}", up[f"BatchNorm_{j}"],
+                ust[f"BatchNorm_{j}"])
+    _conv(sd, "decoder.conv3", dp["Conv_1"])
+    return sd
+
+
+def pspnet_state_dict_from_jax(params: Dict[str, Any],
+                               batch_stats: Dict[str, Any]
+                               ) -> Dict[str, torch.Tensor]:
+    """Flax PSPNet (params, batch_stats) numpy trees -> state dict of
+    ``rdfc_gan_torch.models.label_net.PSPNet``; ``auxiliary_branch`` only
+    when the tree has the aux head."""
+    sd: Dict[str, torch.Tensor] = {}
+    sp, ss = params["DeepStem_0"], batch_stats["DeepStem_0"]
+    for i, (ci, bi) in enumerate(((0, 1), (3, 4), (6, None))):
+        _conv(sd, f"initial.0.{ci}", sp[f"Conv_{i}"])
+        _bn(sd, f"initial.0.{bi}" if bi is not None else "initial.1",
+            sp[f"BatchNorm_{i}"], ss[f"BatchNorm_{i}"])
+    for li in range(4):
+        stage, sst = params[f"ResNetStage_{li}"], batch_stats[
+            f"ResNetStage_{li}"]
+        for blk in stage:
+            bp = f"layer{li + 1}.{int(blk.rsplit('_', 1)[1])}"
+            p, st = stage[blk], sst[blk]
+            for ci in range(3):
+                _conv(sd, f"{bp}.conv{ci + 1}", p[f"Conv_{ci}"])
+                _bn(sd, f"{bp}.bn{ci + 1}", p[f"BatchNorm_{ci}"],
+                    st[f"BatchNorm_{ci}"])
+            if "Conv_3" in p:
+                _conv(sd, f"{bp}.downsample.0", p["Conv_3"])
+                _bn(sd, f"{bp}.downsample.1", p["BatchNorm_3"],
+                    st["BatchNorm_3"])
+    pp, ps = params["PSPModule_0"], batch_stats["PSPModule_0"]
+    nbins = sum(1 for k in pp if k.startswith("Conv_")) - 1
+    for i in range(nbins):
+        _conv(sd, f"master_branch.0.stages.{i}.1", pp[f"Conv_{i}"])
+        _bn(sd, f"master_branch.0.stages.{i}.2", pp[f"BatchNorm_{i}"],
+            ps[f"BatchNorm_{i}"])
+    _conv(sd, "master_branch.0.bottleneck.0", pp[f"Conv_{nbins}"])
+    _bn(sd, "master_branch.0.bottleneck.1", pp[f"BatchNorm_{nbins}"],
+        ps[f"BatchNorm_{nbins}"])
+    _conv(sd, "master_branch.1", params["Conv_0"])
+    if "Conv_1" in params:
+        _conv(sd, "auxiliary_branch.0", params["Conv_1"])
+        _bn(sd, "auxiliary_branch.1", params["BatchNorm_0"],
+            batch_stats["BatchNorm_0"])
+        _conv(sd, "auxiliary_branch.4", params["Conv_2"])
+    return sd
+
+
+def rdfcgan_state_dicts_from_jax(params: Dict[str, Any],
+                                 batch_stats: Dict[str, Any],
+                                 normal_depth: float = 2.2,
+                                 adain_weighting: bool = False
+                                 ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX RDFCGAN's ``params`` / ``batch_stats`` (keyed by net) ->
+    {net: state dict} for the serving nets present: G_A2B (NLSPN off, as
+    the flagship), G_normal and G_label."""
+    out = {}
+    if "G_A2B" in params:
+        out["G_A2B"] = rdf_generator_state_dict_from_jax(
+            params["G_A2B"], batch_stats["G_A2B"], use_nlspn_refine=False,
+            adain_weighting=adain_weighting)
+    if "G_normal" in params:
+        out["G_normal"] = nnet_state_dict_from_jax(
+            params["G_normal"], batch_stats["G_normal"], normal_depth)
+    if "G_label" in params:
+        out["G_label"] = pspnet_state_dict_from_jax(params["G_label"],
+                                                    batch_stats["G_label"])
+    return out

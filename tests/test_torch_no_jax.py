@@ -23,10 +23,14 @@ def test_port_imports_no_jax():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "assert {'rdfc_gan_torch.train', 'rdfc_gan_torch.losses.gan_loss',\n"
-        "        'rdfc_gan_torch.ops.kernels.mask_kernel'} <= set(names)\n"
+        "        'rdfc_gan_torch.ops.kernels.mask_kernel',\n"
+        "        'rdfc_gan_torch.ops.kernels.norm_kernel',\n"
+        "        'rdfc_gan_torch.models.normal_net',\n"
+        "        'rdfc_gan_torch.models.label_net',\n"
+        "        'rdfc_gan_torch.engines.rdfc_gan'} <= set(names)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'rdfc_gan_tpu',\n"
-        "              'tools'))\n"
+        "              'tools', 'attic'))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -34,18 +38,28 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr
 
 
-def _cuda_without_card_raises(main, monkeypatch, tmp_path):
+def _cuda_without_card_raises(main, monkeypatch, tmp_path,
+                              config="rdf_gan_nlspn_config.yaml", extra=()):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--dataset", "synthetic", "--model_cfg_path",
-              os.path.join(ROOT, "configs", "rdf_gan_nlspn_config.yaml"),
-              "--work_dir", str(tmp_path), "--device", "cuda"])
+              os.path.join(ROOT, "configs", config),
+              "--work_dir", str(tmp_path), "--device", "cuda", *extra])
 
 
 def test_device_cuda_without_card_raises(monkeypatch, tmp_path):
     from rdfc_gan_torch.test import main
 
     _cuda_without_card_raises(main, monkeypatch, tmp_path)
+
+
+@pytest.mark.parametrize("extra", [(), ("--depth_only",)])
+def test_flagship_serving_without_card_raises(monkeypatch, tmp_path, extra):
+    """The RDFCGAN entry point, by default and with --depth_only."""
+    from rdfc_gan_torch.test import main
+
+    _cuda_without_card_raises(main, monkeypatch, tmp_path,
+                              "rdf_cycle_patchgan_config.yaml", extra)
 
 
 def test_train_device_cuda_without_card_raises(monkeypatch, tmp_path):
@@ -83,6 +97,20 @@ def test_propagation_wrappers_never_take_plain_on_cuda(monkeypatch):
     x = _OnCard()
     for call in (lambda: nlspn_kernel.nlspn_stencil_propagate(x, x, x, 18),
                  lambda: nlspn_kernel.propagate_auto(x, x, 18)):
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            call()
+
+
+def test_instance_norm_wrappers_never_take_plain_on_cuda(monkeypatch):
+    from rdfc_gan_torch.ops.kernels import norm_kernel
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in ("instance_norm_fwd_plain", "instance_norm_bwd_plain"):
+        monkeypatch.setattr(norm_kernel, name, _never)
+    x = _OnCard()
+    for call in (lambda: norm_kernel.instance_norm_fwd(x, 1e-5),
+                 lambda: norm_kernel.instance_norm_bwd(x, x, x),
+                 lambda: norm_kernel.instance_norm(x)):
         with pytest.raises(RuntimeError, match="needs a CUDA device"):
             call()
 
@@ -151,4 +179,25 @@ def test_kernel_results_carry_grad_fn(monkeypatch):
         nlspn_kernel.nlspn_stencil_propagate(feat, M.reshape(B, S, S, H, W),
                                              None, T, 2, False)
     assert build.LAUNCHES["nlspn_propagate"] == T
+    build.reset_launches()
+
+
+def test_instance_norm_result_carries_grad_fn(monkeypatch):
+    """The IN kernel path (meta tensors, launches faked) stays in the
+    autograd graph and runs its backward through the backward kernel."""
+    from rdfc_gan_torch.ops.kernels import build, norm_kernel
+
+    monkeypatch.setattr(build, "library", lambda name: _FakeLib())
+    monkeypatch.setattr(build, "require_cuda", lambda name, *t: None)
+    monkeypatch.setattr(build, "stream_handle", lambda: None)
+    build.reset_launches()
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.empty((2, 3, 14, 19), dtype=dt,
+                        device="meta").requires_grad_(True)
+        y = norm_kernel.instance_norm(x)
+        assert y.grad_fn is not None and y.dtype == dt
+        y.sum().backward()
+        assert x.grad is not None and x.grad.dtype == dt
+    assert dict(build.LAUNCHES) == {"instance_norm_fwd": 2,
+                                    "instance_norm_bwd": 2}
     build.reset_launches()
