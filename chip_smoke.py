@@ -21,7 +21,8 @@ and PyTorch built for CUDA. It
    steps;
 6. runs one f32 train step through the kernels and one with their plain
    versions patched in (deterministic cuDNN) and compares the losses and
-   every parameter gradient;
+   every parameter gradient (the step's identity BasicBlocks run the fused
+   conv3x3 kernels);
 7. holds the instance-norm kernels against their plain versions at the four
    W-AdaIN shapes (f32 and bf16), then serves the flagship RDFC-GAN
    (``configs/rdf_cycle_patchgan_config.yaml``: G_label -> G_normal ->
@@ -30,8 +31,18 @@ and PyTorch built for CUDA. It
    img/s, ``--cal_fps``, peak memory, 4 IN launches per forward, pred_depth
    against the plain IN path, the time of each net and of its convolution
    kinds, and a profile;
-8. prints the card's name and power limit, one ``{"kernels": [...]}`` line,
-   and ``{"ok": true, "device": {...}}`` as the last line.
+8. holds the fused conv3x3 + moments kernels (forward and backward)
+   against their plain versions at the four identity-block shapes (f32 and
+   bf16) and times them beside cuDNN; the IN kernels also at G_B2A's
+   planes;
+9. trains the flagship one epoch (16 bf16 steps at batch 4) through
+   ``python -m rdfc_gan_torch.train``'s code path from seeded nets: the 23
+   losses, the launch counts, all six nets moved, ``best.pth`` served;
+   step times, peak memory and a two-step profile; then one f32 flagship
+   step through the kernels against the plain step, run-to-run and a
+   control with the identity blocks on torch's convolution;
+10. prints the card's name and power limit, one ``{"kernels": [...]}``
+   line, and ``{"ok": true, "device": {...}}`` as the last line.
 
 It exits non-zero, printing no result, when there is no card or no
 ``rdfc_gan_torch`` package beside it, or when any phase fails.
@@ -57,6 +68,8 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 # f64 FLOP/s outside the tensor cores (the same data sheet)
 PEAK_F64_FLOPS = 34e12
+# bf16 FLOP/s of the tensor cores, dense (the same data sheet)
+PEAK_BF16_FLOPS = 989e12
 
 B, H, W, T = 4, 224, 304, 18
 SCATTER_RTOL, SCATTER_ATOL = 1e-6, 1e-6
@@ -68,6 +81,18 @@ IN_RTOL, IN_ATOL = 0.0, 0.0
 # W-AdaIN shapes of the generator at 224x304, batch 4 (fuse_layer1..4)
 IN_SHAPES = ((B, 512, 14, 19), (B, 768, 28, 38), (B, 384, 56, 76),
              (B, 192, 112, 152))
+# G_B2A's instance norms in the flagship train step (fake_B and real_B in
+# one batch of 8): the stem and last up, the first down and up, the second
+# down and the residual blocks; planes past the forward's staged size
+G_B2A_IN_SHAPES = ((2 * B, 64, H, W), (2 * B, 128, H // 2, W // 2),
+                   (2 * B, 256, H // 4, W // 4))
+# the fused conv3x3 + moments kernels vs plain: f64 sums in one order on
+# both sides, so bit for bit
+CONV_RTOL, CONV_ATOL = 0.0, 0.0
+# (C, H, W) of the identity BasicBlocks of a resnet18 torso behind G_A2B's
+# stride-1 en1, at 224x304 (layer1 and the second block of layers 2-4)
+CONV_SHAPES = ((64, H, W), (128, H // 2, W // 2), (256, H // 4, W // 4),
+               (512, H // 8, W // 8))
 
 
 def fail(msg: str):
@@ -98,9 +123,9 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def bound_ms(n_bytes: float, n_flops: float, peak_flops: float = None):
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = n_flops / PEAK_F32_FLOPS * 1e3
+    t_ops = n_flops / (peak_flops or PEAK_F32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -490,6 +515,17 @@ def serve_phase(workdir):
     return counts, engine, batch
 
 
+def fused_blocks(module) -> int:
+    """BasicBlocks of ``module`` that a train-mode forward runs through the
+    fused conv3x3 kernels: two conv3x3_fwd and, in the backward, two
+    conv3x3_bwd launches each."""
+    from rdfc_gan_torch.models.resnet import BasicBlock
+
+    return sum(1 for m in module.modules() if isinstance(m, BasicBlock)
+               and m.downsample is None and m.conv1.stride == (1, 1)
+               and m.conv1.dilation == (1, 1))
+
+
 def _train_args(workdir, pth):
     return ["--dataset", "synthetic", "--model_cfg_path",
             os.path.join(ROOT, "configs", "rdf_gan_nlspn_config.yaml"),
@@ -563,7 +599,9 @@ def train_phase(workdir):
             "nlspn_reverse_chain": steps * T_cfg,
             "shift_correlation": steps, "nlspn_propagate": evals * T_cfg,
             "instance_norm_fwd": 4 * (steps + evals),
-            "instance_norm_bwd": 4 * steps}
+            "instance_norm_bwd": 4 * steps,
+            "conv3x3_fwd": 2 * fused_blocks(engine.modules["G"]) * steps,
+            "conv3x3_bwd": 2 * fused_blocks(engine.modules["G"]) * steps}
     sec = np.asarray(res["step_seconds"][1:]) * 1e3  # the first warms up
     print(f"train: {os.path.basename(cfg.model_cfg_path)} at {H}x{W}, batch "
           f"{B}, {steps} steps + {evals} eval forwards, compute dtype "
@@ -660,7 +698,7 @@ def _step_diff(title, a, b):
                     / max(float(gb[k].abs().max()), 1e-30), k) for k in gb),
                   reverse=True)
     l2 = {}
-    for net in ("G", "D"):
+    for net in sorted({k.split(".")[0] for k in gb}):
         keys = [k for k in gb if k.startswith(f"{net}.")]
         va = torch.cat([ga[k].flatten() for k in keys])
         vb = torch.cat([gb[k].flatten() for k in keys])
@@ -671,6 +709,19 @@ def _step_diff(title, a, b):
           + "; whole-gradient relative L2: "
           + ", ".join(f"{k} {v:.3e}" for k, v in l2.items()))
     return worst[0], errs
+
+
+def plain_in_and_conv():
+    """The plain versions of the IN and fused-conv kernels, keyed by the
+    (module, name) through which the port calls them."""
+    from rdfc_gan_torch.ops import fused_block
+    from rdfc_gan_torch.ops.kernels import conv_block_kernel as ck
+    from rdfc_gan_torch.ops.kernels import norm_kernel as nk
+
+    return {(nk, "instance_norm_fwd"): nk.instance_norm_fwd_plain,
+            (nk, "instance_norm_bwd"): nk.instance_norm_bwd_plain,
+            (fused_block, "conv3x3_fwd"): ck.conv3x3_fwd_plain,
+            (fused_block, "conv3x3_bwd"): ck.conv3x3_bwd_plain}
 
 
 def step_compare_phase(workdir, pth):
@@ -699,8 +750,7 @@ def step_compare_phase(workdir, pth):
              (mk, "shift_correlation"): mk.shift_correlation_plain,
              (nlspn_kernel, "propagate_x"): st.propagate_x_plain,
              (nlspn_kernel, "reverse_chain"): st.reverse_chain_plain,
-             (nk, "instance_norm_fwd"): nk.instance_norm_fwd_plain,
-             (nk, "instance_norm_bwd"): nk.instance_norm_bwd_plain}
+             **plain_in_and_conv()}
     paths = {"kernels": {}, "plain": plain,
              "f32": {**plain, (nk, "instance_norm_fwd"):
                      _f32_stats_instance_norm_fwd}}
@@ -738,7 +788,8 @@ def step_compare_phase(workdir, pth):
         fail("a gradient of the kernel step disagrees with the plain step")
 
 
-def train_profile_phase(engine, batch, n: int = 2):
+def train_profile_phase(engine, batch, n: int = 2,
+                        title: str = "train profile"):
     """Device time by kernel over ``n`` train steps, and the device's busy
     share of the host wall time."""
     import torch
@@ -753,11 +804,11 @@ def train_profile_phase(engine, batch, n: int = 2):
             engine.train_step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    _print_profile(prof, f"train profile ({n} steps of batch {B})", "step",
-                   wall_ms, n, top=20)
+    _print_profile(prof, f"{title} ({n} steps of batch {B})", "step",
+                   wall_ms, n, top=20, host_top=12)
 
 
-def _print_profile(prof, title, unit, wall_ms, n, top=15):
+def _print_profile(prof, title, unit, wall_ms, n, top=15, host_top=0):
     import torch
 
     # device-side events only: the aten ops that launch them report the
@@ -774,6 +825,16 @@ def _print_profile(prof, title, unit, wall_ms, n, top=15):
     for e in evts[:top]:
         print(f"  {e.self_device_time_total / 1e3 / n:9.3f} ms "
               f"x{e.count // n:<4d} {e.key[:90]}")
+    if host_top:
+        # where the host's time goes when the device waits for it
+        ops = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CPU
+                      and e.self_cpu_time_total > 0),
+                     key=lambda e: -e.self_cpu_time_total)
+        print(f"  host, by self CPU time per {unit} (profiled, so inflated):")
+        for e in ops[:host_top]:
+            print(f"  {e.self_cpu_time_total / 1e3 / n:9.3f} ms "
+                  f"x{e.count // n:<5d} {e.key[:90]}")
 
 
 def profile_phase(engine, batch, n: int = 3, title: str = "profile"):
@@ -799,7 +860,8 @@ def profile_phase(engine, batch, n: int = 3, title: str = "profile"):
 
 def instance_norm_phase():
     """The IN forward and backward kernels against their plain versions at
-    the four W-AdaIN shapes, f32 and bf16. Returns the two kernel rows:
+    the four W-AdaIN shapes and G_B2A's three (whose planes the forward
+    does not stage), f32 and bf16. Returns the two kernel rows:
     the forward at the served f32 and the backward at the train step's
     bf16, each time the sum over the four shapes of one forward or step."""
     import torch
@@ -808,11 +870,13 @@ def instance_norm_phase():
     from rdfc_gan_torch.ops.kernels import norm_kernel as nk
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    print("instance norm kernel checks (the four W-AdaIN shapes):")
-    acc = {(k, dt): collections.defaultdict(float)
+    print("instance norm kernel checks (the W-AdaIN and G_B2A shapes):")
+    acc = {(k, dt, grp): collections.defaultdict(float)
            for k in ("fwd", "bwd")
-           for dt in (torch.float32, torch.bfloat16)}
-    for shape in IN_SHAPES:
+           for dt in (torch.float32, torch.bfloat16)
+           for grp in ("W-AdaIN", "G_B2A")}
+    for shape in IN_SHAPES + G_B2A_IN_SHAPES:
+        grp = "W-AdaIN" if shape in IN_SHAPES else "G_B2A"
         n_el = 1
         for d in shape:
             n_el *= d
@@ -834,7 +898,7 @@ def instance_norm_phase():
                             nk.instance_norm_bwd_plain(dy, y, a), IN_RTOL,
                             IN_ATOL)
             isz = x.element_size()
-            f = acc[("fwd", dt)]
+            f = acc[("fwd", dt, grp)]
             f["err"] = max(f["err"], err_f)
             f["ms"] += time_ms(lambda: nk.instance_norm_fwd(x, 1e-5))
             f["plain_ms"] += time_ms(
@@ -844,7 +908,7 @@ def instance_norm_phase():
             # f32: a multiply and an add for y; counted at the f32 rate
             f["bytes"] += 2 * n_el * isz + planes * 4
             f["ops"] += n_el * (2.0 + 4.0 * PEAK_F32_FLOPS / PEAK_F64_FLOPS)
-            b = acc[("bwd", dt)]
+            b = acc[("bwd", dt, grp)]
             b["err"] = max(b["err"], err_b)
             b["ms"] += time_ms(lambda: nk.instance_norm_bwd(dy, y, a))
             b["plain_ms"] += time_ms(
@@ -861,9 +925,9 @@ def instance_norm_phase():
                       f"{float((lib != py).float().mean()) * 100:.2f}% of "
                       f"elements differ from the JAX rounding, max "
                       f"{float((lib.float() - py.float()).abs().max()):.3e}")
-    for (kind, dt), r in acc.items():
+    for (kind, dt, grp), r in acc.items():
         bnd, by = bound_ms(r["bytes"], r["ops"])
-        print(f"  instance_norm_{kind} {dt}, 4 shapes: kernel "
+        print(f"  instance_norm_{kind} {dt}, the {grp} shapes: kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
               f"{r['library_ms'] if kind == 'fwd' else None} ms, bound "
               f"{bnd * 1e3:.2f} us ({by})")
@@ -871,7 +935,7 @@ def instance_norm_phase():
     for kind, dt, replaces in (
             ("fwd", torch.float32, "attic/norm_kernel.py:211"),
             ("bwd", torch.bfloat16, "attic/norm_kernel.py:230")):
-        r = acc[(kind, dt)]
+        r = acc[(kind, dt, "W-AdaIN")]
         bnd, by = bound_ms(r["bytes"], r["ops"])
         rows[f"instance_norm_{kind}"] = dict(
             name=f"instance_norm_{kind}", route="cuda",
@@ -880,6 +944,145 @@ def instance_norm_phase():
             plain_ms=r["plain_ms"], bound_ms=bnd, bound_by=by,
             library_ms=r["library_ms"] if kind == "fwd" else None)
     return rows
+
+
+def conv_block_phase():
+    """The fused conv3x3 kernels against their plain versions at the four
+    identity-block shapes, f32 and bf16: the forward with no prologue
+    (conv1) and with the affine + ReLU prologue (conv2); the backward of
+    conv2 (finalize, ReLU', BN sums), of conv1 (finalize, carry) and bare.
+    Times the conv2 forward and backward, the plain versions, and cuDNN's
+    F.conv2d / convolution_backward on the same inputs (f32 without TF32).
+    Returns the two kernel rows at the train step's bf16, each time the sum
+    over the four shapes of one call."""
+    import torch
+    import torch.nn.functional as F
+
+    from rdfc_gan_torch.ops.kernels import conv_block_kernel as ck
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def rnd(*s, scale=1.0, shift=0.0):
+        return torch.randn(s, device="cuda", generator=gen) * scale + shift
+
+    print(f"conv3x3 block kernel checks (batch {B}, the identity "
+          f"BasicBlocks):")
+    acc = {(k, dt): collections.defaultdict(float)
+           for k in ("fwd", "bwd") for dt in (torch.float32, torch.bfloat16)}
+    for C, h, w in CONV_SHAPES:
+        uf = rnd(B, C, h, w, scale=1.5, shift=0.2)
+        wf = rnd(C, C, 3, 3, scale=(2.0 / (9 * C)) ** 0.5)
+        a, b = rnd(C, scale=0.3, shift=1.0), rnd(C, scale=0.3)
+        gf, yf, cf = (rnd(B, C, h, w), rnd(B, C, h, w, scale=2.0, shift=0.5),
+                      rnd(B, C, h, w))
+        fin = torch.stack([rnd(C, scale=0.3, shift=1.0), rnd(C, scale=0.1),
+                           rnd(C, scale=0.1), rnd(C, scale=0.3),
+                           rnd(C, scale=0.1, shift=0.8)])
+        xh = (rnd(C, scale=0.3), rnd(C, scale=0.1, shift=0.8))
+        n_el = B * C * h * w
+        flops = 2.0 * B * h * w * C * C * 9
+        for dt in (torch.float32, torch.bfloat16):
+            u, g, y, cy = (t.to(dt) for t in (uf, gf, yf, cf))
+            tag = f"({B}, {C}, {h}, {w}) {dt}"
+            f, bk = acc[("fwd", dt)], acc[("bwd", dt)]
+            for args, kind in (((None, None, "none"), "conv1"),
+                               ((a, b, "relu"), "conv2")):
+                got = ck.conv3x3_fwd(u, wf, *args)
+                torch.cuda.synchronize()
+                want = ck.conv3x3_fwd_plain(u, wf, *args)
+                for name, x_, y_ in zip(("y", "moments"), got, want):
+                    f["err"] = max(f["err"], compare(
+                        f"conv3x3_fwd {kind} {name} {tag}", x_, y_,
+                        CONV_RTOL, CONV_ATOL))
+            conv2_bwd = dict(a=a, b=b, act="relu", y=y, fin=fin, xh=xh)
+            for kw, kind in ((conv2_bwd, "conv2"),
+                             (dict(y=y, fin=fin, carry=cy), "conv1"),
+                             ({}, "bare")):
+                got = ck.conv3x3_bwd(g, u, wf, **kw)
+                torch.cuda.synchronize()
+                want = ck.conv3x3_bwd_plain(g, u, wf, **kw)
+                for name, x_, y_ in zip(("gout", "dW", "sums"), got, want):
+                    if y_ is None:
+                        if x_ is not None:
+                            fail(f"conv3x3_bwd {kind}: {name} not expected")
+                        continue
+                    bk["err"] = max(bk["err"], compare(
+                        f"conv3x3_bwd {kind} {name} {tag}", x_, y_,
+                        CONV_RTOL, CONV_ATOL))
+            isz = u.element_size()
+            wd = wf.to(dt)
+            f["ms"] += time_ms(lambda: ck.conv3x3_fwd(u, wf, a, b, "relu"),
+                               reps=5, warmup=1)
+            f["plain_ms"] += time_ms(
+                lambda: ck.conv3x3_fwd_plain(u, wf, a, b, "relu"), reps=1,
+                warmup=0)
+            bk["ms"] += time_ms(lambda: ck.conv3x3_bwd(g, u, wf, **conv2_bwd),
+                                reps=5, warmup=1)
+            bk["plain_ms"] += time_ms(
+                lambda: ck.conv3x3_bwd_plain(g, u, wf, **conv2_bwd), reps=1,
+                warmup=0)
+            with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                            deterministic=False,
+                                            allow_tf32=False):
+                f["library_ms"] += time_ms(
+                    lambda: F.conv2d(u, wd, padding=1))
+                bk["library_ms"] += time_ms(
+                    lambda: torch.ops.aten.convolution_backward(
+                        g, u, wd, None, [1, 1], [1, 1], [1, 1], False,
+                        [0, 0], 1, [True, True, False]))
+            # each input read once, each output written once
+            f["bytes"] += 2 * n_el * isz + C * C * 9 * isz + 2 * C * 4 \
+                + B * 2 * C * 8
+            f["ops"] += flops
+            bk["bytes"] += 4 * n_el * isz + C * C * 9 * (isz + 4) \
+                + 7 * C * 4 + B * 2 * C * 8
+            bk["ops"] += 2 * flops
+    rows = {}
+    for (kind, dt), r in acc.items():
+        peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS
+        bnd, by = bound_ms(r["bytes"], r["ops"], peak)
+        print(f"  conv3x3_{kind} {dt}, 4 shapes: kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, cuDNN {r['library_ms']:.4f} "
+              f"ms, bound {bnd:.4f} ms ({by}; {r['ops'] / 1e12:.3f} TFLOP, "
+              f"{r['ops'] / r['ms'] / 1e9:.2f} TFLOP/s)")
+        if dt == torch.bfloat16:
+            rows[f"conv3x3_{kind}"] = dict(
+                name=f"conv3x3_{kind}", route="cuda",
+                source="rdfc_gan_torch/csrc/conv_block.cu",
+                replaces=("attic/conv_block_kernel.py:67" if kind == "fwd"
+                          else "attic/conv_block_kernel.py:221"),
+                max_abs_err=max(acc[(kind, d)]["err"]
+                                for d in (torch.float32, torch.bfloat16)),
+                ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=bnd,
+                bound_by=by, library_ms=r["library_ms"])
+    return rows
+
+
+def batchnorm_rounding_check():
+    """What torch's own train-mode batch norm gives for a bf16 input (what
+    every train-mode BatchNorm gets under the steps' autocast) against the
+    JAX rounding that ``models.layers.BatchNorm2d`` follows: printed for
+    the record."""
+    import torch
+    import torch.nn.functional as F
+
+    from rdfc_gan_torch.models.layers import BatchNorm2d
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = (torch.randn((B, 128, 28, 38), device="cuda", generator=gen) * 3
+         + 1.5).to(torch.bfloat16)
+    bn = BatchNorm2d(128).cuda().train()
+    with torch.no_grad():
+        bn.weight.copy_(torch.rand(128, device="cuda", generator=gen) + 0.5)
+        bn.bias.copy_(torch.rand(128, device="cuda", generator=gen) - 0.5)
+        ours = bn(x)
+        lib = F.batch_norm(x, None, None, bn.weight, bn.bias, training=True,
+                           eps=bn.eps)
+    print(f"train-mode batch norm of a bf16 {tuple(x.shape)} input: "
+          f"F.batch_norm gives {lib.dtype}, "
+          f"{float((lib != ours).float().mean()) * 100:.2f}% of elements "
+          f"differ from the JAX rounding, max "
+          f"{float((lib.float() - ours.float()).abs().max()):.3e}")
 
 
 def _flagship_args(workdir, extra=()):
@@ -978,6 +1181,189 @@ def flagship_serve_phase(workdir):
     return counts, engine, batch
 
 
+def flagship_train_phase(workdir):
+    """Train the flagship one epoch at full width through
+    rdfc_gan_torch.train.run at the config's bf16 compute type, from six
+    nets seeded as the train entry point seeds them, counting launches; check
+    the losses, the counts, that all six nets moved and that
+    rdfc_gan_torch.test serves best.pth to the epoch's metrics. Returns
+    (launch counts, engine, a batch, the seeded checkpoint)."""
+    import numpy as np
+    import torch
+
+    from rdfc_gan_torch import test as port_test
+    from rdfc_gan_torch import train as port_train
+    from rdfc_gan_torch.cli import parse_config
+    from rdfc_gan_torch.engines import build_engine
+    from rdfc_gan_torch.ops.kernels import build
+    from rdfc_gan_torch.utils import set_random_seed
+    from rdfc_gan_torch.utils.checkpoint import save_checkpoint
+
+    common = ["--work_dir", os.path.join(workdir, "flagship_train"),
+              "--n_epochs", "1", "--log_interval", "4", "--save_interval",
+              "1", "--val_interval", "1", "--start_eval_epoch", "0"]
+    cfg = parse_config(_flagship_args(workdir, common))
+    set_random_seed(cfg.seed)
+    seeded = build_engine(cfg, is_train=True, steps_per_epoch=16)
+    pth = os.path.join(workdir, "flagship_seeded.pth")
+    save_checkpoint(seeded.modules, pth)
+    del seeded
+    cfg = parse_config(_flagship_args(workdir, common + ["--load_from",
+                                                         pth]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    res = port_train.run(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    engine, steps = res["engine"], res["steps"]
+    evals = engine.n_forward
+    blocks = fused_blocks(engine.modules["G_A2B"])
+    n_in = sum(1 for m in engine.modules["G_B2A"].modules()
+               if type(m).__name__ == "InstanceNorm")
+    # G_A2B runs twice a step (real_A and fake_A): 4 W-AdaIN each; G_B2A
+    # once on the batch of 8; the evaluation's forwards 4 W-AdaIN each
+    want = {"conv3x3_fwd": 2 * 2 * blocks * steps,
+            "conv3x3_bwd": 2 * 2 * blocks * steps,
+            "instance_norm_fwd": (2 * 4 + n_in) * steps + 4 * evals,
+            "instance_norm_bwd": (2 * 4 + n_in) * steps}
+    sec = np.asarray(res["step_seconds"][1:]) * 1e3
+    print(f"flagship train: rdf_cycle_patchgan_config.yaml at {H}x{W}, "
+          f"batch {B}, {steps} steps + {evals} eval forwards, compute "
+          f"dtype {engine.compute_dtype}, {blocks} fused blocks in G_A2B, "
+          f"{n_in} IN in G_B2A, wall {wall:.2f} s")
+    print("  last losses: " + ", ".join(
+        f"{k}={v:.6g}" for k, v in sorted(res["losses"].items())))
+    print(f"  step ms (host clock, each ending in its loss readback at the "
+          f"log boundaries; first step left out): median "
+          f"{np.median(sec):.3f}, p90 {np.percentile(sec, 90):.3f}, max "
+          f"{sec.max():.3f}; {B / (np.median(sec) / 1e3):.2f} img/s "
+          f"trained; peak device memory {peak / 2**20:.1f} MiB")
+    print(f"  kernel launches {counts}; expected {want}")
+    print("  metrics after the epoch: " + ", ".join(
+        f"{k}={v:.6g}" for k, v in res["metrics"].items()))
+    if len(res["losses"]) != 23 or not all(
+            np.isfinite(v) for v in res["losses"].values()):
+        fail(f"flagship losses {res['losses']}")
+    if counts != want:
+        fail(f"flagship launch counts {counts} are not {want}")
+    before = torch.load(pth, map_location="cpu", weights_only=True)
+    for net, mod in engine.modules.items():
+        sd = mod.state_dict()
+        moved = sum(int(not torch.equal(sd[k].cpu(), v))
+                    for k, v in before[f"{net}_state_dict"].items()
+                    if "running" not in k and "num_batches" not in k)
+        print(f"  {net}: {moved} parameter tensors changed")
+        if moved == 0:
+            fail(f"{net}'s parameters did not change")
+    best = os.path.join(cfg.work_dir, "best.pth")
+    served = port_test.run(parse_config(_flagship_args(
+        workdir, ["--load_from", best])))["metrics"]
+    for k, v in served.items():
+        if not np.isclose(v, res["metrics"][k], rtol=SERVE_RTOL,
+                          atol=SERVE_ATOL):
+            fail(f"rdfc_gan_torch.test on the flagship's best.pth: {k}={v}, "
+                 f"the epoch's evaluation {res['metrics'][k]}")
+    print(f"  rdfc_gan_torch.test serves best.pth to the same metrics (rtol "
+          f"{SERVE_RTOL:g})")
+    batch = next(iter(port_train.build_train_loader(cfg, engine.device)))
+    return counts, engine, batch, pth
+
+
+# the flagship's kernel step against its plain step: each gradient tensor
+# within twice what summing the fused blocks' convolutions another way
+# (torch's convolution and BatchNorm), or running the plain step again,
+# moves it
+FLAGSHIP_STEP_FACTOR = 2.0
+
+
+def flagship_step_compare_phase(workdir, pth):
+    """One f32 flagship step with deterministic cuDNN from the seeded six
+    nets (the same draws), through the kernels, through their plain
+    versions, twice more the plain way (run to run), and as a control with
+    the identity blocks on torch's convolution and BatchNorm (the fused
+    convolutions summed in another order). Each gradient of the kernel
+    step must equal the plain step's or lie within FLAGSHIP_STEP_FACTOR
+    times the larger of the control's and the run-to-run difference; so
+    must each loss."""
+    import torch
+
+    from rdfc_gan_torch.cli import parse_config
+    from rdfc_gan_torch.engines import build_engine
+    from rdfc_gan_torch.models.resnet import BasicBlock
+    from rdfc_gan_torch.ops.kernels import build
+    from rdfc_gan_torch.train import build_train_loader
+    from rdfc_gan_torch.utils.checkpoint import load_checkpoint
+
+    cfg = parse_config(_flagship_args(workdir, ["--load_from", pth]))
+    cfg["compute_dtype"] = "float32"
+    batch = next(iter(build_train_loader(cfg, torch.device(cfg.device))))
+    plain = plain_in_and_conv()
+    paths = {"kernels": {}, "plain": plain, "plain again": plain,
+             "control": {**plain, (BasicBlock, "fused"):
+                         lambda self: False}}
+    out, launches, draws = {}, {}, None
+    for path, patches in paths.items():
+        engine = build_engine(cfg, is_train=True, steps_per_epoch=16)
+        load_checkpoint(engine.modules, pth)
+        if draws is None:
+            draws = engine.draws(0, batch)
+        build.reset_launches()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(torch.backends.cudnn.flags(
+                enabled=True, benchmark=False, deterministic=True,
+                allow_tf32=False))
+            for (mod, name), fn in patches.items():
+                stack.enter_context(mock.patch.object(mod, name, fn))
+            t0 = time.perf_counter()
+            losses = engine.train_step(batch, draws=draws)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        grads = {f"{net}.{n}": p.grad.detach().clone()
+                 for net, m in engine.modules.items()
+                 for n, p in m.named_parameters() if p.grad is not None}
+        out[path] = (losses, grads)
+        launches[path] = dict(build.LAUNCHES)
+        print(f"  flagship f32 step, {path}: {sec:.2f} s, launches "
+              f"{launches[path]}")
+        del engine
+    if launches["plain"] or launches["control"] or not launches["kernels"]:
+        fail("a plain flagship step launched a kernel, or the kernel step "
+             "none")
+    (lk, gk), (lp, gp), (lc, gc), (la, ga) = (
+        out[k] for k in ("kernels", "plain", "control", "plain again"))
+    if set(gk) != set(gp) or set(lk) != set(lp):
+        fail("the flagship steps differ in their losses or gradients")
+    exact = sum(int(torch.equal(gk[k], gp[k])) for k in gp)
+    print(f"flagship kernels vs plain, one f32 step (deterministic cuDNN): "
+          f"{exact} of {len(gp)} gradients and "
+          f"{sum(int(torch.equal(lk[k], lp[k])) for k in lp)} of {len(lp)} "
+          f"losses bit-equal")
+    _step_diff("flagship kernels vs plain", out["kernels"], out["plain"])
+    _step_diff("flagship plain again vs plain (run to run)",
+               out["plain again"], out["plain"])
+    _step_diff("flagship control vs plain", out["control"], out["plain"])
+    worst = []
+    for tag, a, c, r, d in (("loss", lk, lc, la, lp),
+                            ("grad", gk, gc, ga, gp)):
+        for k in d:
+            dk = float((a[k] - d[k]).abs().max())
+            dc = max(float((c[k] - d[k]).abs().max()),
+                     float((r[k] - d[k]).abs().max()))
+            worst.append((dk / dc if dc else (0.0 if dk == 0 else
+                                              float("inf")), tag, k, dk, dc))
+    worst.sort(reverse=True)
+    print("  largest kernel/control ratios: " + "; ".join(
+        f"{t} {k}: {dk:.3e} / {dc:.3e}" for _, t, k, dk, dc in worst[:4]))
+    if worst[0][0] > FLAGSHIP_STEP_FACTOR:
+        fail(f"flagship step: {worst[0][1]} {worst[0][2]} moved "
+             f"{worst[0][3]:.3e} from the plain step, more than "
+             f"{FLAGSHIP_STEP_FACTOR} times the control's {worst[0][4]:.3e}")
+
+
 def _device_ms(fn, n: int = 2) -> float:
     """Device time (ms) of the kernels ``fn`` launches, per call, from the
     profiler over ``n`` calls after one warm-up: idle gaps left out."""
@@ -1071,6 +1457,8 @@ def main():
     rows = kernel_phase()
     train_rows = backward_kernel_phase()
     in_rows = instance_norm_phase()
+    conv_rows = conv_block_phase()
+    batchnorm_rounding_check()
     with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=ROOT) as workdir:
         counts, engine, batch = serve_phase(workdir)
         profile_phase(engine, batch)
@@ -1083,19 +1471,23 @@ def main():
         flagship_breakdown_phase(engine, batch)
         profile_phase(engine, batch, title="flagship profile")
         del engine
+        flagship_train_counts, engine, batch, fpth = flagship_train_phase(
+            workdir)
+        train_profile_phase(engine, batch, title="flagship train profile")
+        del engine
+        flagship_step_compare_phase(workdir, fpth)
     # launches: the scatter and the served chain from the serve run, the
-    # backward kernels from the train run, the IN forward from the flagship
-    # serve run, its backward from the train run
+    # NLSPN backward kernels from the RDFGAN train run, the IN and conv
+    # kernels from the flagship train run
     for name, row in rows.items():
         row["launches"] = counts[name]
     for name, row in train_rows.items():
         row["launches"] = train_counts[name]
-    in_rows["instance_norm_fwd"]["launches"] = flagship_counts[
-        "instance_norm_fwd"]
-    in_rows["instance_norm_bwd"]["launches"] = train_counts[
-        "instance_norm_bwd"]
+    for name, row in {**in_rows, **conv_rows}.items():
+        row["launches"] = flagship_train_counts[name]
     rows.update(train_rows)
     rows.update(in_rows)
+    rows.update(conv_rows)
     print(gpu_line())
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -1,42 +1,86 @@
-"""RDFCGAN engine, serving (port of rdfc_gan_tpu/engines/rdfc_gan.py;
-reference lib/models/rdfc_gan.py:168-182): the flagship's label and normal
-nets feed its depth generator.
+"""RDFCGAN engine, the flagship cycle GAN with normal and label guidance
+(port of rdfc_gan_tpu/engines/rdfc_gan.py; reference lib/models/
+rdfc_gan.py:21-413).
+
+Six nets, keyed like the reference checkpoint: G_A2B (RDFGenerator), G_B2A
+(ResnetGenerator), disc_A and disc_B (PatchGAN), G_normal (NNET,
+``model.Normal_G.width/depth``, B5 by default) and G_label (PSPNet,
+``model.Label_G.backbone_depth/planes/stem_features``, the dilated R50 by
+default) with ``num_classes`` classes; NNET resizes to (``out_height``,
+``out_width``). A serving engine (``is_train`` False) builds the three nets
+that ``forward_test`` reads.
 
     forward_test: G_label(rgb) -> pred_label (skipped with ``depth_only``:
                   pred_depth never reads it), G_normal(rgb) -> pred_normal =
                   the unit xyz of its first 3 channels, then
                   G_A2B(rgb, raw_depth, pred_normal) -> pred_depth.
 
-The modules are keyed like the reference checkpoint: G_A2B (RDFGenerator),
-G_normal (NNET, ``model.Normal_G.width/depth``, B5 by default) and G_label
-(PSPNet, ``model.Label_G.backbone_depth/planes/stem_features``, the dilated
-R50 by default) with ``num_classes`` classes; NNET resizes to
-(``out_height``, ``out_width``). G_B2A, the two PatchGANs, the four
-optimizers and the 16-term train step wait for the flagship train slice.
+    train_step (rdfc_gan.py:198-393): four optimizers, G = Adam over G_A2B
+    and G_B2A, D = Adam over both discs, Nor = AdamW at 0.5 lr with
+    ``weight_decay`` over G_normal, label = Adam over G_label. The G loss,
+    with the discs frozen (their running statistics advance):
+      G_label, G_normal (norm_normalize) and G_A2B on real_A; pepper noise
+      on its depth -> fake_B; G_B2A once on cat(fake_B, real_B) (exact: it
+      is instance-norm only) -> rec_A, fake_A; G_label, G_normal and G_A2B
+      on fake_A -> rec_B; disc_A(fake_B), disc_B(fake_A); the 16 terms
+        GAN x 2 + L1(fake_B, real_B, w) 5 lam_L1 + L1(fake_A, real_A, w)
+        3 lam_L1 + L1(rec_A, real_A) lam_A + L1(rec_B, real_B, w) lam_B
+        + (CE + 0.4 CE_aux) lam_L1 x 2 + nor_loss 2 lam_L1 x 2
+        + Manhattan floor / wall / ceiling lam_L1 x 2,
+      logged under the JAX names (17 keys, ``loss_A2B_L1`` with its own
+      value). G, Nor and label step first; then the D loss on the detached
+      fakes, real before fake for each disc (6 keys), and D steps.
+
+Bug for bug with the JAX engine (rdfc_gan.py:18-24): fake_B is
+pepper-noised before the discriminator, the cycle and the A2B L1 term; the
+lam_L1 x 5 / x 3 boosts stay; G_normal(fake_A), G_A2B(fake_A) and
+G_B2A(fake_B) run once, so G_A2B's BatchNorm statistics advance twice a
+step. The step's draws (the pepper noise's batch uniform and field, and
+the two keep masks of G_label's dropouts, shared by its two applications
+as JAX's one dropout key gives) come from ``step_generator``, or are
+handed in (``draws``), as the tests hand in JAX's.
 """
 
 from __future__ import annotations
 
+import contextlib
+from typing import Dict, Optional
+
 import torch
 
-from ..losses import norm_normalize
+from ..losses import (GANLoss, l1_loss, manhattan_loss, nor_loss,
+                      norm_normalize, softmax_cross_entropy_loss)
 from ..models.label_net import PSPNet
 from ..models.normal_net import NNET
-from ..registry import MODELS, build_generator
-from .base import BaseEngine
+from ..registry import MODELS, build_discriminator, build_generator
+from ..utils.image_ops import add_pepper_noise, pepper_draw
+from .base import BaseEngine, clip_gradients, make_optimizer
+
+NET_KEYS = ("G_A2B", "G_B2A", "disc_A", "disc_B", "G_normal", "G_label")
+# which nets each optimizer steps
+OPT_NETS = {"G": ("G_A2B", "G_B2A"), "Nor": ("G_normal",),
+            "label": ("G_label",), "D": ("disc_A", "disc_B")}
+
+
+@contextlib.contextmanager
+def _frozen(*modules: torch.nn.Module):
+    """No parameter gradients of ``modules`` inside the block."""
+    flags = [(p, p.requires_grad) for m in modules for p in m.parameters()]
+    for p, _ in flags:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p, f in flags:
+            p.requires_grad_(f)
 
 
 class RDFCGAN(BaseEngine):
     def __init__(self, cfg, is_train: bool = False, steps_per_epoch: int = 1):
-        if is_train:
-            raise NotImplementedError(
-                "RDFCGAN training (G_B2A, disc_A/disc_B, the four optimizers "
-                "and the 16-term step) waits for the flagship train slice; "
-                "this port serves the RDFCGAN only")
         super().__init__(cfg, is_train, steps_per_epoch)
         ncfg = cfg.model.get("Normal_G") or {}
         lcfg = cfg.model.get("Label_G") or {}
-        self.modules = {
+        nets = {
             "G_A2B": build_generator(cfg.model.G_A2B.to_dict()),
             "G_normal": NNET(cfg.out_height, cfg.out_width,
                              width=ncfg.get("width", 1.6),
@@ -47,11 +91,26 @@ class RDFCGAN(BaseEngine):
                 planes=tuple(lcfg.get("planes", (64, 128, 256, 512))),
                 stem_features=lcfg.get("stem_features", 64)),
         }
-        for name, mod in self.modules.items():
-            self.modules[name] = mod.to(self.device).eval()
+        if is_train:
+            nets["G_B2A"] = build_generator(cfg.model.G_B2A.to_dict())
+            nets["disc_A"] = build_discriminator(cfg.model.D_A.to_dict())
+            nets["disc_B"] = build_discriminator(cfg.model.D_B.to_dict())
+        self.modules = {k: nets[k].to(self.device).eval()
+                        for k in NET_KEYS if k in nets}
         # forward_test calls served, so a caller can relate kernel launch
         # counts to requests
         self.n_forward = 0
+        if not is_train:
+            return
+        self.criterion_gan = GANLoss(cfg.gan_loss_type)
+        for name, keys in OPT_NETS.items():
+            params = [p for k in keys for p in self.modules[k].parameters()]
+            extra = (dict(lr_mult=0.5, kind="adamw",
+                          weight_decay=cfg.weight_decay)
+                     if name == "Nor" else {})
+            self.optimizers[name], self.schedulers[name] = make_optimizer(
+                cfg, params, self.steps_per_epoch, **extra)
+        self.n_step = 0
 
     @torch.inference_mode()
     def forward_test(self, rgb: torch.Tensor, raw_depth: torch.Tensor,
@@ -73,6 +132,130 @@ class RDFCGAN(BaseEngine):
         return out
 
     __call__ = forward_test
+
+    def step_generator(self, step: int) -> torch.Generator:
+        """The generator of step ``step``'s draws, seeded from (seed, global
+        step); JAX splits a per-step key the same way, but the bits
+        differ, so tests hand the draws in."""
+        gen = torch.Generator(device=self.device)
+        return gen.manual_seed(int(self.cfg.seed) * 1000003 + int(step))
+
+    def draws(self, step: int, batch: Dict[str, torch.Tensor]) -> dict:
+        """Step ``step``'s random draws: ``pepper`` (the batch uniform and
+        the (B,1,H,W) field of ``add_pepper_noise``) and ``keep`` (the
+        keep masks of G_label's two dropouts, kept with probability 0.9)."""
+        gen = self.step_generator(step)
+        real_B = batch["gt_depth"]
+        pepper = pepper_draw(real_B.shape, gen, self.device)
+        keep = tuple(torch.rand(s, generator=gen, device=self.device) < 0.9
+                     for s in self.modules["G_label"].dropout_shapes(
+                         real_B.shape[0]))
+        return dict(pepper=pepper, keep=keep)
+
+    def _optimize(self, names, loss: torch.Tensor):
+        """One backward of ``loss``, then each named optimizer's clip, step
+        and schedule, in order."""
+        for name in names:
+            self.optimizers[name].zero_grad(set_to_none=True)
+        loss.backward()
+        for name in names:
+            clip_gradients(self.cfg, [p for k in OPT_NETS[name]
+                                      for p in self.modules[k].parameters()])
+            self.optimizers[name].step()
+            self.schedulers[name].step()
+
+    def _g_loss(self, batch, draws):
+        cfg, m = self.cfg, self.modules
+        real_A, real_B = batch["rgb"], batch["gt_depth"]
+        aux_A = batch["raw_depth"]
+        gt_normal, gt_label = batch["gt_normal"], batch["labels"]
+        norm_mask = batch["normal_masks"]
+        mask = batch.get("depth_masks")
+        if mask is None:
+            mask = torch.ones_like(real_B)
+        w_img = mask / (mask.sum() + 1e-6)
+        lam_A, lam_B, lam_l1 = cfg.lambda_A, cfg.lambda_B, cfg.lambda_L1
+        keep = draws["keep"]
+
+        # --- A -> B
+        lbl_realA = m["G_label"](real_A, keep=keep)
+        nrm_realA = norm_normalize(m["G_normal"](real_A))
+        retAB = m["G_A2B"](real_A, aux_A, nrm_realA)
+        fake_B = add_pepper_noise(retAB["pred_depth"], *draws["pepper"])
+        # G_B2A is instance-norm only: one batch of both inputs is exact
+        rec_A, fake_A = m["G_B2A"](torch.cat([fake_B, real_B])).chunk(2)
+
+        # --- B -> A
+        lbl_fakeA = m["G_label"](fake_A, keep=keep)
+        nrm_fakeA = norm_normalize(m["G_normal"](fake_A))
+        rec_B = m["G_A2B"](fake_A, aux_A, nrm_fakeA)["pred_depth"]
+
+        # --- adversarial terms (the discs frozen; statistics advance)
+        loss_G_A2B = self.criterion_gan(m["disc_A"](fake_B), True)
+        loss_G_B2A = self.criterion_gan(m["disc_B"](fake_A), True)
+        loss_A2B_L1 = l1_loss(fake_B, real_B, weight=w_img) * lam_l1 * 5
+        loss_B2A_L1 = l1_loss(fake_A, real_A, weight=w_img) * lam_l1 * 3
+        loss_cycle_A = l1_loss(rec_A, real_A) * lam_A
+        loss_cycle_B = l1_loss(rec_B, real_B, weight=w_img) * lam_B
+
+        def label_loss(lbl):
+            return (softmax_cross_entropy_loss(lbl[0], gt_label)
+                    + softmax_cross_entropy_loss(lbl[1], gt_label) * 0.4
+                    ) * lam_l1
+
+        def manhattan(nrm, lbl):
+            return manhattan_loss(nrm, lbl[0], norm_mask, cfg.label_wall,
+                                  cfg.label_floor, cfg.label_ceiling, lam_l1)
+
+        loss_normal_A2B = nor_loss(nrm_realA, gt_normal, norm_mask) \
+            * lam_l1 * 2
+        loss_normal_B2A = nor_loss(nrm_fakeA, gt_normal, norm_mask) \
+            * lam_l1 * 2
+        fl_A, wl_A, cl_A = manhattan(nrm_realA, lbl_realA)
+        fl_B, wl_B, cl_B = manhattan(nrm_fakeA, lbl_fakeA)
+        log = dict(
+            loss_G_A2B=loss_G_A2B, loss_G_B2A=loss_G_B2A,
+            loss_A2B_L1=loss_A2B_L1, loss_B2A_L1=loss_B2A_L1,
+            loss_cycle_A=loss_cycle_A, loss_cycle_B=loss_cycle_B,
+            loss_label_A2B=label_loss(lbl_realA),
+            loss_label_B2A=label_loss(lbl_fakeA),
+            loss_normal_A2B=loss_normal_A2B, loss_normal_B2A=loss_normal_B2A,
+            floor_loss_A2B=fl_A, wall_loss_A2B=wl_A, ceiling_loss_A2B=cl_A,
+            floor_loss_B2A=fl_B, wall_loss_B2A=wl_B, ceiling_loss_B2A=cl_B)
+        log["loss_G"] = sum(log.values())
+        return log, fake_B, fake_A
+
+    def train_step(self, batch: Dict[str, torch.Tensor],
+                   draws: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+        """One step: the G loss and the G, Nor and label updates, then the D
+        loss and the D update. ``draws`` (``pepper``: (batch uniform,
+        (B,1,H,W) field); ``keep``: G_label's two keep masks) default to
+        ``draws(self.n_step, batch)``. Returns the 23 losses as detached
+        device scalars: reading them is the caller's one device sync."""
+        m = self.modules
+        for net in m.values():
+            net.train()
+        if draws is None:
+            draws = self.draws(self.n_step, batch)
+        with _frozen(m["disc_A"], m["disc_B"]), self.autocast():
+            log, fake_B, fake_A = self._g_loss(batch, draws)
+        self._optimize(("G", "Nor", "label"), log["loss_G"])
+
+        real_A, real_B = batch["rgb"], batch["gt_depth"]
+        gan = self.criterion_gan
+        with self.autocast():
+            d_log = {}
+            for d, real, fake in (("A", real_B, fake_B),
+                                  ("B", real_A, fake_A)):
+                disc = m[f"disc_{d}"]
+                r = gan(disc(real), True)
+                f = gan(disc(fake.detach()), False)
+                d_log.update({f"loss_D_{d}": (r + f) * 0.5,
+                              f"loss_D_{d}_real": r, f"loss_D_{d}_fake": f})
+        self._optimize(("D",), d_log["loss_D_A"] + d_log["loss_D_B"])
+        log.update(d_log)
+        self.n_step += 1
+        return {k: v.detach().float() for k, v in log.items()}
 
 
 MODELS.register("RDFCGAN")(RDFCGAN)

@@ -1,11 +1,15 @@
-"""Losses of the RDFGAN train step and the RDFCGAN's normal helper (port of
-rdfc_gan_tpu/losses/gan_loss.py; reference RDFC-GAN/lib/losses/
-gan_loss.py), NCHW.
+"""Losses of the two train steps (port of rdfc_gan_tpu/losses/gan_loss.py;
+reference RDFC-GAN/lib/losses/gan_loss.py), NCHW: the JAX ``[..., k]``
+channel index is ``[:, k]`` here.
 
-Every loss is a weighted SUM of elementwise terms in f32. The default
-weight is uniform 1 / (numel + 1e-6), which is a mean up to that 1e-6 and
-not ``F.mse_loss``'s exact mean; a weight with one dimension fewer than the
-loss broadcasts over the channel axis.
+Every L1/L2/BCE loss is a weighted SUM of elementwise terms in f32. The
+default weight is uniform 1 / (numel + 1e-6), which is a mean up to that
+1e-6 and not ``F.mse_loss``'s exact mean; a weight with one dimension fewer
+than the loss broadcasts over the channel axis. The normal losses
+(``nor_loss``, ``manhattan_loss``) average over the pixels whose term is
+non-zero, with 1e-6 in the count, so an empty mask gives exactly 0.
+``manhattan_loss`` returns its three terms scaled by ``weight`` or 1 (the
+reference returns None for a falsy weight; the JAX package fixed that).
 """
 
 from __future__ import annotations
@@ -71,6 +75,76 @@ class GANLoss:
             return crit(prediction, target, weight)
         p = prediction.float()
         return -p.mean() if target_is_real else p.mean()
+
+
+def softmax_cross_entropy_loss(logits: torch.Tensor,
+                               labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy of (B, C, H, W) logits against (B, H, W)
+    integer labels in [0, C) (torch's CrossEntropyLoss default, as the JAX
+    one-hot contraction computes it), in f32."""
+    logz = torch.log_softmax(logits.float(), dim=1)
+    return -torch.gather(logz, 1, labels.long()[:, None]).mean()
+
+
+def _safe_norm(x: torch.Tensor, dim: int = 1,
+               eps: float = 1e-12) -> torch.Tensor:
+    """sqrt(sum(x^2) + eps): a finite gradient at x == 0."""
+    return torch.sqrt(torch.sum(x * x, dim=dim) + eps)
+
+
+def _cosine_similarity(a: torch.Tensor, b: torch.Tensor, dim: int = 1,
+                       eps: float = 1e-8) -> torch.Tensor:
+    """torch.cosine_similarity: dot / (max(|a|, eps) max(|b|, eps)), with
+    the norms of ``_safe_norm``."""
+    an = torch.clamp_min(_safe_norm(a, dim), eps)
+    bn = torch.clamp_min(_safe_norm(b, dim), eps)
+    return torch.sum(a * b, dim=dim) / (an * bn)
+
+
+def nor_loss(pred: torch.Tensor, target: torch.Tensor,
+             norm_masks: torch.Tensor) -> torch.Tensor:
+    """Mean of (1 - cos(pred, target)) over the valid pixels whose detached
+    cosine lies inside (-0.999, 0.999) (gan_loss.py:122-132). pred, target:
+    (B, 3, H, W); norm_masks (B, H, W) or (B, C, H, W) (channel 0 read)."""
+    dot = _cosine_similarity(pred.float(), target.float())
+    m = norm_masks[:, 0] if norm_masks.dim() == 4 else norm_masks
+    dsg = dot.detach()
+    valid = (m.float() * (dsg < 0.999) * (dsg > -0.999)) > 0.0
+    contrib = (1.0 - dot) * valid
+    count = torch.sum(contrib != 0.0)
+    return contrib.sum() / (count + _EPS6)
+
+
+def manhattan_loss(normal: torch.Tensor, semantic_logits: torch.Tensor,
+                   norm_mask, label_wall: int, label_floor: int,
+                   label_ceiling: int, weight: Optional[float] = None):
+    """Manhattan-world priors on the (B, 3, H, W) normals where the argmax
+    of the (B, C, H, W) logits names the floor (normal along +y), the
+    ceiling (along -y) or a wall (perpendicular to y) (gan_loss.py:50-99).
+    ``norm_mask`` is unused, as in the reference. Returns (floor, wall,
+    ceiling), each times ``weight`` (None: 1)."""
+    sem = torch.argmax(semantic_logits, dim=1)
+    normal = normal.float()
+    ny = normal[:, 1]
+
+    def directional(mask, sign):
+        maskf = mask.float()
+        cos = sign * (ny * maskf) / torch.clamp_min(
+            _safe_norm(normal * maskf[:, None]), 1e-8)
+        contrib = (1.0 - cos) * maskf
+        count = torch.sum(contrib != 0.0)
+        return contrib.sum() / (count + _EPS6)
+
+    floor_loss = directional(sem == label_floor, 1.0)
+    ceiling_loss = directional(sem == label_ceiling, -1.0)
+    wall = (sem == label_wall).float()
+    wall_cos = (ny * wall) / torch.clamp_min(
+        _safe_norm(normal * wall[:, None]), 1e-8)
+    wall_contrib = wall_cos * wall * 2.0
+    wall_count = torch.sum(wall_contrib != 0.0)
+    wall_loss = torch.abs(wall_contrib).sum() / (wall_count + _EPS6)
+    w = 1.0 if weight is None else weight
+    return floor_loss * w, wall_loss * w, ceiling_loss * w
 
 
 def norm_normalize(norm_out: torch.Tensor) -> torch.Tensor:

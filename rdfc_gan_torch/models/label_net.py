@@ -10,19 +10,48 @@ State-dict names are the reference's (labels_model.py:44-96):
 {1,2}``, ``master_branch.0.bottleneck.{0,1}``, ``master_branch.1`` and
 ``auxiliary_branch.{0,1,4}``. The pooling is torch's
 ``AdaptiveAvgPool2d``, whose windows [floor(i H / b), ceil((i + 1) H / b))
-the JAX ``_adaptive_avg_pool`` copies. ``Dropout2d`` is the identity in
-eval mode; its train-mode draws differ from JAX's.
+the JAX ``_adaptive_avg_pool`` copies.
+
+The two ``Dropout2d(0.1)`` layers (after the PSP bottleneck and in the aux
+head) are the JAX ``nn.Dropout(0.1, broadcast_dims=(1, 2))``: one keep flag
+per (b, c), x / 0.9 where kept, the identity in eval mode. In train mode
+``forward`` takes the keep masks (``keep``, shapes from
+``dropout_shapes``); without them each layer draws its own from torch's
+global generator. The JAX flagship step applies G_label twice with one
+dropout key, so both applications drop the same channels; the engine
+hands the same masks to both.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
 from .layers import BatchNorm2d, bilinear_resize
 from .resnet import DeepStem, make_stages
+
+
+class Dropout2d(nn.Module):
+    """Channel dropout: where(keep, x / (1 - p), 0) with ``keep`` (B, C, 1,
+    1) bool, set by the owner for one forward, or drawn as uniform < 1 - p
+    when it is None."""
+
+    def __init__(self, p: float = 0.1):
+        super().__init__()
+        self.p = p
+        self.keep: Optional[torch.Tensor] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return x
+        keep = self.keep
+        if keep is None:
+            keep = torch.rand((x.shape[0], x.shape[1], 1, 1),
+                              device=x.device) < 1.0 - self.p
+        return torch.where(keep, x / (1.0 - self.p),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class PSPModule(nn.Module):
@@ -36,7 +65,7 @@ class PSPModule(nn.Module):
             for b in bin_sizes)
         self.bottleneck = nn.Sequential(
             nn.Conv2d(cin + c * len(bin_sizes), c, 1),
-            BatchNorm2d(c, eps=1e-5), nn.ReLU(), nn.Dropout2d(0.1))
+            BatchNorm2d(c, eps=1e-5), nn.ReLU(), Dropout2d(0.1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         size = (x.shape[2], x.shape[3])
@@ -58,12 +87,32 @@ class PSPNet(nn.Module):
             PSPModule(p[3] * exp), nn.Conv2d(p[3] * exp // 4, num_classes, 1))
         self.auxiliary_branch = nn.Sequential(
             nn.Conv2d(p[2] * exp, p[3], 3, padding=1, bias=False),
-            BatchNorm2d(p[3], eps=1e-5), nn.ReLU(), nn.Dropout2d(0.1),
+            BatchNorm2d(p[3], eps=1e-5), nn.ReLU(), Dropout2d(0.1),
             nn.Conv2d(p[3], num_classes, 1))
 
-    def forward(self, x: torch.Tensor, force_aux: bool = False):
+    def _dropouts(self) -> Tuple[Dropout2d, Dropout2d]:
+        return self.master_branch[0].bottleneck[3], self.auxiliary_branch[3]
+
+    def dropout_shapes(self, batch: int) -> Tuple[tuple, tuple]:
+        """The (B, C, 1, 1) shapes of the two keep masks."""
+        return tuple((batch, d_in.out_channels, 1, 1) for d_in in (
+            self.master_branch[0].bottleneck[0], self.auxiliary_branch[0]))
+
+    def forward(self, x: torch.Tensor, force_aux: bool = False,
+                keep: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
         """x (B, 3, H, W) -> class logits (B, num_classes, H, W); with the
-        aux head (train mode or ``force_aux``) the list [main, aux]."""
+        aux head (train mode or ``force_aux``) the list [main, aux].
+        ``keep``: the two dropouts' keep masks for a train-mode forward."""
+        drops = self._dropouts()
+        for d, k in zip(drops, keep or (None, None)):
+            d.keep = k
+        try:
+            return self._forward(x, force_aux)
+        finally:
+            for d in drops:
+                d.keep = None
+
+    def _forward(self, x: torch.Tensor, force_aux: bool):
         size = (x.shape[2], x.shape[3])
         h = self.layer2(self.layer1(self.initial(x)))
         x_aux = self.layer3(h)

@@ -4,8 +4,11 @@ reference PyTorch state-dict names:
 
   * ``BatchNorm2d`` — the JAX ``BatchNorm`` (layers.py:150-208): in train
     mode f32 batch statistics with the biased variance, for normalising and
-    for the running update (torch momentum 0.1 = flax 0.9); eval mode is
-    torch's. The state dict is ``nn.BatchNorm2d``'s.
+    for the running update (torch momentum 0.1 = flax 0.9), and the JAX
+    rounding for a bf16 input; eval mode is torch's. The state dict is
+    ``nn.BatchNorm2d``'s.
+  * ``reflect_pad`` and ``PReLU`` — layers.py:734-750 and
+    resnet_generator.py:20-26, for the ResnetGenerator.
   * ``ConvBNAct`` / ``ConvTBNAct`` — encoder_decoder/common.py:29-63:
     Sequential(conv[, BatchNorm2d(eps 1e-5)][, LeakyReLU(0.2)]), conv bias
     iff no BN; the transposed conv has torch ConvTranspose2d(3, 2, 1, 1)
@@ -36,21 +39,29 @@ from ..ops.kernels.norm_kernel import instance_norm
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` whose running variance follows the JAX package:
-    in train mode torch updates ``running_var`` with the unbiased batch
-    variance, the JAX ``BatchNorm`` (layers.py:150-208) with the biased one,
-    which both use to normalise. The batch statistics are f32 whatever the
-    activation type (ATen's and cuDNN's batch norm accumulate in f32).
+    """``nn.BatchNorm2d`` with the JAX ``BatchNorm``'s train mode
+    (layers.py:65-79, 150-208). In train mode it normalises with f32 batch
+    statistics and updates the running statistics with the biased variance
+    (torch's own uses the unbiased one), momentum 0.1 (flax's 0.9).
 
-    Train mode runs torch's own fused batch norm, which updates the running
-    statistics in place, then moves ``running_var`` from the unbiased to
-    the biased variance: with n values per channel,
-    rv_new = (1 - m) rv_old + m u and u = b n / (n - 1), so the wanted
-    (1 - m) rv_old + m b is rv_new (n - 1) / n + (1 - m) rv_old / n."""
+    A bf16 input (what autocast hands it) is normalised as the JAX package
+    does: mean = E[x], var = max(E[x^2] - mean^2, 0) in f32, a = gamma
+    rsqrt(var + eps) and b = beta - mean a in f32, each rounded to x's type,
+    then y = x * a + b with the product and the sum rounded separately;
+    torch's fused batch norm rounds the normalised value once. gamma and
+    beta are first rounded to x's type, as the JAX train step casts every
+    parameter to its compute type (engines/base.py:_apply). Its gradient
+    is autograd's of that formula. An f32 input runs torch's fused batch
+    norm, then moves ``running_var`` from the unbiased to the biased
+    variance: with n values per channel, rv_new = (1 - m) rv_old + m u and
+    u = b n / (n - 1), so the wanted (1 - m) rv_old + m b is
+    rv_new (n - 1) / n + (1 - m) rv_old / n. Eval mode is torch's."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if x.dtype != torch.float32:
+            return self._forward_rounded(x)
         n = x.numel() // x.shape[1]
         old = self.running_var.clone()
         y = super().forward(x)
@@ -60,6 +71,46 @@ class BatchNorm2d(nn.BatchNorm2d):
         self.running_var.data.mul_((n - 1) / n).add_(
             old, alpha=(1 - self.momentum) / n)
         return y
+
+    def _forward_rounded(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                              0.0)
+        dt = x.dtype
+        a = self.weight.to(dt).float() * torch.rsqrt(var + self.eps)
+        b = self.bias.to(dt).float() - mean * a
+        self.update_running(mean.detach(), var.detach())
+        return x * a.to(dt)[None, :, None, None] + b.to(dt)[None, :, None,
+                                                            None]
+
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor):
+        """One train-mode running update from the batch mean and biased
+        variance (f32)."""
+        m = self.momentum
+        self.running_mean.data.mul_(1 - m).add_(mean, alpha=m)
+        self.running_var.data.mul_(1 - m).add_(var, alpha=m)
+        self.num_batches_tracked.data.add_(1)
+
+
+def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Reflect-pad H and W by ``pad`` (layers.py:734-750; the JAX custom
+    VJP only saves bytes on the TPU, so autograd's gradient is used)."""
+    return F.pad(x, (pad, pad, pad, pad), mode="reflect")
+
+
+class PReLU(nn.Module):
+    """One learned slope, init 0.25: where(x >= 0, x, a x) with a in x's
+    type (resnet_generator.py:20-26). The state dict is ``nn.PReLU``'s
+    ``weight`` of shape (1,)."""
+
+    def __init__(self, init: float = 0.25):
+        super().__init__()
+        self.weight = nn.Parameter(torch.full((1,), init))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.weight.to(x.dtype) * x)
 
 
 @functools.lru_cache(maxsize=None)

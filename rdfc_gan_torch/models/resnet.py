@@ -7,6 +7,11 @@ torchvision and reference weights load as they are:
     stride 8, backbone_resnet50.py:126-235);
   * ``DeepStem``, the PSPNet backbone's deep_base stem
     (backbone_resnet50.py:139-154).
+
+In train mode a ``BasicBlock`` with stride 1, dilation 1 and an identity
+shortcut runs as one autograd Function on the fused conv3x3 + moments
+kernels (``ops/fused_block``; their plain versions on the CPU); eval mode,
+projection blocks and ``Bottleneck`` run torch's convolutions.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.fused_block import basic_block
 from .layers import BatchNorm2d
 
 BLOCKS = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3),
@@ -41,7 +47,20 @@ class BasicBlock(nn.Module):
                 nn.Conv2d(cin, planes, 1, stride, bias=False),
                 BatchNorm2d(planes, eps=1e-5))
 
+    def fused(self) -> bool:
+        return (self.training and self.downsample is None
+                and self.conv1.stride == (1, 1)
+                and self.conv1.dilation == (1, 1))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused():
+            out, (m1, v1, m2, v2) = basic_block(
+                x, self.conv1.weight, self.bn1.weight, self.bn1.bias,
+                self.conv2.weight, self.bn2.weight, self.bn2.bias,
+                self.bn1.eps)
+            self.bn1.update_running(m1, v1)
+            self.bn2.update_running(m2, v2)
+            return out
         out = F.relu(self.bn1(self.conv1(x)))
         out = self.bn2(self.conv2(out))
         idn = x if self.downsample is None else self.downsample(x)

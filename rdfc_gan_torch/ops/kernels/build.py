@@ -10,7 +10,8 @@ Nothing here runs at import: the CPU tests import every module.
 to it right after a launch succeeds and nowhere else. One source may hold
 two kernels: ``nlspn_propagate.cu`` is counted as ``nlspn_propagate`` (the
 served chain) and ``nlspn_propagate_x`` (the chain that also stores X),
-``instance_norm.cu`` as ``instance_norm_fwd`` and ``instance_norm_bwd``.
+``instance_norm.cu`` as ``instance_norm_fwd`` and ``instance_norm_bwd``,
+``conv_block.cu`` as ``conv3x3_fwd`` and ``conv3x3_bwd``.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("shift_mask_scatter", "shift_mask_gather", "nlspn_propagate",
-           "nlspn_reverse_chain", "shift_correlation", "instance_norm")
+           "nlspn_reverse_chain", "shift_correlation", "instance_norm",
+           "conv_block")
 
 LAUNCHES: collections.Counter = collections.Counter()
 # ptxas report (registers, shared memory, spills) of each built kernel
@@ -59,6 +61,11 @@ _SIGNATURES = {
     "instance_norm": {
         "instance_norm_fwd": [_P, _P, _P, _I, _I, ctypes.c_float, _I, _P],
         "instance_norm_bwd": [_P, _P, _P, _P, _I, _I, _I, _P]},
+    "conv_block": {
+        "conv3x3_fwd": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _P],
+        "conv3x3_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
 }
 
 

@@ -5,6 +5,9 @@ reference RDFC-GAN/train.py:1-189).
         --model_cfg_path configs/rdf_gan_nlspn_config.yaml --work_dir W \\
         [--n_epochs N] [--batch_size 4] [--out_height 224 --out_width 304] \\
         [--device cuda|cpu] [--load_from G_and_D.pth]
+    python -m rdfc_gan_torch.train --dataset synthetic \\
+        --model_cfg_path configs/rdf_cycle_patchgan_config.yaml --work_dir W \\
+        [--device cuda|cpu] [--load_from six_nets.pth]
 
 Builds the shuffled, ``drop_last`` train loader (its order a pure function
 of (seed, epoch)) and the padded val loader, the engine on ``--device``
@@ -13,11 +16,13 @@ of (seed, epoch)) and the padded val loader, the engine on ``--device``
 boundary (every ``log_interval`` steps and at the end of each epoch), where
 the whole window is read back in one transfer, averaged and logged with the
 ``nlspn_max_offset`` warning; ``epoch_{n}.pth`` every ``save_interval``
-epochs; evaluation every ``val_interval`` epochs from ``start_eval_epoch``
-on, with ``best.pth`` on ``criterion_to_get_best_ckpt``. Checkpoints are the
-reference schema (``G_state_dict``, ``D_state_dict``, ``meta``), which
-``python -m rdfc_gan_torch.test --load_from`` serves. Sample dumps, resume
-and optimizer state are not ported yet.
+epochs; evaluation (``engine.forward_test``) every ``val_interval`` epochs
+from ``start_eval_epoch`` on, with ``best.pth`` on
+``criterion_to_get_best_ckpt``. The engine is ``model.type``'s: the RDFGAN
+(G and D) or the flagship RDFCGAN (six nets, four optimizers). Checkpoints
+are the reference schema (``{net}_state_dict`` for every net and
+``meta``), which ``python -m rdfc_gan_torch.test --load_from`` serves.
+Sample dumps, resume and optimizer state are not ported yet.
 """
 
 from __future__ import annotations
@@ -106,7 +111,8 @@ def run(cfg) -> dict:
     with open(os.path.join(cfg.work_dir, "config.yaml"), "w") as f:
         yaml.safe_dump(cfg.to_dict(), f)
 
-    G = engine.modules["G"]
+    # the NLSPN generator: the RDFGAN's G or the flagship's G_A2B
+    G = engine.modules.get("G", engine.modules.get("G_A2B"))
     radius = G.nlspn_offset_radius if G.use_nlspn_refine else None
     losses = _LossLog(cfg, logger, radius)
     evaluator = Eval(val_loader)

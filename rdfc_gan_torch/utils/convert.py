@@ -1,6 +1,7 @@
 """JAX (Flax) weights -> the port's state dicts: the RDFGenerator, the
-PatchGAN, NNET (G_normal), PSPNet (G_label) and the serving RDFCGAN's three
-nets. Each takes the Flax ``params`` / ``batch_stats`` trees as numpy arrays.
+PatchGAN, the ResnetGenerator, NNET (G_normal), PSPNet (G_label) and the
+RDFCGAN's six nets. Each takes the Flax ``params`` / ``batch_stats`` trees
+as numpy arrays.
 
 ``nnet_state_dict_from_jax`` and ``pspnet_state_dict_from_jax`` are the
 inverses of the JAX package's ``utils/torch_convert.py:convert_nnet`` and
@@ -312,19 +313,52 @@ def pspnet_state_dict_from_jax(params: Dict[str, Any],
     return sd
 
 
+def resnet_generator_state_dict_from_jax(params: Dict[str, Any]
+                                         ) -> Dict[str, torch.Tensor]:
+    """Flax ResnetGenerator params (IN2d: no batch statistics) -> state
+    dict of ``rdfc_gan_torch.models.ResnetGenerator``; the inverse of
+    ``tools/convert_torch_ckpt.py:convert_resnet_generator``. Flax names in
+    call order: ``Conv_0`` the stem, ``Conv_1`` / ``Conv_2`` the downs,
+    ``ResnetBlock_{i}``, ``TorchConvTranspose_{0,1}`` the ups (HWIO with
+    the spatial flip), ``Conv_3`` the head, ``PReLU_{0..3}`` scalars."""
+    sd: Dict[str, torch.Tensor] = {}
+    n = sum(1 for k in params if k.startswith("ResnetBlock_"))
+    for i, idx in enumerate((1, 4, 7, 17 + n)):
+        _conv(sd, f"model.{idx}", params[f"Conv_{i}"])
+    for i in range(n):
+        blk = params[f"ResnetBlock_{i}"]
+        _conv(sd, f"model.{10 + i}.conv_block.1", blk["Conv_0"])
+        _conv(sd, f"model.{10 + i}.conv_block.5", blk["Conv_1"])
+    for i, idx in enumerate((10 + n, 13 + n)):
+        t = params[f"TorchConvTranspose_{i}"]
+        sd[f"model.{idx}.weight"] = _t(np.asarray(t["kernel"])[::-1, ::-1]
+                                       .transpose(2, 3, 0, 1))
+        if "bias" in t:
+            sd[f"model.{idx}.bias"] = _t(t["bias"])
+    for i, idx in enumerate((6, 9, 12 + n, 15 + n)):
+        sd[f"model.{idx}.weight"] = _t(
+            np.asarray(params[f"PReLU_{i}"]["alpha"]).reshape(1))
+    return sd
+
+
 def rdfcgan_state_dicts_from_jax(params: Dict[str, Any],
                                  batch_stats: Dict[str, Any],
                                  normal_depth: float = 2.2,
                                  adain_weighting: bool = False
                                  ) -> Dict[str, Dict[str, torch.Tensor]]:
     """The JAX RDFCGAN's ``params`` / ``batch_stats`` (keyed by net) ->
-    {net: state dict} for the serving nets present: G_A2B (NLSPN off, as
-    the flagship), G_normal and G_label."""
+    {net: state dict} for the nets present of the six: G_A2B (NLSPN off, as
+    the flagship), G_B2A, disc_A, disc_B, G_normal and G_label."""
     out = {}
     if "G_A2B" in params:
         out["G_A2B"] = rdf_generator_state_dict_from_jax(
             params["G_A2B"], batch_stats["G_A2B"], use_nlspn_refine=False,
             adain_weighting=adain_weighting)
+    if "G_B2A" in params:
+        out["G_B2A"] = resnet_generator_state_dict_from_jax(params["G_B2A"])
+    for k in ("disc_A", "disc_B"):
+        if k in params:
+            out[k] = patchgan_state_dict_from_jax(params[k], batch_stats[k])
     if "G_normal" in params:
         out["G_normal"] = nnet_state_dict_from_jax(
             params["G_normal"], batch_stats["G_normal"], normal_depth)

@@ -27,6 +27,12 @@ import torch
 
 from rdfc_gan_torch.ops.kernels import norm_kernel as nk
 
+# Tier-1 runs several pytest workers on the machine's cores; with
+# torch's default of one intra-op thread per core, each small op waits
+# for threads the other workers keep off the cores (tens of times
+# slower). One thread per worker.
+torch.set_num_threads(1)
+
 F32, BF16 = torch.float32, torch.bfloat16
 JDT = {F32: jnp.float32, BF16: jnp.bfloat16}
 SHAPES = [(2, 5, 14, 19), (1, 3, 8, 12)]

@@ -22,6 +22,12 @@ from rdfc_gan_torch.utils.convert import pspnet_state_dict_from_jax
 from rdfc_gan_tpu.models.label_net import PSPNet as FlaxPSPNet
 from test_torch_normal_net import randomize_norms
 
+# Tier-1 runs several pytest workers on the machine's cores; with
+# torch's default of one intra-op thread per core, each small op waits
+# for threads the other workers keep off the cores (tens of times
+# slower). One thread per worker.
+torch.set_num_threads(1)
+
 KW = dict(planes=(8, 8, 16, 16), stem_features=8)
 H, W = 40, 56
 

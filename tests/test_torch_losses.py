@@ -1,6 +1,9 @@
 """Parity of the port's losses with the JAX package's, on the CPU: every
-loss with and without a weight, every GANLoss mode, and the WGAN-GP
-gradient penalty with JAX's interpolation draw handed in.
+loss with and without a weight, every GANLoss mode, the WGAN-GP gradient
+penalty with JAX's interpolation draw handed in, and the flagship's
+softmax cross-entropy, ``nor_loss`` (with its 0.999 gate),
+``manhattan_loss`` and pepper noise (with JAX's draw handed in), values
+and gradients.
 
 Tolerance: rtol 1e-5 / atol 1e-6 for the sums of elementwise f32 terms
 (summed in another order); the gradient penalty goes through a PatchGAN
@@ -25,6 +28,12 @@ from rdfc_gan_tpu.models.discriminators import \
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 from convert_torch_ckpt import convert_patchgan  # noqa: E402
+
+# Tier-1 runs several pytest workers on the machine's cores; with
+# torch's default of one intra-op thread per core, each small op waits
+# for threads the other workers keep off the cores (tens of times
+# slower). One thread per worker.
+torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -130,3 +139,105 @@ def test_gradient_penalty_matches_jax_with_its_draw():
         np.testing.assert_allclose(m.conv.weight.grad.numpy(), g, rtol=0,
                                    atol=1e-3 * np.abs(g).max() + 1e-6,
                                    err_msg=f"model.{i}.conv.weight")
+
+
+# ------------------------------------------- the flagship's label and normal
+def test_softmax_cross_entropy_matches_jax():
+    r = np.random.RandomState(5)
+    logits = r.normal(size=(2, 6, 5, 7)).astype(np.float32) * 2
+    labels = r.randint(0, 6, size=(2, 5, 7)).astype(np.int32)
+    lt = torch.from_numpy(logits).requires_grad_(True)
+    got = tl.softmax_cross_entropy_loss(lt, torch.from_numpy(labels))
+    got.backward()
+    want, g = jax.value_and_grad(jl.softmax_cross_entropy_loss)(
+        _nhwc(logits), jnp.asarray(labels))
+    np.testing.assert_allclose(float(got.detach()), float(want), **TOL)
+    np.testing.assert_allclose(lt.grad.numpy(), np.moveaxis(np.asarray(g),
+                                                            -1, 1), **TOL)
+
+
+def _normals(seed, shape=(2, 3, 6, 8)):
+    r = np.random.RandomState(seed)
+    return r.normal(size=shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("mask_rank", [3, 4])
+def test_nor_loss_matches_jax_with_its_gate(mask_rank):
+    """(1 - cos) over the valid pixels; pixels whose cosine is beyond
+    +-0.999 (here a quarter of them, set parallel or opposite to the
+    target) are left out, on the detached cosine, as in JAX."""
+    pred, target = _normals(6), _normals(7)
+    pred[:, :, :3] = target[:, :, :3] * 2.0   # cos = +1: gated out
+    pred[:, :, 3, :4] = -target[:, :, 3, :4]  # cos = -1: gated out
+    mask = (np.random.RandomState(8).uniform(size=(2, 6, 8)) > 0.2
+            ).astype(np.float32)
+    if mask_rank == 4:
+        mask = np.repeat(mask[:, None], 3, axis=1)
+    pt = torch.from_numpy(pred).requires_grad_(True)
+    got = tl.nor_loss(pt, torch.from_numpy(target), torch.from_numpy(mask))
+    got.backward()
+    jm = jnp.asarray(mask if mask_rank == 3 else np.moveaxis(mask, 1, -1))
+    want, g = jax.value_and_grad(jl.nor_loss)(_nhwc(pred), _nhwc(target), jm)
+    np.testing.assert_allclose(float(got.detach()), float(want), **TOL)
+    np.testing.assert_allclose(pt.grad.numpy(), np.moveaxis(np.asarray(g),
+                                                            -1, 1), **TOL)
+    assert float(pt.grad[:, :, :3].abs().max()) == 0.0  # the gated rows
+    # the gate counts too: with nothing gated the loss is another one
+    ungated = tl.nor_loss(torch.from_numpy(_normals(6)),
+                          torch.from_numpy(target), torch.from_numpy(mask))
+    assert abs(float(ungated) - float(got.detach())) > 1e-3
+
+
+@pytest.mark.parametrize("weight", [None, 3.5])
+def test_manhattan_loss_matches_jax(weight):
+    """floor (+y), wall (|cos y| -> 0) and ceiling (-y) on the argmax
+    classes of the logits; weight None gives the unscaled terms (the
+    reference returned None there)."""
+    r = np.random.RandomState(9)
+    normal = _normals(10)
+    normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+    logits = r.normal(size=(2, 14, 6, 8)).astype(np.float32)
+    labels = r.choice([3, 5, 12, 0], size=(2, 6, 8))
+    logits[np.arange(2)[:, None, None], labels, np.arange(6)[None, :, None],
+           np.arange(8)[None, None, :]] += 10.0
+    nt = torch.from_numpy(normal).requires_grad_(True)
+    got = tl.manhattan_loss(nt, torch.from_numpy(logits), None, 12, 5, 3,
+                            weight)
+    sum(got).backward()
+    want, g = jax.value_and_grad(
+        lambda n: sum(jl.manhattan_loss(n, _nhwc(logits), None, 12, 5, 3,
+                                        weight)))(_nhwc(normal))
+    parts = jl.manhattan_loss(_nhwc(normal), _nhwc(logits), None, 12, 5, 3,
+                              weight)
+    assert all(float(p.detach()) > 0 for p in got)
+    for a, b in zip(got, parts):
+        np.testing.assert_allclose(float(a.detach()), float(b), **TOL)
+    np.testing.assert_allclose(nt.grad.numpy(), np.moveaxis(np.asarray(g),
+                                                            -1, 1), **TOL)
+
+
+def test_pepper_noise_matches_jax_with_its_draw():
+    """The JAX draw (the batch uniform and the field, from the split of
+    its key) handed to the port gives the same image; the gradient flows
+    only through the pixels left as they were."""
+    from rdfc_gan_torch.utils.image_ops import add_pepper_noise
+    from rdfc_gan_tpu.utils.image_ops import add_pepper_noise as j_pepper
+
+    img = np.random.RandomState(11).uniform(-0.9, 0.9, (2, 1, 16, 20)).astype(
+        np.float32)
+    for seed in range(4):
+        key = jax.random.PRNGKey(seed)
+        k_active, k_mask = jax.random.split(key)
+        active = float(jax.random.uniform(k_active))
+        u = np.asarray(jax.random.uniform(k_mask, (2, 16, 20, 1)))
+        it = torch.from_numpy(img).requires_grad_(True)
+        got = add_pepper_noise(it, torch.tensor(active),
+                               torch.from_numpy(np.moveaxis(u, -1, 1).copy()))
+        want = j_pepper(_nhwc(img), key)
+        np.testing.assert_array_equal(got.detach().numpy(),
+                                      np.moveaxis(np.asarray(want), -1, 1))
+        got.sum().backward()
+        changed = (got.detach() != it.detach()).numpy()
+        assert changed.any() == (active < 0.9)
+        np.testing.assert_array_equal(it.grad.numpy(), (~changed).astype(
+            np.float32))

@@ -32,6 +32,12 @@ from rdfc_gan_torch.ops.kernels import mask_kernel as tmk
 from rdfc_gan_torch.ops.kernels import nlspn_kernel as tnk
 from rdfc_gan_tpu.ops import nlspn_stencil as jst
 
+# Tier-1 runs several pytest workers on the machine's cores; with
+# torch's default of one intra-op thread per core, each small op waits
+# for threads the other workers keep off the cores (tens of times
+# slower). One thread per worker.
+torch.set_num_threads(1)
+
 B, H, W, T = 2, 8, 9, 4
 F32, BF16 = torch.float32, torch.bfloat16
 JDT = {F32: jnp.float32, BF16: jnp.bfloat16}

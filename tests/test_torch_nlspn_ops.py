@@ -26,6 +26,12 @@ from rdfc_gan_tpu.ops import nlspn_guard as jguard
 from rdfc_gan_tpu.ops import nlspn_stencil as jst
 from rdfc_gan_tpu.utils.torch_convert import nlspn_offset_channel_perm
 
+# Tier-1 runs several pytest workers on the machine's cores; with
+# torch's default of one intra-op thread per core, each small op waits
+# for threads the other workers keep off the cores (tens of times
+# slower). One thread per worker.
+torch.set_num_threads(1)
+
 B, H, W = 2, 11, 13
 
 

@@ -10,6 +10,12 @@ import sys
 import pytest
 import torch
 
+# Tier-1 runs several pytest workers on the machine's cores; with
+# torch's default of one intra-op thread per core, each small op waits
+# for threads the other workers keep off the cores (tens of times
+# slower). One thread per worker.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -27,6 +33,10 @@ def test_port_imports_no_jax():
         "        'rdfc_gan_torch.ops.kernels.norm_kernel',\n"
         "        'rdfc_gan_torch.models.normal_net',\n"
         "        'rdfc_gan_torch.models.label_net',\n"
+        "        'rdfc_gan_torch.models.resnet_generator',\n"
+        "        'rdfc_gan_torch.ops.fused_block',\n"
+        "        'rdfc_gan_torch.ops.kernels.conv_block_kernel',\n"
+        "        'rdfc_gan_torch.utils.image_ops',\n"
         "        'rdfc_gan_torch.engines.rdfc_gan'} <= set(names)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'rdfc_gan_tpu',\n"
@@ -66,6 +76,17 @@ def test_train_device_cuda_without_card_raises(monkeypatch, tmp_path):
     from rdfc_gan_torch.train import main
 
     _cuda_without_card_raises(main, monkeypatch, tmp_path)
+
+
+def test_flagship_train_without_card_raises(monkeypatch, tmp_path):
+    """The flagship's train entry point defaults to the card too."""
+    from rdfc_gan_torch.train import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--dataset", "synthetic", "--model_cfg_path",
+              os.path.join(ROOT, "configs", "rdf_cycle_patchgan_config.yaml"),
+              "--work_dir", str(tmp_path)])
 
 
 class _OnCard:
@@ -111,6 +132,19 @@ def test_instance_norm_wrappers_never_take_plain_on_cuda(monkeypatch):
     for call in (lambda: norm_kernel.instance_norm_fwd(x, 1e-5),
                  lambda: norm_kernel.instance_norm_bwd(x, x, x),
                  lambda: norm_kernel.instance_norm(x)):
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            call()
+
+
+def test_conv_block_wrappers_never_take_plain_on_cuda(monkeypatch):
+    from rdfc_gan_torch.ops.kernels import conv_block_kernel
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in ("conv3x3_fwd_plain", "conv3x3_bwd_plain"):
+        monkeypatch.setattr(conv_block_kernel, name, _never)
+    x = _OnCard()
+    for call in (lambda: conv_block_kernel.conv3x3_fwd(x, x),
+                 lambda: conv_block_kernel.conv3x3_bwd(x, x, x)):
         with pytest.raises(RuntimeError, match="needs a CUDA device"):
             call()
 
@@ -200,4 +234,33 @@ def test_instance_norm_result_carries_grad_fn(monkeypatch):
         assert x.grad is not None and x.grad.dtype == dt
     assert dict(build.LAUNCHES) == {"instance_norm_fwd": 2,
                                     "instance_norm_bwd": 2}
+    build.reset_launches()
+
+
+def test_fused_block_result_carries_grad_fn(monkeypatch):
+    """The fused BasicBlock on the conv kernels (meta tensors, launches
+    faked): its output stays in the autograd graph, its backward runs the
+    backward kernel twice, and each wrapper call counts one launch."""
+    from rdfc_gan_torch.ops.fused_block import basic_block
+    from rdfc_gan_torch.ops.kernels import build
+
+    monkeypatch.setattr(build, "library", lambda name: _FakeLib())
+    monkeypatch.setattr(build, "require_cuda", lambda name, *t: None)
+    monkeypatch.setattr(build, "stream_handle", lambda: None)
+    build.reset_launches()
+    C = 4
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.empty((2, C, 6, 7), dtype=dt,
+                        device="meta").requires_grad_(True)
+        ps = [torch.empty(s, device="meta").requires_grad_(True)
+              for s in ((C, C, 3, 3), (C,), (C,), (C, C, 3, 3), (C,), (C,))]
+        out, stats = basic_block(x, *ps)
+        assert out.grad_fn is not None and out.dtype == dt
+        assert all(s.shape == (C,) and s.dtype == torch.float32
+                   for s in stats)
+        out.sum().backward()
+        assert x.grad is not None and x.grad.dtype == dt
+        assert all(p.grad is not None and p.grad.dtype == torch.float32
+                   for p in ps)
+    assert dict(build.LAUNCHES) == {"conv3x3_fwd": 4, "conv3x3_bwd": 4}
     build.reset_launches()

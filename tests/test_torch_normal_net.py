@@ -23,6 +23,12 @@ from rdfc_gan_torch.models.normal_net import norm_normalize_kappa
 from rdfc_gan_torch.utils.convert import nnet_state_dict_from_jax
 from rdfc_gan_tpu.models import normal_net as jnn
 
+# Tier-1 runs several pytest workers on the machine's cores; with
+# torch's default of one intra-op thread per core, each small op waits
+# for threads the other workers keep off the cores (tens of times
+# slower). One thread per worker.
+torch.set_num_threads(1)
+
 WIDTH, DEPTH = 0.35, 0.3
 
 

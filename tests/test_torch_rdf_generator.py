@@ -20,6 +20,12 @@ from rdfc_gan_torch.utils.convert import rdf_generator_state_dict_from_jax
 from rdfc_gan_tpu.models.rdf_generator import RDFGenerator as FlaxRDFGenerator
 from rdfc_gan_tpu.utils.torch_convert import convert_rdf_generator
 
+# Tier-1 runs several pytest workers on the machine's cores; with
+# torch's default of one intra-op thread per core, each small op waits
+# for threads the other workers keep off the cores (tens of times
+# slower). One thread per worker.
+torch.set_num_threads(1)
+
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 
 ENC = (16, 16, 16, 16, 16, 16)

@@ -27,6 +27,12 @@ from rdfc_gan_torch.utils.convert import rdfcgan_state_dicts_from_jax
 from rdfc_gan_tpu.metrics import METRIC_NAMES
 from test_torch_normal_net import randomize_norms
 
+# Tier-1 runs several pytest workers on the machine's cores; with
+# torch's default of one intra-op thread per core, each small op waits
+# for threads the other workers keep off the cores (tens of times
+# slower). One thread per worker.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W, B = 32, 48, 3
 SERVED = ("G_A2B", "G_normal", "G_label")
@@ -163,6 +169,24 @@ def test_test_driver_serves_six_net_checkpoint(flagship, depth_only):
 
 
 def test_training_waits_for_its_slice(tmp_path):
+    """The flagship's train slice is in: a train engine holds the six nets
+    of the reference schema and the four optimizers over them (Nor at half
+    the rate, with the decay); a serving engine holds the three nets that
+    serving reads."""
     cfg = parse_config(_args(tmp_path) + ["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="flagship train slice"):
-        build_engine(cfg, is_train=True)
+    te = build_engine(cfg, is_train=True)
+    assert list(te.modules) == ["G_A2B", "G_B2A", "disc_A", "disc_B",
+                                "G_normal", "G_label"]
+    owners = {"G": ("G_A2B", "G_B2A"), "D": ("disc_A", "disc_B"),
+              "Nor": ("G_normal",), "label": ("G_label",)}
+    assert sorted(te.optimizers) == sorted(owners)
+    for name, nets in owners.items():
+        held = {id(p) for g in te.optimizers[name].param_groups
+                for p in g["params"]}
+        assert held == {id(p) for n in nets
+                        for p in te.modules[n].parameters()}, name
+    nor = te.optimizers["Nor"].param_groups[0]
+    assert nor["lr"] == pytest.approx(cfg.lr * 0.5)
+    assert nor["weight_decay"] == cfg.weight_decay
+    assert list(build_engine(cfg, is_train=False).modules) == [
+        "G_A2B", "G_normal", "G_label"]

@@ -18,6 +18,12 @@ from rdfc_gan_torch.registry import build_generator
 from rdfc_gan_torch.test import main
 from rdfc_gan_tpu.metrics import METRIC_NAMES
 
+# Tier-1 runs several pytest workers on the machine's cores; with
+# torch's default of one intra-op thread per core, each small op waits
+# for threads the other workers keep off the cores (tens of times
+# slower). One thread per worker.
+torch.set_num_threads(1)
+
 TINY = """\
 model:
   type: RDFGAN

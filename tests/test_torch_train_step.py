@@ -65,6 +65,12 @@ from rdfc_gan_tpu.utils.torch_convert import convert_rdf_generator
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 from convert_torch_ckpt import convert_patchgan  # noqa: E402
 
+# Tier-1 runs several pytest workers on the machine's cores; with
+# torch's default of one intra-op thread per core, each small op waits
+# for threads the other workers keep off the cores (tens of times
+# slower). One thread per worker.
+torch.set_num_threads(1)
+
 FWD = dict(rtol=1e-3, atol=1e-4)
 STATS = dict(rtol=1e-4, atol=1e-5)
 D_CH = (8, 16, 16, 16, 1)
