@@ -22,7 +22,9 @@ and PyTorch built for CUDA. It
 6. runs one f32 train step through the kernels and one with their plain
    versions patched in (deterministic cuDNN) and compares the losses and
    every parameter gradient (the step's identity BasicBlocks run the fused
-   conv3x3 kernels);
+   conv3x3 kernels); then one bf16 step the same ways and as a control
+   with the identity blocks on torch's convolution and BatchNorm2d, each
+   gradient held within twice the control's difference;
 7. holds the instance-norm kernels against their plain versions at the four
    W-AdaIN shapes (f32 and bf16), then serves the flagship RDFC-GAN
    (``configs/rdf_cycle_patchgan_config.yaml``: G_label -> G_normal ->
@@ -32,9 +34,10 @@ and PyTorch built for CUDA. It
    against the plain IN path, the time of each net and of its convolution
    kinds, and a profile;
 8. holds the fused conv3x3 + moments kernels (forward and backward)
-   against their plain versions at the four identity-block shapes (f32 and
-   bf16) and times them beside cuDNN; the IN kernels also at G_B2A's
-   planes;
+   against their plain versions at the four identity-block shapes (f32 bit
+   for bit; bf16, on the tensor cores, within the tolerance
+   ``conv_block_kernel`` states) and times them beside cuDNN; the IN
+   kernels also at G_B2A's planes;
 9. trains the flagship one epoch (16 bf16 steps at batch 4) through
    ``python -m rdfc_gan_torch.train``'s code path from seeded nets: the 23
    losses, the launch counts, all six nets moved, ``best.pth`` served;
@@ -86,8 +89,9 @@ IN_SHAPES = ((B, 512, 14, 19), (B, 768, 28, 38), (B, 384, 56, 76),
 # down and the residual blocks; planes past the forward's staged size
 G_B2A_IN_SHAPES = ((2 * B, 64, H, W), (2 * B, 128, H // 2, W // 2),
                    (2 * B, 256, H // 4, W // 4))
-# the fused conv3x3 + moments kernels vs plain: f64 sums in one order on
-# both sides, so bit for bit
+# the f32 fused conv3x3 + moments kernels vs plain: f64 sums in one order
+# on both sides, so bit for bit (the bf16 kernels: conv_block_kernel's
+# stated tolerance)
 CONV_RTOL, CONV_ATOL = 0.0, 0.0
 # (C, H, W) of the identity BasicBlocks of a resnet18 torso behind G_A2B's
 # stride-1 en1, at 224x304 (layer1 and the second block of layers 2-4)
@@ -515,6 +519,17 @@ def serve_phase(workdir):
     return counts, engine, batch
 
 
+def _no_f32_conv(counts, title):
+    """A bf16 run goes through the bf16 conv kernels alone: fail on any
+    launch of the f32 ones."""
+    from rdfc_gan_torch.ops.kernels import conv_block_kernel as ck
+
+    f32 = {k: counts.get(k, 0) for k in (ck.FWD_F32, ck.BWD_F32)}
+    print(f"  {title}: f32 conv kernel launches {f32} (must be 0)")
+    if any(f32.values()):
+        fail(f"{title} launched the f32 conv kernels")
+
+
 def fused_blocks(module) -> int:
     """BasicBlocks of ``module`` that a train-mode forward runs through the
     fused conv3x3 kernels: two conv3x3_fwd and, in the backward, two
@@ -620,6 +635,7 @@ def train_phase(workdir):
         f"{k}={v:.6g}" for k, v in res["metrics"].items()))
     if not all(np.isfinite(v) for v in res["losses"].values()):
         fail(f"non-finite losses {res['losses']}")
+    _no_f32_conv(counts, "the RDFGAN bf16 epoch")
     if counts != want:
         fail(f"launch counts {counts} are not {want}")
     before = torch.load(pth, map_location="cpu", weights_only=True)
@@ -788,6 +804,78 @@ def step_compare_phase(workdir, pth):
         fail("a gradient of the kernel step disagrees with the plain step")
 
 
+def bf16_step_compare_phase(workdir, pth):
+    """One RDFGAN train step at the config's bf16 compute type with
+    deterministic cuDNN from the seeded nets: through the kernels, through
+    their plain versions, the plain way again (run to run), and as a
+    control with the identity blocks on torch's convolution and
+    BatchNorm2d. The bf16 conv kernels sum in f32, the plain versions in
+    f64, so the kernel step is held to the control: each loss and gradient
+    within FLAGSHIP_STEP_FACTOR times the larger of the control's and the
+    run-to-run difference from the plain step, and of one bf16 ulp of the
+    plain value (``_hold_to_control``)."""
+    import torch
+
+    from rdfc_gan_torch.cli import parse_config
+    from rdfc_gan_torch.engines import build_engine
+    from rdfc_gan_torch.models.resnet import BasicBlock
+    from rdfc_gan_torch.ops import nlspn_stencil as st
+    from rdfc_gan_torch.ops.kernels import (build, mask_kernel, nlspn_kernel)
+    from rdfc_gan_torch.ops.kernels import conv_block_kernel as ck
+    from rdfc_gan_torch.train import build_train_loader
+    from rdfc_gan_torch.utils.checkpoint import load_checkpoint
+
+    cfg = parse_config(_train_args(workdir, pth))
+    batch = next(iter(build_train_loader(cfg, torch.device("cuda"))))
+    mk = mask_kernel
+    plain = {(mk, "_scatter"): mk.scatter_shift_masks_plain,
+             (mk, "shift_mask_gather"): mk.shift_mask_gather_plain,
+             (mk, "shift_correlation"): mk.shift_correlation_plain,
+             (nlspn_kernel, "propagate_x"): st.propagate_x_plain,
+             (nlspn_kernel, "reverse_chain"): st.reverse_chain_plain,
+             **plain_in_and_conv()}
+    paths = {"kernels": {}, "plain": plain, "plain again": plain,
+             "control": {**plain, (BasicBlock, "fused"):
+                         lambda self: False}}
+    out, launches = {}, {}
+    for path, patches in paths.items():
+        engine = build_engine(cfg, is_train=True, steps_per_epoch=16)
+        load_checkpoint(engine.modules, pth)
+        build.reset_launches()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(torch.backends.cudnn.flags(
+                enabled=True, benchmark=False, deterministic=True,
+                allow_tf32=False))
+            for (mod, name), fn in patches.items():
+                stack.enter_context(mock.patch.object(mod, name, fn))
+            losses = engine.train_step(batch)
+            torch.cuda.synchronize()
+        dtype = engine.compute_dtype
+        grads = {f"{net}.{n}": p.grad.detach().clone()
+                 for net in ("G", "D")
+                 for n, p in engine.modules[net].named_parameters()
+                 if p.grad is not None}
+        out[path] = (losses, grads)
+        launches[path] = dict(build.LAUNCHES)
+        del engine
+    print(f"kernels vs plain, one {dtype} RDFGAN train step (deterministic "
+          f"cuDNN): launches {launches['kernels']}")
+    if launches["plain"] or launches["control"] or \
+            launches["plain again"]:
+        fail("a plain bf16 step launched a kernel")
+    k = launches["kernels"]
+    _no_f32_conv(k, "the bf16 RDFGAN step")
+    if not k.get(ck.FWD) or not k.get(ck.BWD):
+        fail(f"the bf16 step did not run the bf16 conv kernels: {k}")
+    if set(out["kernels"][1]) != set(out["plain"][1]):
+        fail("the bf16 steps differ in their gradients")
+    _step_diff("bf16 kernels vs plain", out["kernels"], out["plain"])
+    _step_diff("bf16 plain again vs plain (run to run)",
+               out["plain again"], out["plain"])
+    _step_diff("bf16 control vs plain", out["control"], out["plain"])
+    _hold_to_control("bf16 RDFGAN step", out, bf16_floor=True)
+
+
 def train_profile_phase(engine, batch, n: int = 2,
                         title: str = "train profile"):
     """Device time by kernel over ``n`` train steps, and the device's busy
@@ -948,27 +1036,54 @@ def instance_norm_phase():
 
 def conv_block_phase():
     """The fused conv3x3 kernels against their plain versions at the four
-    identity-block shapes, f32 and bf16: the forward with no prologue
+    identity-block shapes: the forward with no prologue
     (conv1) and with the affine + ReLU prologue (conv2); the backward of
     conv2 (finalize, ReLU', BN sums), of conv1 (finalize, carry) and bare.
-    Times the conv2 forward and backward, the plain versions, and cuDNN's
+    f32 (conv_block.cu) bit for bit; bf16 (conv3x3_bf16.cu, the train
+    steps' kernels) within the tolerance conv_block_kernel states, printed
+    with the observed error and the share of elements that differ. Times
+    the conv2 forward and backward, the plain versions, and cuDNN's
     F.conv2d / convolution_backward on the same inputs (f32 without TF32).
-    Returns the two kernel rows at the train step's bf16, each time the sum
-    over the four shapes of one call."""
+    Returns the two kernel rows at the train step's bf16, each time the
+    sum over the four shapes of one call."""
     import torch
     import torch.nn.functional as F
 
+    from rdfc_gan_torch.ops.kernels import build
     from rdfc_gan_torch.ops.kernels import conv_block_kernel as ck
 
+    log = build.BUILD_LOGS.get(ck.SOURCE_BF16, "")
+    print("conv3x3_bf16.cu, ptxas: " + " | ".join(
+        ln.strip() for ln in log.splitlines()
+        if "Compiling" in ln or "Used" in ln or "spill" in ln))
+    if "bytes spill" in log and not all(
+            " 0 bytes spill stores, 0 bytes spill loads" in ln
+            for ln in log.splitlines() if "spill" in ln):
+        print("  (spills in the report above)")
     gen = torch.Generator(device="cuda").manual_seed(4)
 
     def rnd(*s, scale=1.0, shift=0.0):
         return torch.randn(s, device="cuda", generator=gen) * scale + shift
 
     print(f"conv3x3 block kernel checks (batch {B}, the identity "
-          f"BasicBlocks):")
+          f"BasicBlocks; f32 bit for bit, bf16 within y/gout "
+          f"{ck.Y_ULPS:g} ulp, mom {ck.MOM_RTOL:.3g}, dW/sums "
+          f"{ck.SUM_RTOL:.3g} of the absolute sums):")
     acc = {(k, dt): collections.defaultdict(float)
            for k in ("fwd", "bwd") for dt in (torch.float32, torch.bfloat16)}
+
+    def bf16_rows(title, rows, got, want_first):
+        """Print and hold the tolerance rows; returns max |got - plain|
+        of y or gout."""
+        for name, err, bnd, note in rows:
+            ok = err <= bnd
+            print(f"  {title} {name}: error {err:.4g} (bound {bnd:.4g})"
+                  + (f"; {note}" if note else "") + (" ok" if ok else
+                                                     " FAIL"))
+            if not ok:
+                fail(f"{title} {name} outside its tolerance")
+        return float((got.float() - want_first.float()).abs().max())
+
     for C, h, w in CONV_SHAPES:
         uf = rnd(B, C, h, w, scale=1.5, shift=0.2)
         wf = rnd(C, C, 3, 3, scale=(2.0 / (9 * C)) ** 0.5)
@@ -990,6 +1105,12 @@ def conv_block_phase():
                 got = ck.conv3x3_fwd(u, wf, *args)
                 torch.cuda.synchronize()
                 want = ck.conv3x3_fwd_plain(u, wf, *args)
+                if dt == torch.bfloat16:
+                    f["err"] = max(f["err"], bf16_rows(
+                        f"conv3x3_fwd {kind} {tag}",
+                        ck.check_fwd_bf16(got, u, wf, *args, want=want),
+                        got[0], want[0]))
+                    continue
                 for name, x_, y_ in zip(("y", "moments"), got, want):
                     f["err"] = max(f["err"], compare(
                         f"conv3x3_fwd {kind} {name} {tag}", x_, y_,
@@ -1000,24 +1121,34 @@ def conv_block_phase():
                              ({}, "bare")):
                 got = ck.conv3x3_bwd(g, u, wf, **kw)
                 torch.cuda.synchronize()
+                if (got[2] is None) != ("xh" not in kw):
+                    fail(f"conv3x3_bwd {kind}: sums returned or missing")
+                if dt == torch.bfloat16:
+                    parts = ck._bwd_parts(g, u, wf, **kw)
+                    rows = ck.check_bwd_bf16(got, g, u, wf, **kw,
+                                             parts=parts)
+                    bk["err"] = max(bk["err"], bf16_rows(
+                        f"conv3x3_bwd {kind} {tag}", rows, got[0],
+                        parts["gout"]))
+                    continue
                 want = ck.conv3x3_bwd_plain(g, u, wf, **kw)
                 for name, x_, y_ in zip(("gout", "dW", "sums"), got, want):
                     if y_ is None:
-                        if x_ is not None:
-                            fail(f"conv3x3_bwd {kind}: {name} not expected")
                         continue
                     bk["err"] = max(bk["err"], compare(
                         f"conv3x3_bwd {kind} {name} {tag}", x_, y_,
                         CONV_RTOL, CONV_ATOL))
             isz = u.element_size()
             wd = wf.to(dt)
+            # the f64 f32 kernels take 11-20 ms a call: fewer repetitions
+            reps, warm = (5, 1) if dt == torch.float32 else (20, 3)
             f["ms"] += time_ms(lambda: ck.conv3x3_fwd(u, wf, a, b, "relu"),
-                               reps=5, warmup=1)
+                               reps=reps, warmup=warm)
             f["plain_ms"] += time_ms(
                 lambda: ck.conv3x3_fwd_plain(u, wf, a, b, "relu"), reps=1,
                 warmup=0)
             bk["ms"] += time_ms(lambda: ck.conv3x3_bwd(g, u, wf, **conv2_bwd),
-                                reps=5, warmup=1)
+                                reps=reps, warmup=warm)
             bk["plain_ms"] += time_ms(
                 lambda: ck.conv3x3_bwd_plain(g, u, wf, **conv2_bwd), reps=1,
                 warmup=0)
@@ -1043,18 +1174,18 @@ def conv_block_phase():
         bnd, by = bound_ms(r["bytes"], r["ops"], peak)
         print(f"  conv3x3_{kind} {dt}, 4 shapes: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, cuDNN {r['library_ms']:.4f} "
-              f"ms, bound {bnd:.4f} ms ({by}; {r['ops'] / 1e12:.3f} TFLOP, "
-              f"{r['ops'] / r['ms'] / 1e9:.2f} TFLOP/s)")
+              f"ms ({r['ms'] / r['library_ms']:.2f}x), bound {bnd:.4f} ms "
+              f"({by}; {r['ops'] / 1e12:.3f} TFLOP, "
+              f"{r['ops'] / r['ms'] / 1e9:.2f} TFLOP/s, "
+              f"{100 * bnd / r['ms']:.1f}% of the bound)")
         if dt == torch.bfloat16:
             rows[f"conv3x3_{kind}"] = dict(
                 name=f"conv3x3_{kind}", route="cuda",
-                source="rdfc_gan_torch/csrc/conv_block.cu",
+                source="rdfc_gan_torch/csrc/conv3x3_bf16.cu",
                 replaces=("attic/conv_block_kernel.py:67" if kind == "fwd"
                           else "attic/conv_block_kernel.py:221"),
-                max_abs_err=max(acc[(kind, d)]["err"]
-                                for d in (torch.float32, torch.bfloat16)),
-                ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=bnd,
-                bound_by=by, library_ms=r["library_ms"])
+                max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                bound_ms=bnd, bound_by=by, library_ms=r["library_ms"])
     return rows
 
 
@@ -1248,6 +1379,7 @@ def flagship_train_phase(workdir):
     if len(res["losses"]) != 23 or not all(
             np.isfinite(v) for v in res["losses"].values()):
         fail(f"flagship losses {res['losses']}")
+    _no_f32_conv(counts, "the flagship bf16 epoch")
     if counts != want:
         fail(f"flagship launch counts {counts} are not {want}")
     before = torch.load(pth, map_location="cpu", weights_only=True)
@@ -1346,22 +1478,44 @@ def flagship_step_compare_phase(workdir, pth):
     _step_diff("flagship plain again vs plain (run to run)",
                out["plain again"], out["plain"])
     _step_diff("flagship control vs plain", out["control"], out["plain"])
+    _hold_to_control("flagship step", out)
+
+
+def _bf16_ulp(v) -> float:
+    """One bf16 ulp at the largest magnitude in v."""
+    import math
+
+    m = float(v.abs().max())
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+
+
+def _hold_to_control(title, out, bf16_floor=False):
+    """Each loss and gradient of the kernel step must equal the plain
+    step's or lie within FLAGSHIP_STEP_FACTOR times the larger of the
+    control's and the run-to-run difference from it. With bf16_floor (a
+    bf16 step, whose values are rounded to bf16 on the way) that
+    difference is taken as at least one bf16 ulp of the plain value's
+    largest entry: a control that lands on the same bf16 rounding by
+    chance shows 0, which no other summation order could be held to."""
+    (lk, gk), (lp, gp), (lc, gc), (la, ga) = (
+        out[k] for k in ("kernels", "plain", "control", "plain again"))
     worst = []
     for tag, a, c, r, d in (("loss", lk, lc, la, lp),
                             ("grad", gk, gc, ga, gp)):
         for k in d:
             dk = float((a[k] - d[k]).abs().max())
             dc = max(float((c[k] - d[k]).abs().max()),
-                     float((r[k] - d[k]).abs().max()))
+                     float((r[k] - d[k]).abs().max()),
+                     _bf16_ulp(d[k]) if bf16_floor else 0.0)
             worst.append((dk / dc if dc else (0.0 if dk == 0 else
                                               float("inf")), tag, k, dk, dc))
     worst.sort(reverse=True)
-    print("  largest kernel/control ratios: " + "; ".join(
+    print(f"  {title}: largest kernel/control ratios: " + "; ".join(
         f"{t} {k}: {dk:.3e} / {dc:.3e}" for _, t, k, dk, dc in worst[:4]))
     if worst[0][0] > FLAGSHIP_STEP_FACTOR:
-        fail(f"flagship step: {worst[0][1]} {worst[0][2]} moved "
-             f"{worst[0][3]:.3e} from the plain step, more than "
-             f"{FLAGSHIP_STEP_FACTOR} times the control's {worst[0][4]:.3e}")
+        fail(f"{title}: {worst[0][1]} {worst[0][2]} moved {worst[0][3]:.3e} "
+             f"from the plain step, more than {FLAGSHIP_STEP_FACTOR} times "
+             f"the control's {worst[0][4]:.3e}")
 
 
 def _device_ms(fn, n: int = 2) -> float:
@@ -1467,6 +1621,7 @@ def main():
         train_profile_phase(engine, batch)
         del engine
         step_compare_phase(workdir, pth)
+        bf16_step_compare_phase(workdir, pth)
         flagship_counts, engine, batch = flagship_serve_phase(workdir)
         flagship_breakdown_phase(engine, batch)
         profile_phase(engine, batch, title="flagship profile")

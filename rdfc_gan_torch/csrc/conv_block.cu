@@ -1,11 +1,14 @@
-// Fused 3x3 conv block kernels, forward and backward, for sm_90a.
+// Fused 3x3 conv block kernels, forward and backward, for sm_90a: the f32
+// case, exact.
 //
 // Replaces attic/conv_block_kernel.py:_fwd_kernel (fused_conv3x3_fwd) and
 // :_bwd_kernel (fused_conv3x3_bwd), the two halves of the train-mode ResNet
 // BasicBlock (conv3x3 -> BN -> ReLU -> conv3x3 -> BN -> + x -> ReLU) that
-// attic/fused_block.py chains. NCHW; T is f32 or bf16; C the input and Co
-// the output channels; stride 1; the zero padding applies to the tensor
-// after the prologue.
+// attic/fused_block.py chains, for f32 tensors; bf16 tensors (the train
+// steps' compute type) go to conv3x3_bf16.cu, on the tensor cores. NCHW;
+// T is f32 (the code is written for a type T, instantiated for float
+// only); C the input and Co the output channels; stride 1; the zero
+// padding applies to the tensor after the prologue.
 //
 //   forward (conv3x3_fwd):
 //     z = act(T(T(u * T(a)) + T(b)))     the prologue (or z = u), in T
@@ -34,34 +37,24 @@
 // (__fmul_rn, __fadd_rn): FMA contraction would change the result.
 //
 // What bounds it on an H100: operations. The conv does 2 * 9 * C * Co
-// operations a pixel, in f64 on the CUDA cores (34 TFLOP/s), against
-// bf16 tensor-core convolutions at 989 TFLOP/s; the bytes are a few passes
-// over the activations. This first version is a direct convolution: a
-// block computes a 16 x 32 pixel tile of 16 output channels, stages 4
-// input channels of the tile (with its halo, after the prologue) and their
-// weights in shared memory as f64, and each thread keeps 4 pixels x 8
-// channels of f64 sums in registers. The weight gradient stages one row
-// strip of 16 input and 16 output channels and each thread sums the 9
-// taps of one (co, ci) pair. No tensor cores, no TMA: making it fast is
-// later work.
+// operations a pixel, in f64 on the CUDA cores (34 TFLOP/s). It serves the
+// f32 step comparisons, whose exactness rests on it, not the train steps.
+// A direct convolution: a block computes a 16 x 32 pixel tile of 16
+// output channels, stages 4 input channels of the tile (with its halo,
+// after the prologue) and their weights in shared memory as f64, and each
+// thread keeps 4 pixels x 8 channels of f64 sums in registers. The weight
+// gradient stages one row strip of 16 input and 16 output channels and
+// each thread sums the 9 taps of one (co, ci) pair.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 template <typename T>
 __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
@@ -468,55 +461,43 @@ int launch_bwd(const void* g, const void* y, const float* fin, void* dy,
 
 }  // namespace
 
-// u: (B, C, H, W) T (f32 when bf16 = 0, else bf16); wt: (C, 9, Co) f64, the
-// kernel's values in T; pa, pb: (C,) f32 prologue scale and shift, already
-// rounded to T (ignored for mode 0); mode 0 identity, 1 affine, 2 affine +
-// ReLU. Writes y (B, Co, H, W) T and mom (B, 2, Co) f64. Returns the
-// cudaError_t of the launches.
+// u: (B, C, H, W) f32; wt: (C, 9, Co) f64, the kernel's values; pa, pb:
+// (C,) f32 prologue scale and shift (ignored for mode 0); mode 0
+// identity, 1 affine, 2 affine + ReLU. Writes y (B, Co, H, W) f32 and mom
+// (B, 2, Co) f64. Returns the cudaError_t of the launches.
 extern "C" int conv3x3_fwd(const void* u, const void* wt, const void* pa,
                            const void* pb, int mode, void* y, void* mom,
-                           int B, int C, int Co, int H, int W, int bf16,
+                           int B, int C, int Co, int H, int W,
                            void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const double* w = static_cast<const double*>(wt);
-  const float* a = static_cast<const float*>(pa);
-  const float* b = static_cast<const float*>(pb);
-  double* m = static_cast<double*>(mom);
-  return bf16 ? launch_fwd<__nv_bfloat16>(u, w, a, b, mode, y, m, B, C, Co,
-                                          H, W, st)
-              : launch_fwd<float>(u, w, a, b, mode, y, m, B, C, Co, H, W, st);
+  return launch_fwd<float>(u, static_cast<const double*>(wt),
+                           static_cast<const float*>(pa),
+                           static_cast<const float*>(pb), mode, y,
+                           static_cast<double*>(mom), B, C, Co, H, W,
+                           static_cast<cudaStream_t>(stream));
 }
 
-// g, y, dy: (B, Co, H, W) T; fin: (5, Co) f32 or null (then dy is unused and
-// g is the conv's output gradient); u, carry, gout: (B, C, H, W) T (carry
-// may be null); pa, pb, mode: the forward's prologue; wtf: (Co, 9, C) f64,
-// the flipped, transposed kernel; gm: (B, C, H, W) f32 scratch that ends as
-// the masked pre-carry gradient; mu, is: (C,) f32 and sums (B, 2, C) f64, or
-// all null; part: (ceil(B * H / kRowGroup), Co * C * 9) f64 scratch; dw:
-// (Co, C, 3, 3) f32.
+// g, y, dy: (B, Co, H, W) f32; fin: (5, Co) f32 or null (then dy is unused
+// and g is the conv's output gradient); u, carry, gout: (B, C, H, W) f32
+// (carry may be null); pa, pb, mode: the forward's prologue; wtf: (Co, 9,
+// C) f64, the flipped, transposed kernel; gm: (B, C, H, W) f32 scratch
+// that ends as the masked pre-carry gradient; mu, is: (C,) f32 and sums
+// (B, 2, C) f64, or all null; part: (ceil(B * H / kRowGroup), Co * C * 9)
+// f64 scratch; dw: (Co, C, 3, 3) f32.
 extern "C" int conv3x3_bwd(const void* g, const void* y, const void* fin,
                            void* dy, const void* u, const void* pa,
                            const void* pb, int mode, const void* wtf,
                            void* gm, const void* mu, const void* is,
                            void* sums, const void* carry, void* gout,
                            void* part, void* dw, int B, int C, int Co, int H,
-                           int W, int bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* f = static_cast<const float*>(fin);
-  const float* a = static_cast<const float*>(pa);
-  const float* b = static_cast<const float*>(pb);
-  const double* w = static_cast<const double*>(wtf);
-  float* gmf = static_cast<float*>(gm);
-  const float* m = static_cast<const float*>(mu);
-  const float* s = static_cast<const float*>(is);
-  double* sm = static_cast<double*>(sums);
-  double* p = static_cast<double*>(part);
-  float* d = static_cast<float*>(dw);
-  return bf16 ? launch_bwd<__nv_bfloat16>(g, y, f, dy, u, a, b, mode, w, gmf,
-                                          m, s, sm, carry, gout, p, d, B, C,
-                                          Co, H, W, st)
-              : launch_bwd<float>(g, y, f, dy, u, a, b, mode, w, gmf, m, s,
-                                  sm, carry, gout, p, d, B, C, Co, H, W, st);
+                           int W, void* stream) {
+  return launch_bwd<float>(
+      g, y, static_cast<const float*>(fin), dy, u,
+      static_cast<const float*>(pa), static_cast<const float*>(pb), mode,
+      static_cast<const double*>(wtf), static_cast<float*>(gm),
+      static_cast<const float*>(mu), static_cast<const float*>(is),
+      static_cast<double*>(sums), carry, gout, static_cast<double*>(part),
+      static_cast<float*>(dw), B, C, Co, H, W,
+      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* error_string(int code) {

@@ -8,9 +8,12 @@ align-corners resize back to the input size. In train mode, or with
 State-dict names are the reference's (labels_model.py:44-96):
 ``initial.*`` (``DeepStem``), ``layer1..4``, ``master_branch.0.stages.{i}.
 {1,2}``, ``master_branch.0.bottleneck.{0,1}``, ``master_branch.1`` and
-``auxiliary_branch.{0,1,4}``. The pooling is torch's
-``AdaptiveAvgPool2d``, whose windows [floor(i H / b), ceil((i + 1) H / b))
-the JAX ``_adaptive_avg_pool`` copies.
+``auxiliary_branch.{0,1,4}``. The pooling (``AdaptiveAvgPool``) is
+torch's ``AdaptiveAvgPool2d``, whose windows [floor(i H / b),
+ceil((i + 1) H / b)) the JAX ``_adaptive_avg_pool`` copies, written as
+two pooling matmuls: ``AdaptiveAvgPool2d``'s CUDA backward adds the
+overlapping windows' gradients with atomics, in an order that changes from
+run to run, and the JAX package's gradient is deterministic.
 
 The two ``Dropout2d(0.1)`` layers (after the PSP bottleneck and in the aux
 head) are the JAX ``nn.Dropout(0.1, broadcast_dims=(1, 2))``: one keep flag
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -54,12 +58,38 @@ class Dropout2d(nn.Module):
                            torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def _pool_matrix(src: int, out: int) -> np.ndarray:
+    """(out, src): row i averages the window [floor(i src / out),
+    ceil((i + 1) src / out)), never empty."""
+    m = np.zeros((out, src), np.float32)
+    for i in range(out):
+        lo, hi = (i * src) // out, -(-((i + 1) * src) // out)
+        m[i, lo:hi] = 1.0 / (hi - lo)
+    return m
+
+
+class AdaptiveAvgPool(nn.Module):
+    """``AdaptiveAvgPool2d(b)`` as one f32 contraction with the row and the
+    column pooling matrices, rounded once to x's type: the same windows,
+    and a backward of matrix products, the same on every run."""
+
+    def __init__(self, b: int):
+        super().__init__()
+        self.b = b
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ph, pw = (torch.from_numpy(_pool_matrix(s, self.b)).to(x.device)
+                  for s in x.shape[2:])
+        return torch.einsum("ih,bchw,jw->bcij", ph, x.float(),
+                            pw).to(x.dtype)
+
+
 class PSPModule(nn.Module):
     def __init__(self, cin: int, bin_sizes: Sequence[int] = (1, 2, 3, 6)):
         super().__init__()
         c = cin // len(bin_sizes)
         self.stages = nn.ModuleList(
-            nn.Sequential(nn.AdaptiveAvgPool2d(b),
+            nn.Sequential(AdaptiveAvgPool(b),
                           nn.Conv2d(cin, c, 1, bias=False),
                           BatchNorm2d(c, eps=1e-5), nn.ReLU())
             for b in bin_sizes)

@@ -11,7 +11,9 @@ to it right after a launch succeeds and nowhere else. One source may hold
 two kernels: ``nlspn_propagate.cu`` is counted as ``nlspn_propagate`` (the
 served chain) and ``nlspn_propagate_x`` (the chain that also stores X),
 ``instance_norm.cu`` as ``instance_norm_fwd`` and ``instance_norm_bwd``,
-``conv_block.cu`` as ``conv3x3_fwd`` and ``conv3x3_bwd``.
+``conv3x3_bf16.cu`` (the bf16 conv block) as ``conv3x3_fwd`` and
+``conv3x3_bwd``, ``conv_block.cu`` (its f32 case) as ``conv3x3_fwd_f32`` and
+``conv3x3_bwd_f32``.
 """
 
 from __future__ import annotations
@@ -33,10 +35,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("shift_mask_scatter", "shift_mask_gather", "nlspn_propagate",
            "nlspn_reverse_chain", "shift_correlation", "instance_norm",
-           "conv_block")
+           "conv_block", "conv3x3_bf16")
 
 LAUNCHES: collections.Counter = collections.Counter()
-# ptxas report (registers, shared memory, spills) of each built kernel
+# ptxas report (registers, shared memory, spills) of each built kernel,
+# kept beside its library as lib<name>-<hash>.so.log
 BUILD_LOGS: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -62,10 +65,16 @@ _SIGNATURES = {
         "instance_norm_fwd": [_P, _P, _P, _I, _I, ctypes.c_float, _I, _P],
         "instance_norm_bwd": [_P, _P, _P, _P, _I, _I, _I, _P]},
     "conv_block": {
-        "conv3x3_fwd": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _P],
+        "conv3x3_fwd": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
         "conv3x3_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
+                        _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "conv3x3_bf16": {
+        "conv3x3_bf16_pack": [_P, _P, _I, _I, _I, _I, _P],
+        "conv3x3_bf16_fwd": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _I, _I, _P],
+        "conv3x3_bf16_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                             _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _P]},
 }
 
 
@@ -102,6 +111,9 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     procs = {}
     for n in names:
         if os.path.exists(targets[n]):
+            if os.path.exists(targets[n] + ".log"):
+                with open(targets[n] + ".log") as f:
+                    BUILD_LOGS[n] = f.read()
             continue
         tmp = f"{targets[n]}.{os.getpid()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{n}.cu")]
@@ -114,6 +126,9 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
         if proc.returncode != 0:
             failed.append(f"{n}: nvcc exit {proc.returncode}\n{out}")
             continue
+        with open(f"{tmp}.log", "w") as f:
+            f.write(out)
+        os.replace(f"{tmp}.log", targets[n] + ".log")
         os.replace(tmp, targets[n])  # atomic: concurrent builders agree
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
@@ -126,8 +141,7 @@ def library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    if not torch.cuda.is_available():
-        raise RuntimeError(f"kernel {name!r} needs a CUDA device; none found")
+    require_card(name)
     path = build_all([name])[name]
     lib = ctypes.CDLL(path)
     for fn_name, argtypes in _SIGNATURES[name].items():
@@ -138,6 +152,13 @@ def library(name: str) -> ctypes.CDLL:
     lib.error_string.restype = ctypes.c_char_p
     _LIBS[name] = lib
     return lib
+
+
+def require_card(name: str):
+    """Raise when no CUDA device is present: a kernel is never run without
+    a card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"kernel {name!r} needs a CUDA device; none found")
 
 
 def check(lib: ctypes.CDLL, name: str, code: int):

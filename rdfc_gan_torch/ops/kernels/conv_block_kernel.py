@@ -1,7 +1,8 @@
 """The fused 3x3 conv op of the train-mode BasicBlock on the card: wrappers
-of ``csrc/conv_block.cu`` with their plain PyTorch versions (the TPU kernels
-were attic/conv_block_kernel.py:_fwd_kernel and _bwd_kernel). NCHW, stride
-1, zero padding after the prologue; T is the input's type, f32 or bf16.
+of ``csrc/conv3x3_bf16.cu`` (bf16) and ``csrc/conv_block.cu`` (f32) with
+their plain PyTorch versions (the TPU kernels were
+attic/conv_block_kernel.py:_fwd_kernel and _bwd_kernel). NCHW, stride 1,
+zero padding after the prologue; T is the input's type, f32 or bf16.
 
     conv3x3_fwd(u, w, a, b, act) -> (y, mom)
         z = act(T(T(u * T(a)) + T(b)))      (z = u without a, b)
@@ -14,17 +15,26 @@ were attic/conv_block_kernel.py:_fwd_kernel and _bwd_kernel). NCHW, stride
         dW = sum over (b, h, w) of z * dy             (Co, C, 3, 3) f32
         sums[b] = (sum gm, sum gm * ((u - mu) * is)), xh = (mu, is)  f64
 
-Every sum is f64 in a fixed order, rounded once (a product of two f32 or
-bf16 values is exact in f64), so the plain versions, which add in the
-kernels' order, agree with them bit for bit: each conv output over
-(ci, kh, kw) in turn; each weight-gradient entry along every image row,
-then the rows in turn in groups of ``ROW_GROUP``, then the groups in turn;
-the moments and sums in the instance-norm kernels' block order
+The plain versions take every sum in f64 in a fixed order and round once
+(a product of two f32 or bf16 values is exact in f64): each conv output
+over (ci, kh, kw) in turn; each weight-gradient entry along every image
+row, then the rows in turn in groups of ``ROW_GROUP``, then the groups in
+turn; the moments and sums in the instance-norm kernels' block order
 (``norm_kernel._block_sum``). The moments and sums stay f64 for the caller
-to form the BN statistics. Each wrapper takes its plain version for a
-tensor on the CPU and launches its kernels, or raises, for any other; a
-wrapper call counts one launch (``conv3x3_fwd``, ``conv3x3_bwd``) however
-many ``__global__`` functions it starts.
+to form the BN statistics.
+
+The wrappers dispatch on the input's type. A CUDA **f32** tensor launches
+``conv_block.cu``, which sums in f64 in the plain versions' order and so
+agrees with them bit for bit (the f32 step comparisons rely on it); its
+launches count as ``conv3x3_fwd_f32`` / ``conv3x3_bwd_f32``. A CUDA
+**bf16** tensor launches ``conv3x3_bf16.cu``, implicit GEMMs on the tensor
+cores with f32 sums, as the TPU kernel ran nine bf16 MXU matmuls with f32
+accumulation; its launches count as ``conv3x3_fwd`` / ``conv3x3_bwd``. Its
+results differ from the plain versions only by the order of the f32 sums,
+held to the tolerances below (``check_fwd_bf16``, ``check_bwd_bf16``).
+Each wrapper takes its plain version for a tensor on the CPU and launches
+its kernels, or raises, for any other; a wrapper call counts one launch
+however many ``__global__`` functions it starts.
 """
 
 from __future__ import annotations
@@ -37,13 +47,48 @@ import torch.nn.functional as F
 from . import build
 from .norm_kernel import _block_sum
 
-SOURCE = "conv_block"
-FWD = "conv3x3_fwd"
+SOURCE = "conv_block"          # f32: f64 sums, bit-equal to plain
+SOURCE_BF16 = "conv3x3_bf16"   # bf16: tensor cores, f32 sums
+FWD = "conv3x3_fwd"            # launch counts of the bf16 kernels
 BWD = "conv3x3_bwd"
+FWD_F32 = "conv3x3_fwd_f32"    # and of the f32 ones
+BWD_F32 = "conv3x3_bwd_f32"
 # image rows the weight gradient sums in turn (conv_block.cu:kRowGroup)
 ROW_GROUP = 8
 _FLOATS = (torch.float32, torch.bfloat16)
 _MODES = {None: 0, "none": 1, "relu": 2}
+# conv3x3_bf16.cu: the conv inputs go channels-last with their channels
+# zero-padded to a multiple of CHUNK (and so do the packed weights); the
+# convolutions take a 16 x 16 output pixel tile of 64 output channels a
+# block; the weight gradient 8 x 16 pixel tiles, 64 output and 32 input
+# channels a block
+TILE_H, TILE_W = 16, 16
+CHUNK = 64
+BLOCK_N = 64
+WGRAD_TILE_H, WGRAD_TILE_W = 8, 16
+WGRAD_CI = 32
+# blocks the weight gradient aims for: two for each of the H100's 132 SMs
+WGRAD_BLOCKS = 264
+
+# Tolerances of the bf16 kernels against the plain versions. The kernels
+# sum in f32 in another order than the plain f64 sums; the products are
+# exact in both.
+# y and gout: where the sum does not cancel, the f32 sum lies far closer
+# to the f64 sum than a bf16 ulp, so the rounding to bf16 moves only near
+# a tie, by 1 ulp of the plain value. Where it cancels (an output near 0
+# from terms far larger), the f32 sum's own rounding, a small multiple of
+# 2^-24 of the sum over |terms|, can exceed that ulp: on top of the ulp,
+# Y_SUM_RTOL times the same conv over absolute values is allowed.
+Y_ULPS = 1.0
+Y_SUM_RTOL = 2.0 ** -18
+# mom: the f64 moments of the kernel's own stored y, summed per tile and
+# then over the tiles; against _moments(y) in the block order, |diff| <=
+# MOM_RTOL times the same sum over |y| (resp. y * y). f64 rounding over at
+# most a few thousand adds stays below 2^-40 of it.
+MOM_RTOL = 2.0 ** -40
+# dW and the BN sums: f32 sums over up to a few thousand pixels a split;
+# |diff| <= SUM_RTOL times the same sum taken over absolute values.
+SUM_RTOL = 2.0 ** -12
 
 
 def _col(v: torch.Tensor) -> torch.Tensor:
@@ -150,8 +195,9 @@ def conv3x3_fwd_plain(u, w, a=None, b=None, act="none"
     return y, _moments(y)
 
 
-def conv3x3_bwd_plain(g, u, w, a=None, b=None, act="none", y=None, fin=None,
-                      xh=None, carry=None):
+def _bwd_parts(g, u, w, a=None, b=None, act="none", y=None, fin=None,
+               xh=None, carry=None):
+    """The plain backward's pieces: dy, gm (f32), gout, dW, sums."""
     _mode(a, act)
     dt = g.dtype
     dy = g
@@ -163,7 +209,7 @@ def conv3x3_bwd_plain(g, u, w, a=None, b=None, act="none", y=None, fin=None,
     if act == "relu":
         gm = torch.where(_pre_act(u, a, b) > 0, gm, torch.zeros_like(gm))
     gout = (gm + carry.float() if carry is not None else gm).to(dt)
-    sums = None
+    sums = xhat_u = None
     if xh is not None:
         mu, is_ = xh
         xhat_u = (u.float() - _col(mu)) * _col(is_)
@@ -171,9 +217,120 @@ def conv3x3_bwd_plain(g, u, w, a=None, b=None, act="none", y=None, fin=None,
         sums = torch.stack([_block_sum(gd), _block_sum(gd * xhat_u.double())],
                            dim=1)
     dw = _seq_wgrad(_prologue(u, a, b, act), dy)
-    return gout, dw, sums
+    return dict(dy=dy, gm=gm, xhat_u=xhat_u, gout=gout, dw=dw, sums=sums)
 
 
+def conv3x3_bwd_plain(g, u, w, a=None, b=None, act="none", y=None, fin=None,
+                      xh=None, carry=None):
+    p = _bwd_parts(g, u, w, a, b, act, y, fin, xh, carry)
+    return p["gout"], p["dw"], p["sums"]
+
+
+# ------------------------------------------------ the bf16 tolerances --
+def ulp_error(got: torch.Tensor, want: torch.Tensor,
+              allow: Optional[torch.Tensor] = None
+              ) -> Tuple[float, float, float]:
+    """(max of (|got - want| - allow) in bf16 ulps of ``want``, the share
+    of elements that differ, max |got - want| in ulps). ``allow``: an
+    absolute allowance per element (0 without it). Non-finite values
+    count as infinitely far."""
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(w.abs().clamp_min(2.0 ** -126))
+    ulp = torch.ldexp(torch.ones_like(w), e - 8)
+    d = (g - w).abs()
+    d = torch.where(torch.isfinite(d), d, torch.full_like(d, float("inf")))
+    beyond = d if allow is None else (d - allow.float()).clamp_min(0.0)
+    return (float((beyond / ulp).max()), float((g != w).float().mean()),
+            float((d / ulp).max()))
+
+
+def abs_conv(z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """conv3x3 of |z| with |w| (zero padded) in f32 without TF32: for each
+    output, the sum over |terms| of its conv."""
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=False, allow_tf32=False):
+        return F.conv2d(z.float().abs(), w.float().abs(), padding=1)
+
+
+def sum_error(got: torch.Tensor, want: torch.Tensor,
+              abs_sum: torch.Tensor) -> float:
+    """max |got - want| / abs_sum, where abs_sum is the same sum taken over
+    the absolute values of its terms (0 where got equals want)."""
+    d = (got.double() - want.double()).abs()
+    r = d / abs_sum.double()
+    r = torch.where(d == 0, torch.zeros_like(r), r)
+    r = torch.where(torch.isnan(r), torch.full_like(r, float("inf")), r)
+    return float(r.max())
+
+
+def abs_wgrad(z: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """sum over (b, h, w) of |z| |dy| for each weight-gradient entry
+    (Co, C, 3, 3), in f32 without TF32: the scale of dW's tolerance."""
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=False, allow_tf32=False):
+        return torch.nn.grad.conv2d_weight(
+            z.float().abs(), (dy.shape[1], z.shape[1], 3, 3),
+            dy.float().abs(), padding=1)
+
+
+def within(rows) -> bool:
+    """Whether every (name, error, bound, note) row is inside its bound."""
+    return all(err <= bound for _, err, bound, _ in rows)
+
+
+def _bf16_row(name, got, want, abs_sum):
+    beyond, share, raw = ulp_error(got, want, Y_SUM_RTOL * abs_sum)
+    # the allowance the elements more than 1 ulp off needed
+    _, e = torch.frexp(want.float().abs().clamp_min(2.0 ** -126))
+    over = ((got.float() - want.float()).abs()
+            - torch.ldexp(torch.ones_like(abs_sum), e - 8)).clamp_min(0.0)
+    need = float((over / abs_sum.clamp_min(1e-30)).max())
+    return (name, beyond, Y_ULPS,
+            f"{share * 100:.4f}% of elements differ, max {raw:g} ulp, "
+            f"past 1 ulp by at most {need:.3g} of the absolute sum "
+            f"(allowed {Y_SUM_RTOL:.3g})")
+
+
+def check_fwd_bf16(got, u, w, a=None, b=None, act="none", want=None):
+    """Rows (name, error, bound, note or None) of a bf16 ``conv3x3_fwd``
+    result ``got`` = (y, mom) against the plain version on the same
+    inputs (``want``, computed when None): y in bf16 ulps beyond the
+    cancellation allowance, mom relative to the same sums over |y|."""
+    y, mom = got
+    want_y = (want or conv3x3_fwd_plain(u, w, a, b, act))[0]
+    yd = y.double()
+    mom_abs = torch.stack([yd.abs().sum((2, 3)), (yd * yd).sum((2, 3))],
+                          dim=1)
+    return [_bf16_row("y", y, want_y, abs_conv(_prologue(u, a, b, act),
+                                                w.to(u.dtype))),
+            ("mom", sum_error(mom, _moments(y), mom_abs), MOM_RTOL, None)]
+
+
+def check_bwd_bf16(got, g, u, w, a=None, b=None, act="none", y=None,
+                   fin=None, xh=None, carry=None, parts=None):
+    """Rows as ``check_fwd_bf16`` of a bf16 ``conv3x3_bwd`` result ``got``
+    = (gout, dW, sums): gout in bf16 ulps beyond the cancellation
+    allowance, dW and the sums relative to the same sums over absolute
+    values. ``parts``: the plain ``_bwd_parts`` of the same inputs
+    (computed when None)."""
+    gout, dw, sums = got
+    p = parts or _bwd_parts(g, u, w, a, b, act, y, fin, xh, carry)
+    rows = [_bf16_row("gout", gout, p["gout"],
+                      abs_conv(p["dy"], _flip(w.to(u.dtype)))),
+            ("dW", sum_error(dw, p["dw"], abs_wgrad(
+                _prologue(u, a, b, act), p["dy"])), SUM_RTOL, None)]
+    if (sums is None) != (p["sums"] is None):
+        rows.append(("sums", float("inf"), SUM_RTOL, None))
+    elif sums is not None:
+        gd = p["gm"].double().abs()
+        s_abs = torch.stack([gd.sum((2, 3)), (gd * p["xhat_u"].double().abs())
+                             .sum((2, 3))], dim=1)
+        rows.append(("sums", sum_error(sums, p["sums"], s_abs), SUM_RTOL,
+                     None))
+    return rows
+
+
+# ----------------------------------------------------------- wrappers --
 def _check(name, u, *same_type):
     build.require_cuda(name, u, *same_type)
     if u.dim() != 4 or u.dtype not in _FLOATS:
@@ -186,14 +343,69 @@ def _check(name, u, *same_type):
 
 
 def _layout(w: torch.Tensor) -> torch.Tensor:
-    """(Co, C, 3, 3) -> (C, 9, Co) f64, the conv kernel's weight layout."""
+    """(Co, C, 3, 3) -> (C, 9, Co) f64, conv_block.cu's weight layout."""
     return w.permute(1, 2, 3, 0).reshape(w.shape[1], 9,
                                          w.shape[0]).double().contiguous()
 
 
+def _ceil(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def pack_bf16(w: torch.Tensor) -> torch.Tensor:
+    """(Co, C, 3, 3) -> (9, Co, Cp) bf16, conv3x3_bf16.cu's K-major weight
+    layout: wk[kh * 3 + kw, co, ci] = bf16(w[co, ci, kh, kw]), zero for ci
+    from C up to Cp, C rounded up to ``CHUNK``."""
+    Co, C = w.shape[:2]
+    Cp = _ceil(C, CHUNK)
+    wk = torch.empty((3, 3, Co, Cp), dtype=torch.bfloat16, device=w.device)
+    wk[..., :C].copy_(w.permute(2, 3, 0, 1))  # one cast-and-permute copy
+    if Cp > C:
+        wk[..., C:].zero_()
+    return wk.view(9, Co, Cp)
+
+
+def pack_bf16_card(lib, w: torch.Tensor, flip: bool = False
+                   ) -> torch.Tensor:
+    """``pack_bf16(w)`` (or of ``_flip(w)``) by conv3x3_bf16.cu's pack
+    kernel, in one pass from the f32 weights."""
+    wf = w.detach().float().contiguous()
+    Co, C = w.shape[:2]
+    N, K = (C, Co) if flip else (Co, C)
+    wk = torch.empty((9, N, _ceil(K, CHUNK)), dtype=torch.bfloat16,
+                     device=w.device)
+    rc = lib.conv3x3_bf16_pack(wf.data_ptr(), wk.data_ptr(), N, K,
+                               wk.shape[2], int(flip), build.stream_handle())
+    build.check(lib, "conv3x3_bf16_pack", rc)
+    return wk
+
+
+def tiles(H: int, W: int, th: int = TILE_H, tw: int = TILE_W) -> int:
+    """Pixel tiles of th x tw of one image (the convolutions' by
+    default)."""
+    return -(-H // th) * -(-W // tw)
+
+
+def wgrad_splits(B: int, C: int, Co: int, H: int, W: int
+                 ) -> Tuple[int, int]:
+    """(splits, pixel tiles a split) of the bf16 weight gradient: the
+    B * tiles pixel tiles cut into equal ranges so that the blocks (output
+    tiles of 64 co x 32 ci, times the splits) come near ``WGRAD_BLOCKS``;
+    every split holds at least one pixel tile."""
+    out = -(-Co // BLOCK_N) * -(-C // WGRAD_CI)
+    pt = B * tiles(H, W, WGRAD_TILE_H, WGRAD_TILE_W)
+    want = max(1, min(pt, -(-WGRAD_BLOCKS // out)))
+    per = -(-pt // want)
+    return -(-pt // per), per
+
+
 def _rows(v: Optional[torch.Tensor], dt) -> Optional[torch.Tensor]:
-    """A (C,) f32 row rounded to dt, as the kernels read it."""
-    return None if v is None else v.detach().to(dt).float().contiguous()
+    """A (C,) f32 row as the kernels read it: rounded to dt here for the
+    f32 kernels; conv3x3_bf16.cu rounds it to bf16 itself."""
+    if v is None:
+        return None
+    v = v.detach().float()
+    return (v if dt == torch.bfloat16 else v.to(dt).float()).contiguous()
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -208,7 +420,7 @@ def conv3x3_fwd(u: torch.Tensor, w: torch.Tensor,
     None. Returns (y (B, Co, H, W) in u's type, mom (B, 2, Co) f64)."""
     if u.device.type == "cpu":
         return conv3x3_fwd_plain(u, w, a, b, act)
-    lib = build.library(SOURCE)
+    build.require_card(FWD)
     _check(FWD, u)
     mode = _mode(a, act)
     dt = u.dtype
@@ -216,15 +428,30 @@ def conv3x3_fwd(u: torch.Tensor, w: torch.Tensor,
     Co = w.shape[0]
     if tuple(w.shape) != (Co, C, 3, 3):
         raise ValueError(f"{FWD}: w must be (Co, {C}, 3, 3)")
-    wt = _layout(w.detach().to(dt))
     pa, pb = _rows(a, dt), _rows(b, dt)
     y = torch.empty((B, Co, H, W), dtype=dt, device=u.device)
     mom = torch.empty((B, 2, Co), dtype=torch.float64, device=u.device)
+    if dt == torch.bfloat16:
+        lib = build.library(SOURCE_BF16)
+        wk = pack_bf16_card(lib, w)
+        CP = wk.shape[2]
+        zn = torch.empty((B, H, W, CP), dtype=dt, device=u.device)
+        part = torch.empty((B * tiles(H, W), 2, Co), dtype=torch.float64,
+                           device=u.device)
+        rc = lib.conv3x3_bf16_fwd(
+            u.data_ptr(), wk.data_ptr(), _ptr(pa), _ptr(pb), mode,
+            zn.data_ptr(), y.data_ptr(), part.data_ptr(), mom.data_ptr(), B,
+            C, CP, Co, H, W, build.stream_handle())
+        build.check(lib, FWD, rc)
+        build.LAUNCHES[FWD] += 1
+        return y, mom
+    lib = build.library(SOURCE)
+    wt = _layout(w.detach().to(dt))
     rc = lib.conv3x3_fwd(u.data_ptr(), wt.data_ptr(), _ptr(pa), _ptr(pb),
                          mode, y.data_ptr(), mom.data_ptr(), B, C, Co, H, W,
-                         int(dt == torch.bfloat16), build.stream_handle())
-    build.check(lib, FWD, rc)
-    build.LAUNCHES[FWD] += 1
+                         build.stream_handle())
+    build.check(lib, FWD_F32, rc)
+    build.LAUNCHES[FWD_F32] += 1
     return y, mom
 
 
@@ -242,7 +469,7 @@ def conv3x3_bwd(g: torch.Tensor, u: torch.Tensor, w: torch.Tensor,
     type, dW (Co, C, 3, 3) f32, sums (B, 2, C) f64 or None)."""
     if g.device.type == "cpu":
         return conv3x3_bwd_plain(g, u, w, a, b, act, y, fin, xh, carry)
-    lib = build.library(SOURCE)
+    build.require_card(BWD)
     if (y is None) != (fin is None):
         raise ValueError(f"{BWD}: y and fin go together")
     _check(BWD, u, g, *(t for t in (y, carry) if t is not None))
@@ -253,25 +480,46 @@ def conv3x3_bwd(g: torch.Tensor, u: torch.Tensor, w: torch.Tensor,
     if tuple(w.shape) != (Co, C, 3, 3):
         raise ValueError(f"{BWD}: w must be ({Co}, {C}, 3, 3)")
     dev = u.device
-    wtf = _layout(_flip(w.detach().to(dt)))
     pa, pb = _rows(a, dt), _rows(b, dt)
     fin = None if fin is None else fin.detach().float().contiguous()
-    dy = None if fin is None else torch.empty_like(g)
     mu = is_ = sums = None
     if xh is not None:
         mu, is_ = (v.detach().float().contiguous() for v in xh)
         sums = torch.empty((B, 2, C), dtype=torch.float64, device=dev)
-    gm = torch.empty((B, C, H, W), dtype=torch.float32, device=dev)
     gout = torch.empty_like(u)
+    dw = torch.empty((Co, C, 3, 3), dtype=torch.float32, device=dev)
+    if dt == torch.bfloat16:
+        lib = build.library(SOURCE_BF16)
+        wkf = pack_bf16_card(lib, w, flip=True)
+        CP, CoP = _ceil(C, CHUNK), wkf.shape[2]
+        dyn = torch.empty((B, H, W, CoP), dtype=dt, device=dev)
+        zn = torch.empty((B, H, W, CP), dtype=dt, device=dev)
+        splits, per = wgrad_splits(B, C, Co, H, W)
+        wpart = torch.empty((splits, 9, Co, C), dtype=torch.float32,
+                            device=dev)
+        tpart = None if xh is None else torch.empty(
+            (B * tiles(H, W), 2, C), dtype=torch.float64, device=dev)
+        rc = lib.conv3x3_bf16_bwd(
+            g.data_ptr(), _ptr(y), _ptr(fin), dyn.data_ptr(), u.data_ptr(),
+            _ptr(pa), _ptr(pb), mode, zn.data_ptr(), wkf.data_ptr(),
+            _ptr(mu), _ptr(is_), _ptr(sums), _ptr(tpart), _ptr(carry),
+            gout.data_ptr(), wpart.data_ptr(), dw.data_ptr(), B, C, CP, Co,
+            CoP, H, W, splits, per, build.stream_handle())
+        build.check(lib, BWD, rc)
+        build.LAUNCHES[BWD] += 1
+        return gout, dw, sums
+    lib = build.library(SOURCE)
+    wtf = _layout(_flip(w.detach().to(dt)))
+    dy = None if fin is None else torch.empty_like(g)
+    gm = torch.empty((B, C, H, W), dtype=torch.float32, device=dev)
     part = torch.empty((-(-B * H // ROW_GROUP), Co * C * 9),
                        dtype=torch.float64, device=dev)
-    dw = torch.empty((Co, C, 3, 3), dtype=torch.float32, device=dev)
     rc = lib.conv3x3_bwd(g.data_ptr(), _ptr(y), _ptr(fin), _ptr(dy),
                          u.data_ptr(), _ptr(pa), _ptr(pb), mode,
                          wtf.data_ptr(), gm.data_ptr(), _ptr(mu), _ptr(is_),
                          _ptr(sums), _ptr(carry), gout.data_ptr(),
                          part.data_ptr(), dw.data_ptr(), B, C, Co, H, W,
-                         int(dt == torch.bfloat16), build.stream_handle())
-    build.check(lib, BWD, rc)
-    build.LAUNCHES[BWD] += 1
+                         build.stream_handle())
+    build.check(lib, BWD_F32, rc)
+    build.LAUNCHES[BWD_F32] += 1
     return gout, dw, sums

@@ -10,7 +10,9 @@ with the JAX package, on the CPU, and of the train-mode BatchNorm under bf16.
 * ``BatchNorm2d`` on a bf16 input against the JAX ``BatchNorm``: equal bit
   for bit (torch's fused batch norm rounds the normalised value once).
 * ``gpu``-marked checks of the kernels against their plain versions, which
-  skip without a card.
+  skip without a card: the f32 kernels bit for bit, the bf16 ones within
+  the tolerance ``conv_block_kernel`` states
+  (tests/test_torch_conv3x3_bf16.py).
 
 Tolerances: rtol 1e-3 / atol 1e-4 for values (f32, the port's default);
 the running statistics rtol 1e-4 / atol 1e-5; gradients within 2e-4 of each
@@ -345,8 +347,16 @@ def test_kernels_match_plain_on_card(dt, shape):
     u = rnd(B, C, H, W).to(dt)
     w = rnd(C, C, 3, 3, scale=0.2)
     a, b = rnd(C, scale=0.3) + 1, rnd(C, scale=0.3)
+    # f32: conv_block.cu, bit-equal; bf16: conv3x3_bf16.cu, f32 sums on the
+    # tensor cores, within the stated tolerance (conv_block_kernel.Y_ULPS,
+    # Y_SUM_RTOL, MOM_RTOL, SUM_RTOL)
+    bf16 = dt == torch.bfloat16
     for args in ((None, None, "none"), (a, b, "relu")):
         got = ck.conv3x3_fwd(u, w, *args)
+        if bf16:
+            rows = ck.check_fwd_bf16(got, u, w, *args)
+            assert ck.within(rows), rows
+            continue
         want = ck.conv3x3_fwd_plain(u, w, *args)
         for x, y in zip(got, want):
             torch.testing.assert_close(x, y, rtol=0, atol=0)
@@ -358,6 +368,11 @@ def test_kernels_match_plain_on_card(dt, shape):
     for kw in (dict(a=a, b=b, act="relu", y=y, fin=fin, xh=xh),
                dict(y=y, fin=fin, carry=cy), {}):
         got = ck.conv3x3_bwd(g, u, w, **kw)
+        if bf16:
+            assert (got[2] is None) == ("xh" not in kw)
+            rows = ck.check_bwd_bf16(got, g, u, w, **kw)
+            assert ck.within(rows), rows
+            continue
         want = ck.conv3x3_bwd_plain(g, u, w, **kw)
         for x, y_ in zip(got, want):
             if y_ is None:
