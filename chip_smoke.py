@@ -37,7 +37,8 @@ and PyTorch built for CUDA. It
    against their plain versions at the four identity-block shapes (f32 bit
    for bit; bf16, on the tensor cores, within the tolerance
    ``conv_block_kernel`` states) and times them beside cuDNN; the IN
-   kernels also at G_B2A's planes;
+   kernels also at G_B2A's planes and at odd planes, with the forward's
+   time per shape and per G_B2A application beside ``F.instance_norm``'s;
 9. trains the flagship one epoch (16 bf16 steps at batch 4) through
    ``python -m rdfc_gan_torch.train``'s code path from seeded nets: the 23
    losses, the launch counts, all six nets moved, ``best.pth`` served;
@@ -86,9 +87,16 @@ IN_SHAPES = ((B, 512, 14, 19), (B, 768, 28, 38), (B, 384, 56, 76),
              (B, 192, 112, 152))
 # G_B2A's instance norms in the flagship train step (fake_B and real_B in
 # one batch of 8): the stem and last up, the first down and up, the second
-# down and the residual blocks; planes past the forward's staged size
+# down and the residual blocks. The forward splits the 64-channel planes
+# (136 KB in bf16) over a cluster of four blocks and stages the others in
+# one block (the 256-channel planes four to a block)
 G_B2A_IN_SHAPES = ((2 * B, 64, H, W), (2 * B, 128, H // 2, W // 2),
                    (2 * B, 256, H // 4, W // 4))
+# IN launches a G_B2A application at each of those shapes (6 residual
+# blocks: 2 + 2 + 1 + 2 * 6)
+G_B2A_IN_LAUNCHES = (2, 2, 13)
+# odd planes (no vector width divides them), checked bit for bit only
+ODD_IN_SHAPES = ((4, 3, 17, 23), (2, 5, 14, 19))
 # the f32 fused conv3x3 + moments kernels vs plain: f64 sums in one order
 # on both sides, so bit for bit (the bf16 kernels: conv_block_kernel's
 # stated tolerance)
@@ -284,6 +292,23 @@ def backward_kernel_phase():
     rows = {}
     HW = H * W
     print("backward kernel checks (B=4, 224x304, T=18):")
+    # the gather with out-of-range indices (they give 0), on its vector path
+    # and, at odd HW, its scalar one; a generator of its own, so the timed
+    # inputs below stay those of earlier runs
+    odd = torch.Generator(device="cuda").manual_seed(11)
+    for S, shape in ((8, (4, 36, 56, 76)), (8, (2, 36, 17, 23)),
+                     (10, (4, 36, 14, 19))):
+        sy, sx = (torch.randint(-1, S + 1, shape, device="cuda",
+                                generator=odd, dtype=torch.int32)
+                  for _ in range(2))
+        for dt in (torch.float32, torch.bfloat16):
+            dM = torch.randn((shape[0], S * S) + shape[2:], device="cuda",
+                             generator=odd).to(dt)
+            got = mask_kernel.shift_mask_gather(dM, sy, sx, S, dt)
+            torch.cuda.synchronize()
+            compare(f"shift_mask_gather S={S} {shape} {dt}, indices in "
+                    f"[-1, S]", got, mask_kernel.shift_mask_gather_plain(
+                        dM, sy, sx, S, dt), 0.0, 0.0)
     for R in (2, 3):
         offsets, aff, feat, fix = mask_inputs(gen, R)
         a, M = scatter_args(offsets, aff, R)
@@ -348,13 +373,19 @@ def backward_kernel_phase():
                         library_ms=None if library is None
                         else time_ms(library))
 
+                def gather(dM=dM, sy=sy, sx=sx, S=S, dt=dt):
+                    return mask_kernel.shift_mask_gather(dM, sy, sx, S, dt)
+
+                def library_gather(dMf=dMf, idx=idx):
+                    return torch.gather(dMf, 1, idx)
+
                 row("shift_mask_gather", "shift_mask_gather",
                     "rdfc_gan_tpu/ops/pallas/mask_kernel.py:54", err_g,
-                    lambda: mask_kernel.shift_mask_gather(dM, sy, sx, S, dt),
+                    gather,
                     lambda: mask_kernel.shift_mask_gather_plain(
                         dM, sy, sx, S, dt),
                     B * HW * (S * S * 2 + K * (4 + 4 + 2)), B * K * HW,
-                    library=lambda: torch.gather(dMf, 1, idx))
+                    library=library_gather)
                 row("nlspn_propagate_x", "nlspn_propagate",
                     "rdfc_gan_tpu/ops/pallas/nlspn_kernel.py:35", err_x,
                     lambda: nlspn_kernel.propagate_x(feat0, M16, None, T, R,
@@ -376,6 +407,9 @@ def backward_kernel_phase():
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
               f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
+    print(f"  shift_mask_gather device time: kernel "
+          f"{_device_ms(gather, n=10):.4f} ms, torch.gather "
+          f"{_device_ms(library_gather, n=10):.4f} ms")
     return rows
 
 
@@ -948,23 +982,27 @@ def profile_phase(engine, batch, n: int = 3, title: str = "profile"):
 
 def instance_norm_phase():
     """The IN forward and backward kernels against their plain versions at
-    the four W-AdaIN shapes and G_B2A's three (whose planes the forward
-    does not stage), f32 and bf16. Returns the two kernel rows:
-    the forward at the served f32 and the backward at the train step's
-    bf16, each time the sum over the four shapes of one forward or step."""
+    the four W-AdaIN shapes, G_B2A's three and two odd planes, f32 and bf16.
+    Prints each shape's times, with the forward's plan and
+    ``F.instance_norm``, and G_B2A's forward time per application. Returns
+    the two kernel rows: the forward at the served f32 and the backward at
+    the train step's bf16, each time the sum over the four shapes of one
+    forward or step."""
     import torch
     import torch.nn.functional as F
 
     from rdfc_gan_torch.ops.kernels import norm_kernel as nk
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    print("instance norm kernel checks (the W-AdaIN and G_B2A shapes):")
+    print("instance norm kernel checks (the W-AdaIN, G_B2A and odd shapes):")
     acc = {(k, dt, grp): collections.defaultdict(float)
            for k in ("fwd", "bwd")
            for dt in (torch.float32, torch.bfloat16)
            for grp in ("W-AdaIN", "G_B2A")}
-    for shape in IN_SHAPES + G_B2A_IN_SHAPES:
-        grp = "W-AdaIN" if shape in IN_SHAPES else "G_B2A"
+    per_app = collections.defaultdict(float)
+    for shape in IN_SHAPES + G_B2A_IN_SHAPES + ODD_IN_SHAPES:
+        grp = ("W-AdaIN" if shape in IN_SHAPES else
+               "G_B2A" if shape in G_B2A_IN_SHAPES else "odd")
         n_el = 1
         for d in shape:
             n_el *= d
@@ -985,17 +1023,50 @@ def instance_norm_phase():
             err_b = compare(f"instance_norm_bwd dx {tag}", dx,
                             nk.instance_norm_bwd_plain(dy, y, a), IN_RTOL,
                             IN_ATOL)
+            if grp == "odd":
+                continue
             isz = x.element_size()
-            f = acc[("fwd", dt, grp)]
-            f["err"] = max(f["err"], err_f)
-            f["ms"] += time_ms(lambda: nk.instance_norm_fwd(x, 1e-5))
-            f["plain_ms"] += time_ms(
-                lambda: nk.instance_norm_fwd_plain(x, 1e-5))
-            f["library_ms"] += time_ms(lambda: F.instance_norm(x, eps=1e-5))
             # f64: a convert, an add, a multiply and an add an element;
             # f32: a multiply and an add for y; counted at the f32 rate
-            f["bytes"] += 2 * n_el * isz + planes * 4
-            f["ops"] += n_el * (2.0 + 4.0 * PEAK_F32_FLOPS / PEAK_F64_FLOPS)
+            fwd_bytes = 2 * n_el * isz + planes * 4
+            fwd_ops = n_el * (2.0 + 4.0 * PEAK_F32_FLOPS / PEAK_F64_FLOPS)
+            t_k = time_ms(lambda: nk.instance_norm_fwd(x, 1e-5))
+            t_lib = time_ms(lambda: F.instance_norm(x, eps=1e-5))
+            # device time alone: at the small planes the events time the
+            # host's launches
+            d_k = _device_ms(lambda: nk.instance_norm_fwd(x, 1e-5), n=10)
+            d_lib = _device_ms(lambda: F.instance_norm(x, eps=1e-5), n=10)
+            bnd, by = bound_ms(fwd_bytes, fwd_ops)
+            # an A/B runs this script in an earlier tree too, whose forward
+            # has no fwd_plan
+            how = "one block a plane (a tree before fwd_plan)"
+            if hasattr(nk, "fwd_plan"):
+                p = nk.fwd_plan(shape[2] * shape[3], isz)
+                how = (f"a cluster of {p.cluster} blocks a plane"
+                       if p.cluster > 1 else
+                       f"{p.teams} planes a block" if p.teams > 1 else
+                       "one block a plane") + (
+                    f", {p.team} threads a plane, {p.vec * isz}-byte "
+                    f"vectors, staged once")
+            print(f"  instance_norm_fwd {tag}: {how}: kernel "
+                  f"{t_k:.4f} ms (device {d_k:.4f}), F.instance_norm "
+                  f"{t_lib:.4f} ms (device {d_lib:.4f}), bound {bnd:.4f} ms "
+                  f"({by}; the kernel's device time at "
+                  f"{_pct(bnd, d_k)} of it)")
+            if grp == "G_B2A":
+                w = G_B2A_IN_LAUNCHES[G_B2A_IN_SHAPES.index(shape)]
+                for key, t in (("kernel", t_k), ("library", t_lib),
+                               ("kernel device", d_k),
+                               ("library device", d_lib), ("bound", bnd)):
+                    per_app[(key, dt)] += w * t
+            f = acc[("fwd", dt, grp)]
+            f["err"] = max(f["err"], err_f)
+            f["ms"] += t_k
+            f["plain_ms"] += time_ms(
+                lambda: nk.instance_norm_fwd_plain(x, 1e-5))
+            f["library_ms"] += t_lib
+            f["bytes"] += fwd_bytes
+            f["ops"] += fwd_ops
             b = acc[("bwd", dt, grp)]
             b["err"] = max(b["err"], err_b)
             b["ms"] += time_ms(lambda: nk.instance_norm_bwd(dy, y, a))
@@ -1013,6 +1084,15 @@ def instance_norm_phase():
                       f"{float((lib != py).float().mean()) * 100:.2f}% of "
                       f"elements differ from the JAX rounding, max "
                       f"{float((lib.float() - py.float()).abs().max()):.3e}")
+    mix = " + ".join(f"{w} x {s[1]}-ch" for w, s in zip(G_B2A_IN_LAUNCHES,
+                                                        G_B2A_IN_SHAPES))
+    for dt in (torch.float32, torch.bfloat16):
+        t = {k: v for (k, d), v in per_app.items() if d == dt}
+        print(f"  instance_norm_fwd {dt}, one G_B2A application ({mix}): "
+              f"kernel {t['kernel']:.4f} ms (device "
+              f"{t['kernel device']:.4f}), F.instance_norm "
+              f"{t['library']:.4f} ms (device {t['library device']:.4f}), "
+              f"bound {t['bound']:.4f} ms")
     for (kind, dt, grp), r in acc.items():
         bnd, by = bound_ms(r["bytes"], r["ops"])
         print(f"  instance_norm_{kind} {dt}, the {grp} shapes: kernel "
@@ -1520,18 +1600,43 @@ def _hold_to_control(title, out, bf16_floor=False):
 
 def _device_ms(fn, n: int = 2) -> float:
     """Device time (ms) of the kernels ``fn`` launches, per call, from the
-    profiler over ``n`` calls after one warm-up: idle gaps left out."""
+    profiler over ``n`` calls after one warm-up: idle gaps left out.
+
+    A profiler session can come back with no device events at all; it is
+    then tried again, and after three empty sessions the time is taken
+    with CUDA events over ``n`` calls instead (launch gaps included, so
+    at least the device time), with a line that says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / n
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / n
+    print(f"  (the profiler saw no device time in three sessions: "
+          f"{ms:.4f} ms from CUDA events, launch gaps included)")
+    return ms
+
+
+def _pct(part: float, whole: float) -> str:
+    """``part`` as a share of ``whole``, or "not measured" where ``whole``
+    is not a positive time."""
+    return f"{100 * part / whole:.1f}%" if whole > 0 else "not measured"
 
 
 def flagship_breakdown_phase(engine, batch):
@@ -1584,7 +1689,7 @@ def flagship_breakdown_phase(engine, batch):
           + ", ".join(f"{k} {v:.3f} ms" for k, v in per_net.items()))
     for k, v in sorted(kind_ms.items(), key=lambda kv: -kv[1]):
         print(f"  {k}: {v:.3f} ms over {len(kinds[k])} calls "
-              f"({100 * v / total:.1f}% of the forward's device time)")
+              f"({_pct(v, total)} of the forward's device time)")
 
 
 def main():

@@ -29,6 +29,7 @@ import torch
 
 from ..losses import GANLoss, gradient_penalty, l1_loss
 from ..registry import MODELS, build_discriminator, build_generator
+from ..utils import pretrained
 from .base import BaseEngine, clip_gradients, make_optimizer
 
 
@@ -51,6 +52,12 @@ class RDFGAN(BaseEngine):
         super().__init__(cfg, is_train, steps_per_epoch)
         G = build_generator(cfg.model.G.to_dict()).to(self.device)
         self.modules = {"G": G.eval()}
+        # imagenet torsos for G's two branches, as the JAX init_state
+        # (rdf_gan.py:77-88); G_normal / G_label paths are not read here
+        pth = pretrained.configured(cfg.get("pretrained_resnet_path"))
+        if pth:
+            pretrained.load_resnet_torsos(
+                G, pretrained.load_torch_state_dict(pth))
         # generator forwards served, so a caller can relate kernel launch
         # counts to requests
         self.n_forward = 0

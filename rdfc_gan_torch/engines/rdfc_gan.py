@@ -53,6 +53,7 @@ from ..losses import (GANLoss, l1_loss, manhattan_loss, nor_loss,
 from ..models.label_net import PSPNet
 from ..models.normal_net import NNET
 from ..registry import MODELS, build_discriminator, build_generator
+from ..utils import pretrained
 from ..utils.image_ops import add_pepper_noise, pepper_draw
 from .base import BaseEngine, clip_gradients, make_optimizer
 
@@ -97,6 +98,7 @@ class RDFCGAN(BaseEngine):
             nets["disc_B"] = build_discriminator(cfg.model.D_B.to_dict())
         self.modules = {k: nets[k].to(self.device).eval()
                         for k in NET_KEYS if k in nets}
+        self._load_pretrained()
         # forward_test calls served, so a caller can relate kernel launch
         # counts to requests
         self.n_forward = 0
@@ -111,6 +113,22 @@ class RDFCGAN(BaseEngine):
             self.optimizers[name], self.schedulers[name] = make_optimizer(
                 cfg, params, self.steps_per_epoch, **extra)
         self.n_step = 0
+
+    def _load_pretrained(self):
+        """The configured torsos, as the JAX ``init_state`` loads them
+        (rdfc_gan.py:155-190): imagenet resnet into G_A2B's two branches,
+        the timm B5 into G_normal's encoder, the dilated R50 into G_label's
+        backbone. Each path is checked before any file is read."""
+        paths = [pretrained.configured(self.cfg.get(k)) for k in (
+            "pretrained_resnet_path", "pretrained_normal_path",
+            "pretrained_label_path")]
+        for path, net, load in zip(paths,
+                                   ("G_A2B", "G_normal", "G_label"),
+                                   (pretrained.load_resnet_torsos,
+                                    pretrained.load_efficientnet_torso,
+                                    pretrained.load_pspnet_backbone)):
+            if path:
+                load(self.modules[net], pretrained.load_torch_state_dict(path))
 
     @torch.inference_mode()
     def forward_test(self, rgb: torch.Tensor, raw_depth: torch.Tensor,

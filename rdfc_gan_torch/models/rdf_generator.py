@@ -10,6 +10,9 @@ as in the reference, never used). Layout is NCHW.
 The JAX package's TPU-only devices change neither parameters nor math and
 are read from the config and ignored: ``packed_width``, the fused stem and
 head convolutions, remat (``nlspn_local_remat``) and ``axis_name``.
+``pretrained_on_imagenet`` is read and left to the engines, which load a
+configured ``pretrained_resnet_path`` into both torsos
+(``utils/pretrained.py``), as in JAX.
 """
 
 from __future__ import annotations

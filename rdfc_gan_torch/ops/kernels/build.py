@@ -63,6 +63,7 @@ _SIGNATURES = {
             [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
     "instance_norm": {
         "instance_norm_fwd": [_P, _P, _P, _I, _I, ctypes.c_float, _I, _P],
+        "instance_norm_fwd_plan": [_I, _I, _P],
         "instance_norm_bwd": [_P, _P, _P, _P, _I, _I, _I, _P]},
     "conv_block": {
         "conv3x3_fwd": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -18,14 +18,18 @@ version for a tensor on the CPU and launches its kernel, or raises, for
 any other. The JAX function's ``pack`` (a TPU lane layout) has no
 counterpart here.
 
-The plain versions sum in the kernels' order (``_block_sum``), divide as
-IEEE does and take a correctly rounded rsqrt, as the kernels do, so the
-two agree bit for bit.
+The plain versions sum in their kernel's order, divide as IEEE does and
+take a correctly rounded rsqrt, as the kernels do, so the two agree bit for
+bit. The two kernels sum in different orders: the forward by ``fwd_plan``
+(vectors, thread block clusters and several planes a block,
+``_fwd_sum``), the backward by one block a plane (``bwd_block_threads``,
+``_block_sum``, which the f32 conv-block kernels share).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,20 +42,98 @@ BWD = "instance_norm_bwd"
 _FLOATS = (torch.float32, torch.bfloat16)
 
 
-def block_threads(n: int) -> int:
-    """Threads of the kernels' block for a plane of n values
+# the forward's plan (instance_norm.cu:fwd_plan and its constants)
+FWD_STAGE_BYTES = 40 * 1024
+FWD_MAX_STAGE_BYTES = 200 * 1024
+FWD_MAX_CLUSTER = 8
+FWD_BLOCK_THREADS = 256
+FWD_MAX_TEAM = 512
+FWD_STEPS = 8
+
+
+class FwdPlan(NamedTuple):
+    """How the forward kernel cuts a plane: ``vec`` elements a vector,
+    ``cluster`` blocks a plane, ``cvec`` vectors a block's chunk, ``team``
+    threads a chunk, ``teams`` planes a block."""
+    vec: int
+    cluster: int
+    cvec: int
+    team: int
+    teams: int
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_plan(n: int, itemsize: int) -> FwdPlan:
+    """The forward's partition of a plane of n values of ``itemsize`` bytes
+    (instance_norm.cu:fwd_plan): the widest vector of at most 16 bytes
+    whose width divides n; a cluster of 2-8 blocks where the plane exceeds
+    ``FWD_STAGE_BYTES``; about ``FWD_STEPS`` vectors a thread."""
+    vec = 16 // itemsize
+    while n % vec:
+        vec //= 2
+    cluster = 1
+    while cluster < FWD_MAX_CLUSTER and n * itemsize > cluster * \
+            FWD_STAGE_BYTES:
+        cluster *= 2
+    cvec = -(-(n // vec) // cluster)
+    team = 32
+    while team < FWD_MAX_TEAM and 2 * team * FWD_STEPS <= cvec:
+        team *= 2
+    teams = 1 if cluster > 1 else max(1, FWD_BLOCK_THREADS // team)
+    return FwdPlan(vec, cluster, cvec, team, teams)
+
+
+def _fwd_sum(v: torch.Tensor, itemsize: int) -> torch.Tensor:
+    """Sum of each (B, C) plane of ``v`` in the forward kernel's order and
+    type, for elements of ``itemsize`` bytes (``fwd_plan``): cluster rank r
+    takes vectors [r cvec, (r + 1) cvec); its thread t adds vectors t,
+    t + team, ... into one accumulator per vector lane, in turn; the lanes
+    are added in order, the warp by xor shuffles over 16, 8, 4, 2, 1 lanes,
+    the team's warps in order, the ranks in order. Returns (B, C)."""
+    B, C, H, W = v.shape
+    n = H * W
+    p = fwd_plan(n, itemsize)
+    steps = -(-p.cvec // p.team)
+    # zeros past the plane (or a rank's chunk) add nothing to a sum
+    v = F.pad(v.reshape(B * C, n), (0, p.cluster * p.cvec * p.vec - n))
+    v = v.reshape(B * C, p.cluster, p.cvec, p.vec)
+    v = F.pad(v, (0, 0, 0, steps * p.team - p.cvec))
+    v = v.reshape(B * C, p.cluster, steps, p.team, p.vec)
+    acc = torch.zeros_like(v[:, :, 0])
+    for j in range(steps):
+        acc = acc + v[:, :, j]
+    t = acc[..., 0]
+    for lane in range(1, p.vec):
+        t = t + acc[..., lane]
+    t = t.reshape(B * C, p.cluster, p.team // 32, 32)
+    lanes = torch.arange(32, device=v.device)
+    for o in (16, 8, 4, 2, 1):
+        t = t + t[..., lanes ^ o]
+    w = t[..., 0]
+    team = w[..., 0]
+    for k in range(1, p.team // 32):
+        team = team + w[..., k]
+    total = team[:, 0]
+    for r in range(1, p.cluster):
+        total = total + team[:, r]
+    return total.reshape(B, C)
+
+
+def bwd_block_threads(n: int) -> int:
+    """Threads of the backward kernel's block for a plane of n values
     (instance_norm.cu:threads_for)."""
     return 128 if n <= 1024 else 256 if n <= 4096 else 512
 
 
 def _block_sum(v: torch.Tensor) -> torch.Tensor:
-    """Sum of each (B, C) plane of ``v`` in the kernels' order and type:
+    """Sum of each (B, C) plane of ``v`` in the backward kernel's order and
+    type (one block a plane; the f32 conv-block kernels' order too):
     thread t adds elements t, t + T, ... in turn; each warp adds by xor
     shuffles over 16, 8, 4, 2, 1 lanes; the warp sums are added in order.
     Returns (B, C)."""
     B, C, H, W = v.shape
     n = H * W
-    T = block_threads(n)
+    T = bwd_block_threads(n)
     rows = -(-n // T)
     # zeros past the plane add nothing to a thread's sum
     v = F.pad(v.reshape(B * C, n), (0, rows * T - n)).reshape(B * C, rows, T)
@@ -68,21 +150,23 @@ def _block_sum(v: torch.Tensor) -> torch.Tensor:
     return total.reshape(B, C)
 
 
-def _block_mean(v: torch.Tensor) -> torch.Tensor:
-    """``_block_sum`` of the f64 ``v`` / n, rounded to f32. The divisor is
-    a tensor: ATen's CUDA division by a Python number multiplies by its
-    reciprocal, which is not the kernels' IEEE division."""
-    s = _block_sum(v)
-    return (s / torch.full_like(s, v.shape[2] * v.shape[3])).float()
+def _mean(s: torch.Tensor, n: int) -> torch.Tensor:
+    """The f64 sums ``s`` / n, rounded to f32. The divisor is a tensor:
+    ATen's CUDA division by a Python number multiplies by its reciprocal,
+    which is not the kernels' IEEE division."""
+    return (s / torch.full_like(s, n)).float()
 
 
 def instance_norm_fwd_plain(x: torch.Tensor, eps: float
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(y, a): the JAX ``_instance_norm_fwd_impl`` in torch, one-pass f32
-    statistics; a is the (B, C) f32 scale."""
+    statistics in the forward kernel's order; a is the (B, C) f32
+    scale."""
     xf = x.double()
-    m = _block_mean(xf)
-    var = torch.clamp_min(_block_mean(xf * xf) - m * m, 0.0) + eps
+    n, size = x.shape[2] * x.shape[3], x.element_size()
+    m = _mean(_fwd_sum(xf, size), n)
+    var = torch.clamp_min(_mean(_fwd_sum(xf * xf, size), n) - m * m,
+                          0.0) + eps
     a = (1.0 / torch.sqrt(var.double())).float()
     b = -m * a
     y = x * a[:, :, None, None].to(x.dtype) + b[:, :, None, None].to(x.dtype)
@@ -94,8 +178,10 @@ def instance_norm_bwd_plain(dy: torch.Tensor, y: torch.Tensor,
     """The JAX ``_instance_norm_bwd``: f32 reductions (the product in f32),
     the combination in dy's type with the statistics rounded once."""
     dt = dy.dtype
-    m1 = _block_mean(dy.double())[:, :, None, None].to(dt)
-    m2 = _block_mean(dy.double() * y.double())[:, :, None, None].to(dt)
+    n = dy.shape[2] * dy.shape[3]
+    m1 = _mean(_block_sum(dy.double()), n)[:, :, None, None].to(dt)
+    m2 = _mean(_block_sum(dy.double() * y.double()), n)[:, :, None,
+                                                         None].to(dt)
     return a[:, :, None, None].to(dt) * (dy - m1 - y * m2)
 
 
@@ -118,6 +204,12 @@ def instance_norm_fwd(x: torch.Tensor, eps: float
     lib = build.library(SOURCE)
     _check(FWD, x)
     B, C, H, W = x.shape
+    p = fwd_plan(H * W, x.element_size())
+    if p.teams * p.cvec * p.vec * x.element_size() > FWD_MAX_STAGE_BYTES:
+        raise ValueError(f"{FWD}: a {H}x{W} plane exceeds the forward's "
+                         f"cluster of {FWD_MAX_CLUSTER} staged blocks")
+    if x.data_ptr() % 16:  # the kernel's vectors start at x
+        x = x.clone()
     y = torch.empty_like(x)
     a = torch.empty((B, C), dtype=torch.float32, device=x.device)
     rc = lib.instance_norm_fwd(x.data_ptr(), y.data_ptr(), a.data_ptr(),

@@ -3,12 +3,15 @@
 The plain forward and the ``autograd.Function``'s gradient against
 ``rdfc_gan_tpu.models.layers.instance_norm`` and ``jax.grad`` (through the
 JAX custom VJP and through its autodiff), at planes that include the
-served 14x19, eps 1e-5 and 1e-3, f32 and bf16; the plain versions against
-the retired TPU kernels (attic/norm_kernel.py) in Pallas interpret mode.
+served 14x19, an odd 17x23 and one that the forward kernel splits over a
+thread block cluster, eps 1e-5 and 1e-3, f32 and bf16; the plain versions
+against the retired TPU kernels (attic/norm_kernel.py) in Pallas interpret
+mode.
 Inputs come from numpy seeds. The kernel-vs-plain checks at the end need a
 CUDA card and skip here; they import nothing of the JAX package, so they
-also run where flax is missing. The plain versions sum in the kernels'
-order, so those checks are exact.
+also run where flax is missing. The plain versions sum in their kernel's
+order (the forward by ``fwd_plan``, the backward one block a plane), so
+those checks are exact.
 
 Tolerances. f32: rtol 1e-3 / atol 1e-4, the port's default; the sums run
 in another order than XLA's. bf16: the f32 statistics, summed in another
@@ -36,6 +39,9 @@ torch.set_num_threads(1)
 F32, BF16 = torch.float32, torch.bfloat16
 JDT = {F32: jnp.float32, BF16: jnp.bfloat16}
 SHAPES = [(2, 5, 14, 19), (1, 3, 8, 12)]
+# the forward also at an odd plane and at one past a block's stage in f32
+# (fwd_plan: a cluster of two blocks)
+FWD_SHAPES = SHAPES + [(2, 3, 17, 23), (1, 2, 100, 123)]
 BF16_TOL = 2.0 ** -6
 
 
@@ -61,7 +67,7 @@ def _close(got, want, dt):
         np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", FWD_SHAPES)
 @pytest.mark.parametrize("eps", [1e-5, 1e-3])
 @pytest.mark.parametrize("dt", [F32, BF16])
 def test_forward_matches_jax(shape, eps, dt):
@@ -169,41 +175,114 @@ def test_plain_matches_retired_tpu_kernels(pallas_interpret, dt):
     _close(dx.float().numpy(), _nchw(dxj), dt)
 
 
+@pytest.mark.parametrize("dt", [F32, BF16])
+def test_plain_forward_matches_retired_tpu_kernel_past_a_block(
+        pallas_interpret, dt):
+    """The plain forward against the TPU forward kernel at a plane that the
+    port's forward kernel splits over a cluster of two blocks in f32 (the
+    retired backward's plan takes no plane this large)."""
+    from attic import norm_kernel as ak
+
+    shape = (1, 2, 100, 123)
+    assert nk.fwd_plan(100 * 123, 4).cluster == 2
+    x = _x(shape, 8)
+    y, a = nk.instance_norm_fwd_plain(torch.from_numpy(x).to(dt), 1e-5)
+    yj, aj = ak.instance_norm_fwd_pallas(_nhwc(x, dt), 1e-5, 1)
+    _close(y.float().numpy(), _nchw(yj), dt)
+    np.testing.assert_allclose(a.numpy(), np.asarray(aj), rtol=1e-5)
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
 
 
+def _warp_tree(part):
+    """The xor-shuffle sum of 32 values, as every lane ends it."""
+    lane = np.array(part)
+    for o in (16, 8, 4, 2, 1):
+        lane = lane + lane[np.arange(32) ^ o]
+    return lane[0]
+
+
 def test_plain_sums_in_the_kernel_order():
-    """The plain statistics follow the kernels' reduction (strided f64
-    thread sums, xor-shuffle warp trees, warp sums in order) at every
-    block size, and agree with an exact sum to f64 rounding."""
+    """The backward's plain statistics follow its kernel's reduction
+    (strided f64 thread sums, xor-shuffle warp trees, warp sums in order)
+    at every block size, and agree with an exact sum to f64 rounding."""
     for n, threads in ((15, 128), (266, 128), (1064, 256), (4096, 256),
                        (4256, 512), (17024, 512)):
-        assert nk.block_threads(n) == threads
+        assert nk.bwd_block_threads(n) == threads
         v = torch.from_numpy(_x((2, 3, 1, n), n, 1.0, 0.5)).double()
         got = nk._block_sum(v)
         # the same order written out for plane (0, 0), in Python floats
         part = [0.0] * threads
         for i, val in enumerate(v[0, 0, 0].tolist()):
             part[i % threads] += val
-        warps = []
-        for w in range(threads // 32):
-            lane = np.array(part[32 * w:32 * w + 32])
-            for o in (16, 8, 4, 2, 1):
-                lane = lane + lane[np.arange(32) ^ o]
-            warps.append(lane[0])
         want = 0.0
-        for w in warps:
-            want += w
+        for w in range(threads // 32):
+            want += _warp_tree(part[32 * w:32 * w + 32])
         assert float(got[0, 0]) == want
         np.testing.assert_allclose(got.numpy(), v.sum((2, 3)).numpy(),
                                    rtol=1e-12)
 
 
+# (n, itemsize) -> the forward's plan: G_B2A's bf16 planes (a cluster of
+# four, one plane a block; several planes a block), its f32 64-channel
+# plane (a cluster of eight), the W-AdaIN 14x19 (8- and 4-byte vectors),
+# odd planes (scalars; one past a block's stage, with a short last rank)
+FWD_PLANS = [
+    ((68096, 2), (8, 4, 2128, 256, 1)), ((17024, 2), (8, 1, 2128, 256, 1)),
+    ((4256, 2), (8, 1, 532, 64, 4)), ((68096, 4), (4, 8, 2128, 256, 1)),
+    ((17024, 4), (4, 2, 2128, 256, 1)), ((4256, 4), (4, 1, 1064, 128, 2)),
+    ((1064, 4), (4, 1, 266, 32, 8)), ((266, 4), (2, 1, 133, 32, 8)),
+    ((266, 2), (2, 1, 133, 32, 8)), ((391, 2), (1, 1, 391, 32, 8)),
+    ((12001, 4), (1, 2, 6001, 512, 1)), ((12004, 4), (4, 2, 1501, 128, 1)),
+]
+
+
+@pytest.mark.parametrize("n_size,plan", FWD_PLANS,
+                         ids=[f"{n}x{s}B" for (n, s), _ in FWD_PLANS])
+def test_plain_fwd_sums_in_the_kernel_order(n_size, plan):
+    """The forward's plain statistics follow its kernel's partition
+    (``fwd_plan``: cluster ranks over contiguous chunks; in a chunk,
+    thread t adds vectors t, t + team, ... with one accumulator a lane;
+    lanes, then the warp's xor tree, then the team's warps, then the ranks,
+    each in order), written out here in Python floats, and agree with an
+    exact sum to f64 rounding."""
+    n, size = n_size
+    p = nk.fwd_plan(n, size)
+    assert tuple(p) == plan
+    v = torch.from_numpy(_x((2, 3, 1, n), n, 1.0, 0.5)).double()
+    got = nk._fwd_sum(v, size)
+    vals = v[0, 0, 0].tolist()
+    want = 0.0
+    for r in range(p.cluster):
+        part = []
+        for t in range(p.team):
+            lanes = [0.0] * p.vec
+            for j in range(t, p.cvec, p.team):
+                g = r * p.cvec + j
+                if g * p.vec >= n:
+                    break
+                for lane in range(p.vec):
+                    lanes[lane] += vals[g * p.vec + lane]
+            s = lanes[0]
+            for lane in lanes[1:]:
+                s += lane
+            part.append(s)
+        rank = _warp_tree(part[:32])
+        for w in range(1, p.team // 32):
+            rank += _warp_tree(part[32 * w:32 * w + 32])
+        want = rank if r == 0 else want + rank
+    assert float(got[0, 0]) == want
+    np.testing.assert_allclose(got.numpy(), v.sum((2, 3)).numpy(),
+                               rtol=1e-12)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(4, 512, 14, 19), (4, 192, 112, 152),
-                                   (2, 7, 3, 5)])
+                                   (2, 7, 3, 5), (2, 64, 224, 304),
+                                   (4, 3, 17, 23)])
 @pytest.mark.parametrize("dt", [F32, BF16])
 def test_kernels_match_plain_on_card(shape, dt):
     _card()
@@ -218,3 +297,22 @@ def test_kernels_match_plain_on_card(shape, dt):
     assert y.dtype == dt and dx.dtype == dt and a.dtype == F32
     for got, want in ((a, pa), (y, py), (dx, pdx)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_fwd_plan_matches_the_kernel_on_card():
+    """``fwd_plan`` mirrors instance_norm.cu:fwd_plan, at the plans of
+    ``FWD_PLANS`` and at every plane size up to 3000 and a sweep past."""
+    import ctypes
+
+    from rdfc_gan_torch.ops.kernels import build
+
+    _card()
+    lib = build.library(nk.SOURCE)
+    out = (ctypes.c_int * 5)()
+    sizes = [n for (n, _), _ in FWD_PLANS] + list(range(1, 3001)) + list(
+        range(3001, 420000, 997))
+    for n in sizes:
+        for size in (2, 4):
+            lib.instance_norm_fwd_plan(n, size, out)
+            assert tuple(out) == tuple(nk.fwd_plan(n, size)), (n, size)

@@ -375,12 +375,17 @@ def _card():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("S,shape", [(8, (4, 36, 56, 76)),
+                                     (10, (2, 36, 17, 23)),
+                                     (8, (3, 36, 5, 7))])
 @pytest.mark.parametrize("dt", [F32, BF16])
-def test_gather_kernel_matches_plain_on_card(dt):
+def test_gather_kernel_matches_plain_on_card(dt, S, shape):
+    """Bit for bit, out-of-range indices included (they give 0); the
+    vector path (HW a multiple of 8) and the scalar one (odd HW)."""
     _card()
     g = torch.Generator(device="cuda").manual_seed(0)
-    S, shape = 8, (4, 36, 56, 76)
-    dM = torch.randn((4, S * S, 56, 76), device="cuda", generator=g).to(dt)
+    dM = torch.randn((shape[0], S * S) + shape[2:], device="cuda",
+                     generator=g).to(dt)
     sy = torch.randint(-1, S + 1, shape, device="cuda", generator=g,
                        dtype=torch.int32)
     sx = torch.randint(-1, S + 1, shape, device="cuda", generator=g,
