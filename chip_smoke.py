@@ -9,6 +9,8 @@ and PyTorch built for CUDA. It
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes of the NLSPN serving and training paths (B=4, 224x304, T=18;
    S=8 and 10; preserve off and on; f32 and bf16 stacks), and times both;
+   the reverse chain also by its device time a chain and a step, and with
+   no run of the mask stack kept in shared memory (whether L2 holds it);
 3. serves ``configs/rdf_gan_nlspn_config.yaml`` at full width through
    ``python -m rdfc_gan_torch.test``'s code path, with random weights from a
    seed and non-zero NLSPN offsets, and checks that its kernels carried it;
@@ -38,7 +40,9 @@ and PyTorch built for CUDA. It
    for bit; bf16, on the tensor cores, within the tolerance
    ``conv_block_kernel`` states) and times them beside cuDNN; the IN
    kernels also at G_B2A's planes and at odd planes, with the forward's
-   time per shape and per G_B2A application beside ``F.instance_norm``'s;
+   time per shape and per G_B2A application beside ``F.instance_norm``'s,
+   the backward's beside its bound, each with the plan it took (the
+   Python mirrors of the plans checked against the kernel's own);
 9. trains the flagship one epoch (16 bf16 steps at batch 4) through
    ``python -m rdfc_gan_torch.train``'s code path from seeded nets: the 23
    losses, the launch counts, all six nets moved, ``best.pth`` served;
@@ -373,6 +377,8 @@ def backward_kernel_phase():
                         library_ms=None if library is None
                         else time_ms(library))
 
+                chain_case = (g0, M16, T, R, dt)
+
                 def gather(dM=dM, sy=sy, sx=sx, S=S, dt=dt):
                     return mask_kernel.shift_mask_gather(dM, sy, sx, S, dt)
 
@@ -410,7 +416,25 @@ def backward_kernel_phase():
     print(f"  shift_mask_gather device time: kernel "
           f"{_device_ms(gather, n=10):.4f} ms, torch.gather "
           f"{_device_ms(library_gather, n=10):.4f} ms")
+    _chain_device_times(nlspn_kernel, *chain_case, rows)
     return rows
+
+
+def _chain_device_times(nlspn_kernel, g0, M16, T_, R, dt, rows):
+    """The reverse chain's device time per chain and per step at the train
+    step's case, and of a one-step chain (the layout pass and a step), so
+    the time of each further step reads apart from the layout pass."""
+    bnd = rows["nlspn_reverse_chain"]["bound_ms"]
+    d = _device_ms(lambda: nlspn_kernel.reverse_chain(g0, M16, None, T_, R,
+                                                      dt), n=10)
+    print(f"  nlspn_reverse_chain device time: {d:.4f} ms a chain of {T_} "
+          f"steps, {d / T_ * 1e3:.2f} us a step; bound {bnd * 1e3:.2f} us "
+          f"(the device time at {_pct(bnd, d)} of it)")
+    ms_1 = _device_ms(lambda: nlspn_kernel.reverse_chain(
+        g0, M16, None, 1, R, dt), n=10)
+    print(f"  nlspn_reverse_chain, as launched: one step chain {ms_1:.4f} ms "
+          f"(the layout pass and a step); each further step "
+          f"{(d - ms_1) / (T_ - 1) * 1e3:.2f} us")
 
 
 # offsets of the served model: the scale of conv_offset_aff is set so that
@@ -645,7 +669,7 @@ def train_phase(workdir):
     evals = engine.n_forward
     want = {"shift_mask_scatter": steps + evals, "shift_mask_gather": steps,
             "nlspn_propagate_x": steps * T_cfg,
-            "nlspn_reverse_chain": steps * T_cfg,
+            "nlspn_reverse_chain": steps,
             "shift_correlation": steps, "nlspn_propagate": evals * T_cfg,
             "instance_norm_fwd": 4 * (steps + evals),
             "instance_norm_bwd": 4 * steps,
@@ -983,8 +1007,9 @@ def profile_phase(engine, batch, n: int = 3, title: str = "profile"):
 def instance_norm_phase():
     """The IN forward and backward kernels against their plain versions at
     the four W-AdaIN shapes, G_B2A's three and two odd planes, f32 and bf16.
-    Prints each shape's times, with the forward's plan and
-    ``F.instance_norm``, and G_B2A's forward time per application. Returns
+    Prints each shape's times (CUDA events and device) with the plan each
+    kernel took, the forward's beside ``F.instance_norm``, and G_B2A's
+    forward and backward times per application. Returns
     the two kernel rows: the forward at the served f32 and the backward at
     the train step's bf16, each time the sum over the four shapes of one
     forward or step."""
@@ -995,6 +1020,7 @@ def instance_norm_phase():
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     print("instance norm kernel checks (the W-AdaIN, G_B2A and odd shapes):")
+    _check_plan_mirrors(nk, IN_SHAPES + G_B2A_IN_SHAPES + ODD_IN_SHAPES)
     acc = {(k, dt, grp): collections.defaultdict(float)
            for k in ("fwd", "bwd")
            for dt in (torch.float32, torch.bfloat16)
@@ -1037,17 +1063,8 @@ def instance_norm_phase():
             d_k = _device_ms(lambda: nk.instance_norm_fwd(x, 1e-5), n=10)
             d_lib = _device_ms(lambda: F.instance_norm(x, eps=1e-5), n=10)
             bnd, by = bound_ms(fwd_bytes, fwd_ops)
-            # an A/B runs this script in an earlier tree too, whose forward
-            # has no fwd_plan
-            how = "one block a plane (a tree before fwd_plan)"
-            if hasattr(nk, "fwd_plan"):
-                p = nk.fwd_plan(shape[2] * shape[3], isz)
-                how = (f"a cluster of {p.cluster} blocks a plane"
-                       if p.cluster > 1 else
-                       f"{p.teams} planes a block" if p.teams > 1 else
-                       "one block a plane") + (
-                    f", {p.team} threads a plane, {p.vec * isz}-byte "
-                    f"vectors, staged once")
+            how = _plan_words(nk.fwd_plan(shape[2] * shape[3], isz), isz,
+                              "x")
             print(f"  instance_norm_fwd {tag}: {how}: kernel "
                   f"{t_k:.4f} ms (device {d_k:.4f}), F.instance_norm "
                   f"{t_lib:.4f} ms (device {d_lib:.4f}), bound {bnd:.4f} ms "
@@ -1059,6 +1076,23 @@ def instance_norm_phase():
                                ("kernel device", d_k),
                                ("library device", d_lib), ("bound", bnd)):
                     per_app[(key, dt)] += w * t
+            bwd_bytes = 3 * n_el * isz + planes * 4
+            bwd_ops = n_el * (4.0 + 5.0 * PEAK_F32_FLOPS / PEAK_F64_FLOPS)
+            t_kb = time_ms(lambda: nk.instance_norm_bwd(dy, y, a))
+            d_kb = _device_ms(lambda: nk.instance_norm_bwd(dy, y, a), n=10)
+            bnd_b, by_b = bound_ms(bwd_bytes, bwd_ops)
+            how = _plan_words(nk.bwd_plan(shape[2] * shape[3], isz), isz,
+                              "dy and y")
+            print(f"  instance_norm_bwd {tag}: {how}: kernel "
+                  f"{t_kb:.4f} ms (device {d_kb:.4f}), bound {bnd_b:.4f} ms "
+                  f"({by_b}; the kernel's device time at "
+                  f"{_pct(bnd_b, d_kb)} of it)")
+            if grp == "G_B2A":
+                w = G_B2A_IN_LAUNCHES[G_B2A_IN_SHAPES.index(shape)]
+                for key, t in (("bwd kernel", t_kb), ("bwd kernel device",
+                                                      d_kb),
+                               ("bwd bound", bnd_b)):
+                    per_app[(key, dt)] += w * t
             f = acc[("fwd", dt, grp)]
             f["err"] = max(f["err"], err_f)
             f["ms"] += t_k
@@ -1069,11 +1103,12 @@ def instance_norm_phase():
             f["ops"] += fwd_ops
             b = acc[("bwd", dt, grp)]
             b["err"] = max(b["err"], err_b)
-            b["ms"] += time_ms(lambda: nk.instance_norm_bwd(dy, y, a))
+            b["ms"] += t_kb
+            b["device_ms"] += d_kb
             b["plain_ms"] += time_ms(
                 lambda: nk.instance_norm_bwd_plain(dy, y, a))
-            b["bytes"] += 3 * n_el * isz + planes * 4
-            b["ops"] += n_el * (4.0 + 5.0 * PEAK_F32_FLOPS / PEAK_F64_FLOPS)
+            b["bytes"] += bwd_bytes
+            b["ops"] += bwd_ops
             if dt == torch.bfloat16 and shape == IN_SHAPES[0]:
                 # what F.instance_norm, the port's IN before these kernels,
                 # gives under the train step's autocast
@@ -1093,10 +1128,16 @@ def instance_norm_phase():
               f"{t['kernel device']:.4f}), F.instance_norm "
               f"{t['library']:.4f} ms (device {t['library device']:.4f}), "
               f"bound {t['bound']:.4f} ms")
+        print(f"  instance_norm_bwd {dt}, one G_B2A application ({mix}): "
+              f"kernel {t['bwd kernel']:.4f} ms (device "
+              f"{t['bwd kernel device']:.4f}), bound {t['bwd bound']:.4f} ms "
+              f"(the device time at {_pct(t['bwd bound'], t['bwd kernel device'])}"
+              f" of it)")
     for (kind, dt, grp), r in acc.items():
         bnd, by = bound_ms(r["bytes"], r["ops"])
+        dev = (f" (device {r['device_ms']:.4f})" if kind == "bwd" else "")
         print(f"  instance_norm_{kind} {dt}, the {grp} shapes: kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['ms']:.4f} ms{dev}, plain {r['plain_ms']:.4f} ms, library "
               f"{r['library_ms'] if kind == 'fwd' else None} ms, bound "
               f"{bnd * 1e3:.2f} us ({by})")
     rows = {}
@@ -1112,6 +1153,41 @@ def instance_norm_phase():
             plain_ms=r["plain_ms"], bound_ms=bnd, bound_by=by,
             library_ms=r["library_ms"] if kind == "fwd" else None)
     return rows
+
+
+def _plan_words(p, isz: int, staged: str) -> str:
+    """How an IN kernel's plan cuts a plane, in words."""
+    return (f"a cluster of {p.cluster} blocks a plane" if p.cluster > 1 else
+            f"{p.teams} planes a block" if p.teams > 1 else
+            "one block a plane") + (
+        f", {p.team} threads a plane, {p.vec * isz}-byte vectors, {staged} "
+        f"staged once")
+
+
+def _check_plan_mirrors(nk, shapes):
+    """The Python plans (``norm_kernel.fwd_plan`` and ``bwd_plan``) against
+    the ones the built kernel exports, at the phase's plane sizes and a
+    sweep, f32 and bf16."""
+    import ctypes
+
+    from rdfc_gan_torch.ops.kernels import build
+
+    lib = build.library(nk.SOURCE)
+    out = (ctypes.c_int * 5)()
+    sizes = sorted({s[2] * s[3] for s in shapes} | set(range(1, 5000, 7)) |
+                   set(range(5000, 420000, 4999)))
+    for kind in ("fwd", "bwd"):
+        export = getattr(lib, f"instance_norm_{kind}_plan")
+        mirror = getattr(nk, f"{kind}_plan")
+        for n in sizes:
+            for size in (2, 4):
+                export(n, size, out)
+                if tuple(out) != tuple(mirror(n, size)):
+                    fail(f"norm_kernel.{kind}_plan({n}, {size}) = "
+                         f"{tuple(mirror(n, size))}, the kernel's "
+                         f"{tuple(out)}")
+    print(f"  fwd_plan and bwd_plan match the kernel's exported plans at "
+          f"{len(sizes)} plane sizes, f32 and bf16")
 
 
 def conv_block_phase():

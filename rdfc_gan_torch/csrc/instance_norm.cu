@@ -32,36 +32,43 @@
 // once (two operations per element for the sums, two for y), the backward
 // reads dy and y once and writes dx once; both far below the ridge.
 //
-// Forward design. fwd_plan below picks, from n and the element size alone,
-// how a plane is cut; the plain version's _fwd_sum follows the same plan:
+// Design. One rule, plan() below, cuts a plane for both directions from n,
+// the element size and the number of arrays a block stages (1 for the
+// forward: x; 2 for the backward: dy and y); fwd_plan and bwd_plan are its
+// two uses, and the plain versions' _fwd_sum and _bwd_sum follow them:
 //   * vec: the widest vector (up to 16 bytes) whose width divides n, so
 //     every plane starts on a vector boundary and every access is a vector
 //     (the 14x19 W-AdaIN planes take 8-byte f32 or 4-byte bf16 vectors; an
 //     odd n takes scalars);
-//   * cluster: a plane of more than kFwdStageBytes is split over a thread
-//     block cluster of 2, 4 or 8 blocks (136 KB bf16 G_B2A planes: 4 blocks
-//     of 34 KB; 272 KB f32: 8), each staging its contiguous chunk of cvec
-//     vectors in shared memory; the blocks' partial sums meet through
-//     distributed shared memory, added in rank order by every block, so x
-//     is read once from HBM and y written from the stage at every shape;
-//   * team: the threads that share one plane (or one chunk): about
-//     kFwdSteps vectors a thread, 32 to 512 threads; planes that fit one
-//     block put several teams in a block (a warp or a few a plane), so a
-//     small plane pays for shuffles and a short pass over its warps, not
-//     for a 512-thread block reduction.
+//   * cluster: a plane whose staged arrays pass kStageBytes is split over a
+//     thread block cluster of 2, 4 or 8 blocks, or 16 (a size the card
+//     must be asked to allow) where 8 blocks' stages cannot hold it
+//     (planes past 1.6 MB of staged arrays; the forward's 136 KB bf16
+//     G_B2A planes: 4 blocks of 34 KB; the backward's 272 KB of dy and y:
+//     8), each staging its contiguous chunk of cvec vectors of every array
+//     in shared memory; the blocks' partial sums meet through distributed
+//     shared memory, added in rank order by every block, so every input is
+//     read once from HBM and the output written from the stage at every
+//     shape;
+//   * team: the threads that share one plane (or one chunk): about kSteps
+//     vectors a thread, 32 to 512 threads; planes that fit one block put
+//     several teams in a block (a warp or a few a plane), so a small plane
+//     pays for shuffles and a short pass over its warps, not for a
+//     512-thread block reduction.
 // Each thread copies its vectors v = t, t + team, ... of the chunk into
 // shared memory with cp.async (all in flight at once), sums them in f64
 // with one accumulator pair per vector lane (independent add chains), adds
 // the lanes in order, then the warp adds by xor shuffles over 16, 8, 4, 2,
 // 1 lanes, the team adds its warps in order and the cluster its ranks in
-// order. x * x of an f32 value is exact in f64, so the fused multiply-add
-// of the second sum equals a multiply and an add.
-// Backward design: one block per (b, c) plane; a thread sums its strided
-// elements in order in f64, then the block reduces by warp shuffles and
-// one pass over the warp sums in shared memory (the order of
-// norm_kernel.py:_block_sum with the thread count of threads_for); it
-// stages dy and y when both fit in kStageBytes, and otherwise reads them a
-// second time, from L2.
+// order (plan_sum). The forward sums x and x * x, the backward dy and
+// dy * y; each product of two f32 values is exact in f64, so the fused
+// multiply-add equals a multiply and an add. The second pass reads the
+// stage and writes whole vectors. In bf16 the backward rounds each value
+// four times (dy - m1, y m2, their difference, dx) and converts dy and y
+// to f64; an SM converts 16 values a clock, a quarter of its f64 add rate,
+// so the conversions weigh more than the bytes: the second pass rounds two
+// values a conversion (__floats2bfloat162_rn, round to nearest even as
+// each single rounding).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -71,67 +78,23 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// the backward's staging above this leaves one block per SM; re-reading
-// from L2 is cheaper
-constexpr int kStageBytes = 112 * 1024;
-
-// the forward's plan (norm_kernel.py:fwd_plan repeats these numbers)
-constexpr int kFwdStageBytes = 40 * 1024;  // a block's share of a plane
-constexpr int kFwdMaxStageBytes = 200 * 1024;
-constexpr int kFwdMaxCluster = 8;  // the portable cluster size
-constexpr int kFwdBlockThreads = 256;
-constexpr int kFwdMaxTeam = 512;
-constexpr int kFwdSteps = 8;  // vectors a thread, about
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-// round v to T and back: the value of an f32 statistic once cast to T
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_f32(from_f32<T>(v));
-}
-
-// Sum of (s1, s2) over the block; every thread gets the result. scratch
-// holds 2 * (blockDim.x / 32) doubles.
-__device__ __forceinline__ double2 block_sum(double s1, double s2,
-                                             double* scratch) {
-  for (int o = 16; o > 0; o >>= 1) {
-    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-    s2 += __shfl_xor_sync(0xffffffffu, s2, o);
-  }
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    scratch[warp] = s1;
-    scratch[nwarps + warp] = s2;
-  }
-  __syncthreads();
-  double t1 = 0.0, t2 = 0.0;
-  for (int i = 0; i < nwarps; ++i) {
-    t1 += scratch[i];
-    t2 += scratch[nwarps + i];
-  }
-  return make_double2(t1, t2);
-}
+// the plan (norm_kernel.py:_plan repeats these numbers)
+constexpr int kStageBytes = 40 * 1024;  // a block's share of a plane
+constexpr int kMaxStageBytes = 200 * 1024;
+constexpr int kMaxCluster = 8;  // the portable cluster size
+// past it, for a plane that 8 blocks cannot stage: an H100's GPCs hold 16
+// SMs or more
+constexpr int kWideCluster = 16;
+constexpr int kBlockThreads = 256;
+constexpr int kMaxTeam = 512;
+constexpr int kSteps = 8;  // vectors a thread, about
 
 // sum / n in f64, rounded to f32
 __device__ __forceinline__ float mean_f32(double sum, int n) {
   return __double2float_rn(__ddiv_rn(sum, (double)n));
 }
 
-// ------------------------------------------------------------- forward --
-
-// The forward works on the elements' bits: bf16 <-> f32 is a shift.
+// The kernels work on the elements' bits: bf16 <-> f32 is a shift.
 __device__ __forceinline__ float bits_f32(unsigned int b) {
   return __uint_as_float(b);
 }
@@ -147,6 +110,25 @@ __device__ __forceinline__ unsigned int f32_bits<unsigned int>(float v) {
 template <>
 __device__ __forceinline__ unsigned short f32_bits<unsigned short>(float v) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+// v rounded to the element type B and back: an f32 statistic cast to T
+template <typename B>
+__device__ __forceinline__ float round_to(float v) {
+  return bits_f32(f32_bits<B>(v));
+}
+
+// two f32 values rounded to bf16 by one conversion (round to nearest
+// even, as __float2bfloat16_rn each): their bits, the first in the low half
+__device__ __forceinline__ unsigned bf16_pair_bits(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+// the pair rounded to bf16 and back to f32
+__device__ __forceinline__ void round_pair(float lo, float hi,
+                                           float (&out)[2]) {
+  const unsigned bits = bf16_pair_bits(lo, hi);
+  out[0] = __uint_as_float(bits << 16);
+  out[1] = __uint_as_float(bits & 0xffff0000u);
 }
 
 // VEC elements of bits B, loaded and stored as one access
@@ -176,7 +158,7 @@ __device__ __forceinline__ void copy_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-struct FwdPlan {
+struct Plan {
   int vec;      // elements a vector
   int cluster;  // blocks a plane
   int cvec;     // vectors a block's chunk
@@ -184,63 +166,72 @@ struct FwdPlan {
   int teams;    // planes a block
 };
 
-// The one rule for the forward's partition; norm_kernel.py:fwd_plan is its
-// mirror, and the order of the sums follows from it.
-FwdPlan fwd_plan(int n, int size) {
-  FwdPlan p;
+// The one rule for the partition of a plane of n elements of size bytes, of
+// which a block stages `arrays` arrays; norm_kernel.py:_plan is its mirror,
+// and the order of the sums follows from it.
+Plan plan(int n, int size, int arrays) {
+  Plan p;
   p.vec = 16 / size;
   while (n % p.vec) p.vec >>= 1;
-  const long long bytes = (long long)n * size;
+  const long long bytes = (long long)n * size * arrays;
   p.cluster = 1;
-  while (p.cluster < kFwdMaxCluster &&
-         bytes > (long long)p.cluster * kFwdStageBytes)
+  while (p.cluster < kMaxCluster &&
+         bytes > (long long)p.cluster * kStageBytes)
     p.cluster <<= 1;
   const int nvec = n / p.vec;
   p.cvec = (nvec + p.cluster - 1) / p.cluster;
+  if ((long long)arrays * p.cvec * p.vec * size > kMaxStageBytes &&
+      p.cluster == kMaxCluster) {
+    p.cluster = kWideCluster;
+    p.cvec = (nvec + p.cluster - 1) / p.cluster;
+  }
   p.team = 32;
-  while (p.team < kFwdMaxTeam && 2 * p.team * kFwdSteps <= p.cvec)
-    p.team <<= 1;
-  p.teams = p.cluster > 1 ? 1 : kFwdBlockThreads / p.team;
+  while (p.team < kMaxTeam && 2 * p.team * kSteps <= p.cvec) p.team <<= 1;
+  p.teams = p.cluster > 1 ? 1 : kBlockThreads / p.team;
   if (p.teams < 1) p.teams = 1;
   return p;
 }
 
-template <typename B, int VEC>
-__global__ void __launch_bounds__(kFwdMaxTeam)
-    instance_norm_fwd_kernel(const B* __restrict__ x, B* __restrict__ y,
-                             float* __restrict__ af, int planes, int n,
-                             int cluster, int cvec, int team,
-                             size_t stage_bytes, float eps) {
-  using P = Pack<B, VEC>;
-  extern __shared__ __align__(16) unsigned char fwd_smem[];
-  const int teams = blockDim.x / team;
-  const int tm = threadIdx.x / team;
-  const int t = threadIdx.x - tm * team;
-  const int rank = cluster > 1 ? (int)(blockIdx.x % cluster) : 0;
-  const int plane = (int)(blockIdx.x / cluster) * teams + tm;
-  const bool live = plane < planes;
-  const int v0 = rank * cvec;
-  int nv = live ? n / VEC - v0 : 0;
-  if (nv > cvec) nv = cvec;
-  const long long base = (long long)(live ? plane : 0) * n;
-  P* stage = reinterpret_cast<P*>(fwd_smem) + (size_t)tm * cvec;
-  const P* src = reinterpret_cast<const P*>(x + base) + v0;
-  for (int v = t; v < nv; v += team)
-    copy_async<(int)sizeof(P)>(stage + v, src + v);
-  copy_wait_all();  // each thread reads back only what it copied
+Plan fwd_plan(int n, int size) { return plan(n, size, 1); }
+Plan bwd_plan(int n, int size) { return plan(n, size, 2); }
 
-  double a1[VEC], a2[VEC];
-#pragma unroll
-  for (int l = 0; l < VEC; ++l) a1[l] = a2[l] = 0.0;
-  for (int v = t; v < nv; v += team) {
-    const P p = stage[v];
-#pragma unroll
-    for (int l = 0; l < VEC; ++l) {
-      const double f = (double)bits_f32(p.e[l]);
-      a1[l] = __dadd_rn(a1[l], f);
-      a2[l] = __fma_rn(f, f, a2[l]);
-    }
-  }
+// Where a thread of a planned launch works: its team (plane of the block),
+// its index in the team, its cluster rank and plane, and its run of
+// vectors [v0, v0 + nv) of the plane.
+struct Place {
+  int teams, tm, t, rank, plane, v0, nv;
+  bool live;
+  long long base;  // the plane's first element
+};
+
+template <int VEC>
+__device__ __forceinline__ Place place(int planes, int n, int cluster,
+                                       int cvec, int team) {
+  Place q;
+  q.teams = blockDim.x / team;
+  q.tm = threadIdx.x / team;
+  q.t = threadIdx.x - q.tm * team;
+  q.rank = cluster > 1 ? (int)(blockIdx.x % cluster) : 0;
+  q.plane = (int)(blockIdx.x / cluster) * q.teams + q.tm;
+  q.live = q.plane < planes;
+  q.v0 = q.rank * cvec;
+  q.nv = q.live ? n / VEC - q.v0 : 0;
+  if (q.nv > cvec) q.nv = cvec;
+  q.base = (long long)(q.live ? q.plane : 0) * n;
+  return q;
+}
+
+// The lane accumulators (a1, a2) of every thread of a team summed in the
+// plan's order: lanes in order, the warp's xor tree over 16, 8, 4, 2, 1
+// lanes, the team's warps in order, the cluster's ranks in order. Every
+// thread of the team gets the pair. Every thread of the block must call it
+// (it holds block and cluster barriers). red holds
+// 2 * teams * (team / 32) + 4 doubles.
+template <int VEC>
+__device__ __forceinline__ double2 plan_sum(const double (&a1)[VEC],
+                                            const double (&a2)[VEC],
+                                            const Place& q, int team,
+                                            int cluster, double* red) {
   double s1 = a1[0], s2 = a2[0];
 #pragma unroll
   for (int l = 1; l < VEC; ++l) {
@@ -253,15 +244,14 @@ __global__ void __launch_bounds__(kFwdMaxTeam)
   }
   // [teams][team / 32] warp sums, then the rank's partial and the total
   const int wpt = team >> 5;
-  double* wsum = reinterpret_cast<double*>(fwd_smem + stage_bytes);
-  double* part = wsum + 2 * teams * wpt;
+  double* part = red + 2 * q.teams * wpt;
   double* total = part + 2;
-  if ((t & 31) == 0) {
-    wsum[2 * (tm * wpt + (t >> 5))] = s1;
-    wsum[2 * (tm * wpt + (t >> 5)) + 1] = s2;
+  if ((q.t & 31) == 0) {
+    red[2 * (q.tm * wpt + (q.t >> 5))] = s1;
+    red[2 * (q.tm * wpt + (q.t >> 5)) + 1] = s2;
   }
   __syncthreads();
-  const double* w = wsum + 2 * tm * wpt;
+  const double* w = red + 2 * q.tm * wpt;
   s1 = w[0];
   s2 = w[1];
   for (int k = 1; k < wpt; ++k) {
@@ -291,95 +281,163 @@ __global__ void __launch_bounds__(kFwdMaxTeam)
     s1 = total[0];
     s2 = total[1];
   }
-  if (!live) return;
-  const float m = mean_f32(s1, n);
-  const float var = fmaxf(__fsub_rn(mean_f32(s2, n), __fmul_rn(m, m)), 0.f);
-  const float a = __frsqrt_rn(__fadd_rn(var, eps));
-  const float b = -__fmul_rn(m, a);
-  if (rank == 0 && t == 0) af[plane] = a;
-  const float at = bits_f32(f32_bits<B>(a));
-  const float bt = bits_f32(f32_bits<B>(b));
-  P* dst = reinterpret_cast<P*>(y + base) + v0;
-  for (int v = t; v < nv; v += team) {
-    const P p = stage[v];
-    P q;
-#pragma unroll
-    for (int l = 0; l < VEC; ++l) {
-      const float prod =
-          bits_f32(f32_bits<B>(__fmul_rn(bits_f32(p.e[l]), at)));
-      q.e[l] = f32_bits<B>(__fadd_rn(prod, bt));
-    }
-    dst[v] = q;
-  }
+  return make_double2(s1, s2);
 }
 
-template <typename T, bool kStage>
-__global__ void instance_norm_bwd_kernel(const T* __restrict__ dy,
-                                         const T* __restrict__ y,
-                                         const float* __restrict__ af,
-                                         T* __restrict__ dx, int n) {
-  extern __shared__ double smem[];
-  double* scratch = smem;
-  T* gplane = reinterpret_cast<T*>(smem + 32);
-  T* yplane = gplane + n;
-  const long long base = (long long)blockIdx.x * n;
-  const T* gp = dy + base;
-  const T* yp = y + base;
-  double s1 = 0.0, s2 = 0.0;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const T g = gp[i];
-    const T v = yp[i];
-    if (kStage) {
-      gplane[i] = g;
-      yplane[i] = v;
-    }
-    const double gf = (double)to_f32(g);
-    s1 = __dadd_rn(s1, gf);
-    s2 = __dadd_rn(s2, __dmul_rn(gf, (double)to_f32(v)));
-  }
-  const double2 s = block_sum(s1, s2, scratch);
-  const float m1 = round_to<T>(mean_f32(s.x, n));
-  const float m2 = round_to<T>(mean_f32(s.y, n));
-  const float at = round_to<T>(af[blockIdx.x]);
-  T* dp = dx + base;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float gf = to_f32(kStage ? gplane[i] : gp[i]);
-    const float vf = to_f32(kStage ? yplane[i] : yp[i]);
-    const float d = round_to<T>(__fsub_rn(gf, m1));
-    const float e = round_to<T>(__fmul_rn(vf, m2));
-    const float c = round_to<T>(__fsub_rn(d, e));
-    dp[i] = from_f32<T>(__fmul_rn(at, c));
-  }
-}
-
-// the backward's block; bwd_block_threads in ops/kernels/norm_kernel.py
-// repeats this rule
-int threads_for(int n) {
-  if (n <= 1024) return 128;
-  if (n <= 4096) return 256;
-  return 512;
-}
-
-// the dynamic shared memory of a launch; above 48 KB the kernel must be
-// allowed it first
-template <typename K>
-int allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
+// ------------------------------------------------------------- forward --
 
 template <typename B, int VEC>
-int launch_fwd_vec(const void* x, void* y, float* af, int planes, int n,
-                   float eps, const FwdPlan& p, cudaStream_t stream) {
-  auto k = instance_norm_fwd_kernel<B, VEC>;
+__global__ void __launch_bounds__(kMaxTeam)
+    instance_norm_fwd_kernel(const B* __restrict__ x, B* __restrict__ y,
+                             float* __restrict__ af, int planes, int n,
+                             float eps, int cluster, int cvec, int team,
+                             size_t stage_bytes) {
+  using P = Pack<B, VEC>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Place q = place<VEC>(planes, n, cluster, cvec, team);
+  P* stage = reinterpret_cast<P*>(smem) + (size_t)q.tm * cvec;
+  const P* src = reinterpret_cast<const P*>(x + q.base) + q.v0;
+  for (int v = q.t; v < q.nv; v += team)
+    copy_async<(int)sizeof(P)>(stage + v, src + v);
+  copy_wait_all();  // each thread reads back only what it copied
+
+  double a1[VEC], a2[VEC];
+#pragma unroll
+  for (int l = 0; l < VEC; ++l) a1[l] = a2[l] = 0.0;
+  for (int v = q.t; v < q.nv; v += team) {
+    const P p = stage[v];
+#pragma unroll
+    for (int l = 0; l < VEC; ++l) {
+      const double f = (double)bits_f32(p.e[l]);
+      a1[l] = __dadd_rn(a1[l], f);
+      a2[l] = __fma_rn(f, f, a2[l]);
+    }
+  }
+  const double2 s = plan_sum<VEC>(
+      a1, a2, q, team, cluster,
+      reinterpret_cast<double*>(smem + stage_bytes));
+  if (!q.live) return;
+  const float m = mean_f32(s.x, n);
+  const float var = fmaxf(__fsub_rn(mean_f32(s.y, n), __fmul_rn(m, m)), 0.f);
+  const float a = __frsqrt_rn(__fadd_rn(var, eps));
+  const float b = -__fmul_rn(m, a);
+  if (q.rank == 0 && q.t == 0) af[q.plane] = a;
+  const float at = round_to<B>(a);
+  const float bt = round_to<B>(b);
+  P* dst = reinterpret_cast<P*>(y + q.base) + q.v0;
+  for (int v = q.t; v < q.nv; v += team) {
+    const P p = stage[v];
+    P o;
+#pragma unroll
+    for (int l = 0; l < VEC; ++l) {
+      const float prod = round_to<B>(__fmul_rn(bits_f32(p.e[l]), at));
+      o.e[l] = f32_bits<B>(__fadd_rn(prod, bt));
+    }
+    dst[v] = o;
+  }
+}
+
+// ------------------------------------------------------------ backward --
+
+// dx = T(a) ((dy - T(m1)) - y T(m2)) in T, each step rounded to T, from
+// dy and y staged side by side: [teams][cvec] vectors of dy, then of y.
+template <typename B, int VEC>
+__global__ void __launch_bounds__(kMaxTeam)
+    instance_norm_bwd_kernel(const B* __restrict__ dy, const B* __restrict__ y,
+                             const float* __restrict__ af, B* __restrict__ dx,
+                             int planes, int n, int cluster, int cvec,
+                             int team, size_t stage_bytes) {
+  using P = Pack<B, VEC>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Place q = place<VEC>(planes, n, cluster, cvec, team);
+  P* gst = reinterpret_cast<P*>(smem) + (size_t)q.tm * cvec;
+  P* yst = gst + (size_t)q.teams * cvec;
+  const P* gsrc = reinterpret_cast<const P*>(dy + q.base) + q.v0;
+  const P* ysrc = reinterpret_cast<const P*>(y + q.base) + q.v0;
+  for (int v = q.t; v < q.nv; v += team) {
+    copy_async<(int)sizeof(P)>(gst + v, gsrc + v);
+    copy_async<(int)sizeof(P)>(yst + v, ysrc + v);
+  }
+  copy_wait_all();  // each thread reads back only what it copied
+
+  double a1[VEC], a2[VEC];
+#pragma unroll
+  for (int l = 0; l < VEC; ++l) a1[l] = a2[l] = 0.0;
+  for (int v = q.t; v < q.nv; v += team) {
+    const P g = gst[v];
+    const P p = yst[v];
+#pragma unroll
+    for (int l = 0; l < VEC; ++l) {
+      const double f = (double)bits_f32(g.e[l]);
+      a1[l] = __dadd_rn(a1[l], f);
+      a2[l] = __fma_rn(f, (double)bits_f32(p.e[l]), a2[l]);
+    }
+  }
+  const double2 s = plan_sum<VEC>(
+      a1, a2, q, team, cluster,
+      reinterpret_cast<double*>(smem + stage_bytes));
+  if (!q.live) return;
+  const float m1 = round_to<B>(mean_f32(s.x, n));
+  const float m2 = round_to<B>(mean_f32(s.y, n));
+  const float at = round_to<B>(af[q.plane]);
+  P* dst = reinterpret_cast<P*>(dx + q.base) + q.v0;
+  for (int v = q.t; v < q.nv; v += team) {
+    const P g = gst[v];
+    const P p = yst[v];
+    P o;
+    if constexpr (sizeof(B) == 2 && VEC % 2 == 0) {
+      // bf16 in pairs: one conversion rounds two values
+#pragma unroll
+      for (int l = 0; l < VEC; l += 2) {
+        float d[2], e[2], c[2];
+        round_pair(__fsub_rn(bits_f32(g.e[l]), m1),
+                   __fsub_rn(bits_f32(g.e[l + 1]), m1), d);
+        round_pair(__fmul_rn(bits_f32(p.e[l]), m2),
+                   __fmul_rn(bits_f32(p.e[l + 1]), m2), e);
+        round_pair(__fsub_rn(d[0], e[0]), __fsub_rn(d[1], e[1]), c);
+        const unsigned bits =
+            bf16_pair_bits(__fmul_rn(at, c[0]), __fmul_rn(at, c[1]));
+        o.e[l] = (unsigned short)(bits & 0xffffu);
+        o.e[l + 1] = (unsigned short)(bits >> 16);
+      }
+    } else {
+#pragma unroll
+      for (int l = 0; l < VEC; ++l) {
+        const float d = round_to<B>(__fsub_rn(bits_f32(g.e[l]), m1));
+        const float e = round_to<B>(__fmul_rn(bits_f32(p.e[l]), m2));
+        const float c = round_to<B>(__fsub_rn(d, e));
+        o.e[l] = f32_bits<B>(__fmul_rn(at, c));
+      }
+    }
+    dst[v] = o;
+  }
+}
+
+// ------------------------------------------------------------- launches --
+
+// The launch of a planned kernel k whose block stages `arrays` arrays of
+// [teams][cvec] vectors of VB bytes: the grid, the cluster, the dynamic
+// shared memory (the stage, then plan_sum's doubles). No fallback: a
+// refused launch (too much shared memory, a cluster the card will not
+// schedule) is returned to the wrapper.
+template <typename K, typename... Args>
+int launch_planned(K k, const Plan& p, int arrays, int vb, int planes,
+                   cudaStream_t stream, Args... args) {
   const size_t stage =
-      ((size_t)p.teams * p.cvec * VEC * sizeof(B) + 15) / 16 * 16;
-  if (stage > (size_t)kFwdMaxStageBytes) return (int)cudaErrorInvalidValue;
+      ((size_t)arrays * p.teams * p.cvec * vb + 15) / 16 * 16;
+  if (stage > (size_t)kMaxStageBytes) return (int)cudaErrorInvalidValue;
   const size_t smem =
       stage + (2 * (size_t)p.teams * (p.team / 32) + 4) * sizeof(double);
-  int e = allow_smem(k, smem);
-  if (e != 0) return e;
+  if (smem > 48 * 1024) {
+    const int e = (int)cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != 0) return e;
+  }
+  if (p.cluster > kMaxCluster) {
+    const int e = (int)cudaFuncSetAttribute(
+        k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != 0) return e;
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.cluster > 1 ? (unsigned)planes * p.cluster
                                    : (unsigned)((planes + p.teams - 1) /
@@ -394,18 +452,34 @@ int launch_fwd_vec(const void* x, void* y, float* af, int planes, int n,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = p.cluster > 1 ? 1 : 0;
-  // no fallback: a refused cluster launch is returned to the wrapper
-  e = (int)cudaLaunchKernelEx(&cfg, k, static_cast<const B*>(x),
-                              static_cast<B*>(y), af, planes, n, p.cluster,
-                              p.cvec, p.team, stage, eps);
+  const int e = (int)cudaLaunchKernelEx(&cfg, k, args..., p.cluster, p.cvec,
+                                        p.team, stage);
   if (e != 0) return e;
   return (int)cudaGetLastError();
+}
+
+template <typename B, int VEC>
+int launch_fwd_vec(const void* x, void* y, float* af, int planes, int n,
+                   float eps, const Plan& p, cudaStream_t stream) {
+  return launch_planned(instance_norm_fwd_kernel<B, VEC>, p, 1,
+                        (int)sizeof(B) * VEC, planes, stream,
+                        static_cast<const B*>(x), static_cast<B*>(y), af,
+                        planes, n, eps);
+}
+
+template <typename B, int VEC>
+int launch_bwd_vec(const void* dy, const void* y, const float* af, void* dx,
+                   int planes, int n, const Plan& p, cudaStream_t stream) {
+  return launch_planned(instance_norm_bwd_kernel<B, VEC>, p, 2,
+                        (int)sizeof(B) * VEC, planes, stream,
+                        static_cast<const B*>(dy), static_cast<const B*>(y),
+                        af, static_cast<B*>(dx), planes, n);
 }
 
 template <typename B>
 int launch_fwd(const void* x, void* y, float* af, int planes, int n,
                float eps, cudaStream_t stream) {
-  const FwdPlan p = fwd_plan(n, (int)sizeof(B));
+  const Plan p = fwd_plan(n, (int)sizeof(B));
   switch (p.vec) {
     case 1: return launch_fwd_vec<B, 1>(x, y, af, planes, n, eps, p, stream);
     case 2: return launch_fwd_vec<B, 2>(x, y, af, planes, n, eps, p, stream);
@@ -416,25 +490,26 @@ int launch_fwd(const void* x, void* y, float* af, int planes, int n,
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T>
+template <typename B>
 int launch_bwd(const void* dy, const void* y, const float* af, void* dx,
                int planes, int n, cudaStream_t stream) {
-  const int threads = threads_for(n);
-  const size_t scratch = 32 * sizeof(double);
-  const size_t staged = scratch + 2 * (size_t)n * sizeof(T);
-  const T* g = static_cast<const T*>(dy);
-  const T* v = static_cast<const T*>(y);
-  T* d = static_cast<T*>(dx);
-  if (staged <= (size_t)kStageBytes) {
-    auto k = instance_norm_bwd_kernel<T, true>;
-    const int e = allow_smem(k, staged);
-    if (e != 0) return e;
-    k<<<planes, threads, staged, stream>>>(g, v, af, d, n);
-  } else {
-    instance_norm_bwd_kernel<T, false><<<planes, threads, scratch, stream>>>(
-        g, v, af, d, n);
+  const Plan p = bwd_plan(n, (int)sizeof(B));
+  switch (p.vec) {
+    case 1: return launch_bwd_vec<B, 1>(dy, y, af, dx, planes, n, p, stream);
+    case 2: return launch_bwd_vec<B, 2>(dy, y, af, dx, planes, n, p, stream);
+    case 4: return launch_bwd_vec<B, 4>(dy, y, af, dx, planes, n, p, stream);
   }
-  return (int)cudaGetLastError();
+  if constexpr (sizeof(B) == 2)
+    return launch_bwd_vec<B, 8>(dy, y, af, dx, planes, n, p, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+void put_plan(const Plan& p, int* out) {
+  out[0] = p.vec;
+  out[1] = p.cluster;
+  out[2] = p.cvec;
+  out[3] = p.team;
+  out[4] = p.teams;
 }
 
 }  // namespace
@@ -449,28 +524,29 @@ extern "C" int instance_norm_fwd(const void* x, void* y, void* af, int planes,
               : launch_fwd<unsigned int>(x, y, a, planes, n, eps, st);
 }
 
-// The forward's plan for a plane of n elements of size bytes:
-// out = {vec, cluster, cvec, team, teams} (norm_kernel.py checks its
-// mirror against it on the card). Returns 0.
+// The forward's and the backward's plans for a plane of n elements of size
+// bytes: out = {vec, cluster, cvec, team, teams} (norm_kernel.py checks its
+// mirror against them on the card). Return 0.
 extern "C" int instance_norm_fwd_plan(int n, int size, int* out) {
-  const FwdPlan p = fwd_plan(n, size);
-  out[0] = p.vec;
-  out[1] = p.cluster;
-  out[2] = p.cvec;
-  out[3] = p.team;
-  out[4] = p.teams;
+  put_plan(fwd_plan(n, size), out);
   return 0;
 }
 
-// dy, y, dx: (planes, n) contiguous, one type, f32 (bf16 = 0) or bf16;
-// af: (planes,) f32. Returns the cudaError_t of the launch.
+extern "C" int instance_norm_bwd_plan(int n, int size, int* out) {
+  put_plan(bwd_plan(n, size), out);
+  return 0;
+}
+
+// dy, y, dx: (planes, n) contiguous, one type, f32 (bf16 = 0) or bf16, dy
+// and y 16-byte aligned; af: (planes,) f32. Returns the cudaError_t of the
+// launch.
 extern "C" int instance_norm_bwd(const void* dy, const void* y,
                                  const void* af, void* dx, int planes, int n,
                                  int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* a = static_cast<const float*>(af);
-  return bf16 ? launch_bwd<__nv_bfloat16>(dy, y, a, dx, planes, n, st)
-              : launch_bwd<float>(dy, y, a, dx, planes, n, st);
+  return bf16 ? launch_bwd<unsigned short>(dy, y, a, dx, planes, n, st)
+              : launch_bwd<unsigned int>(dy, y, a, dx, planes, n, st);
 }
 
 extern "C" const char* error_string(int code) {

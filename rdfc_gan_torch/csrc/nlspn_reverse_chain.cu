@@ -13,98 +13,494 @@
 // with M_s and gg read as zero outside the image: the transpose of the
 // forward's zero-padded shifted read. The last gg is dfeat. M is bf16, as
 // the forward holds it; the chain is f32; the G stack is stored in f32 or
-// bf16 (the type of the X stack it is contracted with).
+// bf16 (the type of the X stack it is contracted with). The sum runs in the
+// plain version's order (iy outer, ix inner) with separately rounded
+// multiply and add, so the kernel and ops/nlspn_stencil.py:
+// reverse_chain_plain agree bit for bit.
 //
-// What bounds it on an H100: bytes, as the forward chain: one step reads
-// the S^2 mask planes once and does S^2 multiply-adds on them.
+// What bounds it on an H100: bytes. The chain needs the S^2 mask planes
+// (35 MB at 4 x 224 x 304, S = 8) once, and T steps of S^2 multiply-adds
+// a pixel; a launch a step, as the TPU kernel runs, reads the whole stack
+// T times.
 //
-// Design: the TPU kernel writes the transpose as a scatter into a padded
-// accumulator. Written as a gather, each output pixel sums its own S^2
-// contributions, so it needs no atomics and no second pass, and it is
-// deterministic. One launch per step, one thread per pixel, 32x8 blocks, a
-// ping-pong of two f32 planes, as the forward chain; each thread also
-// stores its own G[t] entry and updates its own dfix entry. The sum runs in
-// the plain version's order (iy outer, ix inner) with separately rounded
-// multiply and add, so the kernel and the plain version agree bit for bit.
+// Design: one cooperative launch for the whole chain, one block an SM, a
+// grid barrier between steps. The pixels are cut into runs of 8 along a
+// row (a row padded to a multiple of 8), and each block owns a contiguous
+// range of runs for every step, a thread a run (or several). At the start
+// the owner of a run writes its pre-shifted masks M'_s(p) = M_s(p - s)
+// (zero outside the image): a run's weights for shift s are then 8
+// consecutive bf16 values, one aligned 16-byte vector. Where W is a
+// multiple of 8 each is cut from two aligned 16-byte loads of M, all 2S of
+// a window row in flight at once (else 8 scalar loads). As many runs as
+// fit keep their vectors in shared memory for the whole chain, shift-major
+// (a warp's 16-byte reads are conflict-free); the rest go to a global
+// scratch stack, also shift-major, and are read back every step from L2,
+// a window row ahead of their use. So M is read from HBM once a chain,
+// and at 4 x 224 x 304, S = 8, four fifths of the stack never leave the
+// SMs. Every step a block copies the rows of gg that its runs read (its
+// rows and S - 1 of halo, with zero columns, 8 left and 8 right) from the
+// previous step's plane into shared memory, a few 16-byte loads in flight
+// a thread; a thread loads, for each iy, the 8 + S - 1 values its run
+// reads as 16-byte vectors, and sums its 8 pixels' products into 8 f32
+// accumulators. Its stores (G[t], the next plane, dfix) are 16 or 32 bytes
+// a run where W is a multiple of 8, else scalars.
+//
+// Where the time goes (PERF.md): the layout pass, then a few us a step:
+// the chain is bound by its T dependent steps (a grid barrier, the staging
+// of gg and a run's 64 sequential sums each), not by bytes.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-__global__ void chain_step_kernel(const float* __restrict__ gg,
-                                  const __nv_bfloat16* __restrict__ M,
-                                  const float* __restrict__ fix,
-                                  float* __restrict__ out,
-                                  float* __restrict__ dfix,
-                                  void* __restrict__ gt, int g_bf16, int H,
-                                  int W, int S, int lo) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  const int h = blockIdx.y * blockDim.y + threadIdx.y;
-  if (h >= H || w >= W) return;
-  const long long b = blockIdx.z;
-  const long long HW = (long long)H * W;
-  const float* gb = gg + b * HW;
-  const __nv_bfloat16* mb = M + b * S * S * HW;
+constexpr int kRun = 8;        // pixels a run
+constexpr int kLeft = 8;       // zero columns left of a tile row (>= hi)
+constexpr int kRight = 8;      // zero columns right of a tile row's runs
+constexpr int kMinRuns = 32;   // runs a block, at least
+constexpr int kMaxThreads = 384;  // 170 registers a thread
 
-  float acc = 0.f;
-  for (int iy = 0; iy < S; ++iy) {
-    const int yy = h - (lo + iy);
-    const bool row_in = (unsigned)yy < (unsigned)H;
+__device__ __forceinline__ float lo_bf16(unsigned v) {
+  return __uint_as_float(v << 16);
+}
+__device__ __forceinline__ float hi_bf16(unsigned v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+__device__ __forceinline__ unsigned bf16_bits(float v) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// the 8 values of a run, as 16- or 32-byte stores (vec) or nvalid scalars
+__device__ __forceinline__ void store_run(float* p, const float (&v)[kRun],
+                                          bool vec, int nvalid) {
+  if (vec) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+    for (int k = 0; k < nvalid; ++k) p[k] = v[k];
+  }
+}
+__device__ __forceinline__ void store_run(__nv_bfloat16* p,
+                                          const float (&v)[kRun], bool vec,
+                                          int nvalid) {
+  if (vec) {
+    uint4 q;
+    q.x = bf16_bits(v[0]) | (bf16_bits(v[1]) << 16);
+    q.y = bf16_bits(v[2]) | (bf16_bits(v[3]) << 16);
+    q.z = bf16_bits(v[4]) | (bf16_bits(v[5]) << 16);
+    q.w = bf16_bits(v[6]) | (bf16_bits(v[7]) << 16);
+    *reinterpret_cast<uint4*>(p) = q;
+  } else {
+    for (int k = 0; k < nvalid; ++k) p[k] = __float2bfloat16_rn(v[k]);
+  }
+}
+
+struct ChainArgs {
+  const float* g0;
+  const unsigned short* M;  // (B, S, S, H, W) bf16 bits
+  const float* fix;         // null: no preserve
+  void* G;                  // (T, B, H, W) f32 or bf16
+  float* dfeat;
+  float* dfix;
+  float* tmp;
+  uint4* scratch;  // (S * S, runs) runs' vectors past the resident ones
+  int B, H, W, T;
+  int Rr;      // runs a row
+  int runs;    // B * H * Rr
+  int rpb;     // runs a block
+  int nres;    // runs of a block resident in shared memory
+  int Wt;      // tile row stride, floats: kLeft + Rr * kRun + kRight
+  int tile_rows;  // rows of a block's tile, at most
+};
+
+// 8 bf16 (one 16-byte vector) of a row from element `first` on, zero
+// outside [0, W): scalar loads
+__device__ __forceinline__ uint4 row8_scalar(const unsigned short* row,
+                                             int first, int W) {
+  unsigned e[kRun];
+#pragma unroll
+  for (int k = 0; k < kRun; ++k) {
+    const int ww = first + k;
+    e[k] = (unsigned)ww < (unsigned)W ? __ldg(row + ww) : 0u;
+  }
+  return make_uint4(e[0] | (e[1] << 16), e[2] | (e[3] << 16),
+                    e[4] | (e[5] << 16), e[6] | (e[7] << 16));
+}
+
+// the aligned 16-byte vector of a row at element c (a multiple of 8), zero
+// outside [0, W) (W a multiple of 8: a vector is all in or all out)
+__device__ __forceinline__ uint4 vec8(const unsigned short* row, int c,
+                                      int W) {
+  return (unsigned)c < (unsigned)W
+             ? __ldg(reinterpret_cast<const uint4*>(row + c))
+             : make_uint4(0u, 0u, 0u, 0u);
+}
+
+// the 8 bf16 from half OFF8 on of the 16 halves of (v0, v1)
+template <int OFF8>
+__device__ __forceinline__ uint4 halves8(const uint4& v0, const uint4& v1) {
+  const unsigned w[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+  unsigned o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    constexpr int j = OFF8 / 2;
+    o[i] = (OFF8 % 2 == 0) ? w[j + i]
+                           : __funnelshift_r(w[j + i], w[j + i + 1], 16);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// The pre-shifted masks of a run (pixels w0 .. w0 + 7 of a row) for row iy
+// of the window: M'_s = M_s(h - sy, w0 + k - sx), zero outside the image,
+// for ix = 0 .. S-1, into q; row0 is row h - sy of the plane s = iy * S,
+// the plane of ix lies ix * HW further on. Where W is a multiple of 8
+// (vec), each vector is cut from two aligned 16-byte loads (the
+// neighbouring runs of a warp share them in L1), all 2S issued before the
+// first is used; else 8 scalar loads a vector.
+template <int S, int IX>
+__device__ __forceinline__ void preshift_cut(const uint4 (&v)[2 * S],
+                                             uint4 (&q)[S]) {
+  if constexpr (IX < S) {
+    constexpr int SX = 1 - S / 2 + IX;
+    constexpr int OFF8 = ((-SX) % 8 + 8) % 8;  // -SX = F + OFF8, 8 | F
+    q[IX] = halves8<OFF8>(v[2 * IX], v[2 * IX + 1]);
+    preshift_cut<S, IX + 1>(v, q);
+  }
+}
+
+template <int S>
+__device__ __forceinline__ void preshift_row(const unsigned short* row0,
+                                             long long HW, int w0, int W,
+                                             bool vec, uint4 (&q)[S]) {
+  if (vec) {
+    uint4 v[2 * S];
+#pragma unroll
     for (int ix = 0; ix < S; ++ix) {
-      const int xx = w - (lo + ix);
-      float v = 0.f;
-      if (row_in && (unsigned)xx < (unsigned)W) {
-        const long long q = (long long)yy * W + xx;
-        v = __fmul_rn(__bfloat162float(mb[(long long)(iy * S + ix) * HW + q]),
-                      gb[q]);
+      const int sx = 1 - S / 2 + ix;
+      const int off8 = ((-sx) % 8 + 8) % 8;
+      const int c = w0 - sx - off8;  // a multiple of 8
+      v[2 * ix] = vec8(row0 + ix * HW, c, W);
+      v[2 * ix + 1] = vec8(row0 + ix * HW, c + 8, W);
+    }
+    preshift_cut<S, 0>(v, q);
+  } else {
+#pragma unroll
+    for (int ix = 0; ix < S; ++ix)
+      q[ix] = row8_scalar(row0 + ix * HW, w0 - (1 - S / 2 + ix), W);
+  }
+}
+
+// S: the shift window's side (lo = 1 - S / 2); GT: the G stack's type.
+template <int S, typename GT>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    reverse_chain_kernel(const ChainArgs a) {
+  constexpr int LO = 1 - S / 2;
+  constexpr int HI = LO + S - 1;
+  constexpr int SS = S * S;
+  // the window of a run's row iy: tile columns from w0 + OFF on, loaded as
+  // NV aligned float4 from w0 + A0; pixel k, shift ix reads window
+  // element SKIP + k - ix + S - 1
+  constexpr int OFF = kLeft - HI;
+  constexpr int A0 = OFF & ~3;
+  constexpr int SKIP = OFF - A0;
+  constexpr int NV = (SKIP + kRun + S - 1 + 3) / 4;
+  static_assert(OFF >= 0 && A0 + 4 * NV <= kLeft + kRun + kRight,
+                "the tile's margins are too narrow for S");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* tile = reinterpret_cast<float*>(smem);
+  const int r0 = blockIdx.x * a.rpb;
+  const int r1 = min(r0 + a.rpb, a.runs);
+  const int nrun = r1 - r0;
+  const int gr0 = r0 / a.Rr;
+  const int grA = gr0 - HI;                      // the tile's first row
+  const int nrows = (r1 - 1) / a.Rr - gr0 + S;  // rows the tile holds
+  // the resident runs' vectors, [SS][nres], after the tile (Wt floats is
+  // a multiple of 16 bytes)
+  uint4* Ms = reinterpret_cast<uint4*>(tile + (size_t)a.tile_rows * a.Wt);
+  const int BH = a.B * a.H;
+  const long long HW = (long long)a.H * a.W;
+  const bool vec = (a.W % kRun) == 0;
+
+  // zero the tile columns that no step writes: left and right margins
+  const int margin = a.Wt - a.W;
+  for (int i = threadIdx.x; i < nrows * margin; i += blockDim.x) {
+    const int row = i / margin;
+    const int c = i - row * margin;
+    tile[row * a.Wt + (c < kLeft ? c : a.W + c)] = 0.f;
+  }
+
+  // the pre-shifted masks of the owned runs
+  for (int j = threadIdx.x; j < nrun; j += blockDim.x) {
+    const int r = r0 + j;
+    const int gr = r / a.Rr;
+    const int b = gr / a.H;
+    const int h = gr - b * a.H;
+    const int w0 = (r - gr * a.Rr) * kRun;
+#pragma unroll 1
+    for (int iy = 0; iy < S; ++iy) {
+      const int hh = h - (LO + iy);
+      const int s0 = iy * S;
+      uint4 q[S];
+      if ((unsigned)hh < (unsigned)a.H) {
+        preshift_row<S>(
+            a.M + ((long long)b * SS + s0) * HW + (long long)hh * a.W, HW, w0,
+            a.W, vec, q);
+      } else {
+#pragma unroll
+        for (int ix = 0; ix < S; ++ix) q[ix] = make_uint4(0u, 0u, 0u, 0u);
       }
-      acc = __fadd_rn(acc, v);
+#pragma unroll
+      for (int ix = 0; ix < S; ++ix) {
+        if (j < a.nres)
+          Ms[(s0 + ix) * a.nres + j] = q[ix];
+        else
+          a.scratch[(size_t)(s0 + ix) * a.runs + r] = q[ix];
+      }
     }
   }
-  // the stores come after the sum, and the offset is computed here, not
-  // ahead of the loop, as in the forward chain
-  const long long c = b * HW + (long long)h * W + w;
-  if (g_bf16)
-    static_cast<__nv_bfloat16*>(gt)[c] = __float2bfloat16_rn(gg[c]);
-  else
-    static_cast<float*>(gt)[c] = gg[c];
-  if (fix && fix[c] > 0.f) {
-    dfix[c] = __fadd_rn(dfix[c], acc);
-    acc = 0.f;
+
+  cg::grid_group grid = cg::this_grid();
+  const long long plane = (long long)BH * a.W;
+  const bool vec4 = (a.W % 4) == 0;
+  const float* src = a.g0;
+  for (int i = 0; i < a.T; ++i) {
+    const int t = a.T - 1 - i;
+    float* dst = ((a.T - 1 - i) % 2 == 0) ? a.dfeat : a.tmp;
+    // this step's gg rows, from L2 (other blocks wrote them), a few loads
+    // in flight a thread
+    if (vec4) {
+      const int W4 = a.W >> 2;
+      const int total = nrows * W4;
+      for (int base = threadIdx.x; base < total; base += 4 * blockDim.x) {
+        float4 v[4];
+        int to[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int idx = base + u * blockDim.x;
+          const int row = idx / W4;
+          const int gr = grA + row;
+          to[u] = -1;
+          if (idx < total && gr >= 0 && gr < BH) {
+            const int c4 = idx - row * W4;
+            v[u] = __ldcg(reinterpret_cast<const float4*>(
+                              src + (long long)gr * a.W) + c4);
+            to[u] = row * a.Wt + kLeft + 4 * c4;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (to[u] >= 0) *reinterpret_cast<float4*>(tile + to[u]) = v[u];
+      }
+    } else {
+      const int total = nrows * a.W;
+      for (int base = threadIdx.x; base < total; base += 8 * blockDim.x) {
+        float v[8];
+        int to[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int idx = base + u * blockDim.x;
+          const int row = idx / a.W;
+          const int gr = grA + row;
+          to[u] = -1;
+          if (idx < total && gr >= 0 && gr < BH) {
+            const int c = idx - row * a.W;
+            v[u] = __ldcg(src + (long long)gr * a.W + c);
+            to[u] = row * a.Wt + kLeft + c;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (to[u] >= 0) tile[to[u]] = v[u];
+      }
+    }
+    __syncthreads();
+    GT* Gt = static_cast<GT*>(a.G) + (long long)t * plane;
+    for (int j = threadIdx.x; j < nrun; j += blockDim.x) {
+      const int r = r0 + j;
+      const int gr = r / a.Rr;
+      const int b = gr / a.H;
+      const int h = gr - b * a.H;
+      const int w0 = (r - gr * a.Rr) * kRun;
+      float acc[kRun];
+#pragma unroll
+      for (int k = 0; k < kRun; ++k) acc[k] = 0.f;
+      const float* wrow = tile + (gr - LO - grA) * a.Wt + w0 + A0;
+      // the run's vectors of shift s: resident ones in shared memory, the
+      // rest from the scratch stack (written by this thread, read back from
+      // L2); the next window row's vectors are loaded ahead of the sums
+      const uint4* mv0 = j < a.nres ? Ms + j : a.scratch + r;
+      const size_t mstride = j < a.nres ? (size_t)a.nres : (size_t)a.runs;
+      uint4 mv[S];
+#pragma unroll
+      for (int ix = 0; ix < S; ++ix) mv[ix] = mv0[ix * mstride];
+#pragma unroll
+      for (int iy = 0; iy < S; ++iy) {
+        float win[4 * NV];
+        if ((unsigned)(h - (LO + iy)) < (unsigned)a.H) {
+          const float4* wp =
+              reinterpret_cast<const float4*>(wrow - iy * a.Wt);
+#pragma unroll
+          for (int v = 0; v < NV; ++v) {
+            const float4 f = wp[v];
+            win[4 * v] = f.x;
+            win[4 * v + 1] = f.y;
+            win[4 * v + 2] = f.z;
+            win[4 * v + 3] = f.w;
+          }
+        } else {
+#pragma unroll
+          for (int v = 0; v < 4 * NV; ++v) win[v] = 0.f;
+        }
+        uint4 nx[S];
+        if (iy + 1 < S) {
+#pragma unroll
+          for (int ix = 0; ix < S; ++ix)
+            nx[ix] = mv0[((iy + 1) * S + ix) * mstride];
+        }
+#pragma unroll
+        for (int ix = 0; ix < S; ++ix) {
+          const float m[kRun] = {lo_bf16(mv[ix].x), hi_bf16(mv[ix].x),
+                                 lo_bf16(mv[ix].y), hi_bf16(mv[ix].y),
+                                 lo_bf16(mv[ix].z), hi_bf16(mv[ix].z),
+                                 lo_bf16(mv[ix].w), hi_bf16(mv[ix].w)};
+#pragma unroll
+          for (int k = 0; k < kRun; ++k)
+            acc[k] = __fadd_rn(acc[k],
+                               __fmul_rn(m[k], win[SKIP + k - ix + S - 1]));
+        }
+        if (iy + 1 < S) {
+#pragma unroll
+          for (int ix = 0; ix < S; ++ix) mv[ix] = nx[ix];
+        }
+      }
+      const int nvalid = min(kRun, a.W - w0);
+      const long long c = (long long)gr * a.W + w0;
+      const float* own = tile + (gr - grA) * a.Wt + kLeft + w0;
+      float g[kRun];
+#pragma unroll
+      for (int k = 0; k < kRun; ++k) g[k] = own[k];
+      store_run(Gt + c, g, vec, nvalid);
+      if (a.fix) {
+        for (int k = 0; k < nvalid; ++k) {
+          if (a.fix[c + k] > 0.f) {
+            a.dfix[c + k] = __fadd_rn(a.dfix[c + k], acc[k]);
+            acc[k] = 0.f;
+          }
+        }
+      }
+      store_run(dst + c, acc, vec, nvalid);
+    }
+    if (i + 1 < a.T) grid.sync();  // the plane is whole; the tile is free
+    src = dst;
   }
-  out[c] = acc;
+}
+
+// The chain's launch: the plan of blocks, threads and shared memory from
+// the card's SM count and shared memory, then one cooperative launch.
+template <int S, typename GT>
+int launch_chain(ChainArgs a, cudaStream_t stream) {
+  auto k = reverse_chain_kernel<S, GT>;
+  int dev = 0, sms = 0, smem_max = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&smem_max,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = (a.runs + kMinRuns - 1) / kMinRuns;
+  if (blocks > sms) blocks = sms;
+  a.rpb = (a.runs + blocks - 1) / blocks;
+  blocks = (a.runs + a.rpb - 1) / a.rpb;
+  int threads = (a.rpb + 31) / 32 * 32;
+  if (threads > kMaxThreads) threads = kMaxThreads;
+  // rows that rpb consecutive runs can span, and the halo
+  a.tile_rows = (a.rpb + a.Rr - 2) / a.Rr + 1 + S - 1;
+  const size_t tile = (size_t)a.tile_rows * a.Wt * sizeof(float);
+  const size_t run_bytes = (size_t)S * S * sizeof(uint4);
+  if (tile > (size_t)smem_max) return (int)cudaErrorInvalidValue;
+  size_t nres = ((size_t)smem_max - tile) / run_bytes;
+  if (nres > (size_t)a.rpb) nres = a.rpb;
+  a.nres = (int)nres;
+  const size_t smem = tile + nres * run_bytes;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // no fallback: a grid the card cannot hold at once is refused here
+  e = cudaLaunchKernelEx(&cfg, k, a);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <typename GT>
+int launch_s(const ChainArgs& a, int S, cudaStream_t stream) {
+  switch (S) {
+    case 4: return launch_chain<4, GT>(a, stream);
+    case 6: return launch_chain<6, GT>(a, stream);
+    case 8: return launch_chain<8, GT>(a, stream);
+    case 10: return launch_chain<10, GT>(a, stream);
+    case 12: return launch_chain<12, GT>(a, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // g0, dfeat, tmp: (B, H, W) f32; M: (B, S, S, H, W) bf16; G: (T, B, H, W),
 // f32 (g_bf16 = 0) or bf16; fix, dfix: (B, H, W) f32, both null without
-// preserve, dfix zeroed by the caller; all contiguous. Runs T >= 1 steps,
-// the last one writing dfeat (tmp is the other plane of the ping-pong).
-// Returns the first failing launch's cudaError_t, else 0.
+// preserve, dfix zeroed by the caller; scratch: S * S * B * H * ceil(W / 8)
+// 16-byte vectors, 16-byte aligned; all contiguous. S is 4, 6, 8, 10 or 12 and
+// lo = 1 - S / 2 (the shift window of a clamp radius R = S / 2 - 2).
+// Runs T >= 1 steps in one cooperative launch, the last writing dfeat (tmp
+// is the other plane of the ping-pong). A block's tile of gg rows (its
+// rows of runs, about B * H / SMs, and S - 1 of halo, (W + 16) * 4 bytes a
+// row) must fit in its shared memory: on a 132-SM H100, 19 KB at
+// 4 x 224 x 304, S = 8, but 245 KB, past the 227 KB a block may have, at
+// 16 x 352 x 1216; a plane past that is refused (cudaErrorInvalidValue).
+// Returns the launch's cudaError_t.
 extern "C" int nlspn_reverse_chain(const void* g0, const void* M,
                                    const void* fix, void* G, void* dfeat,
-                                   void* dfix, void* tmp, int g_bf16, int B,
-                                   int H, int W, int S, int lo, int T,
-                                   void* stream) {
+                                   void* dfix, void* tmp, void* scratch,
+                                   int g_bf16, int B, int H, int W, int S,
+                                   int lo, int T, void* stream) {
+  if (T < 1 || lo != 1 - S / 2 || S % 2) return (int)cudaErrorInvalidValue;
+  ChainArgs a = {};
+  a.g0 = static_cast<const float*>(g0);
+  a.M = static_cast<const unsigned short*>(M);
+  a.fix = static_cast<const float*>(fix);
+  a.G = G;
+  a.dfeat = static_cast<float*>(dfeat);
+  a.dfix = static_cast<float*>(dfix);
+  a.tmp = static_cast<float*>(tmp);
+  a.scratch = static_cast<uint4*>(scratch);
+  a.B = B;
+  a.H = H;
+  a.W = W;
+  a.T = T;
+  a.Rr = (W + kRun - 1) / kRun;
+  a.runs = B * H * a.Rr;
+  a.Wt = kLeft + a.Rr * kRun + kRight;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 block(32, 8);
-  const dim3 grid((W + 31) / 32, (H + 7) / 8, B);
-  const long long plane = (long long)B * H * W * (g_bf16 ? 2 : 4);
-  const float* src = static_cast<const float*>(g0);
-  for (int i = 0; i < T; ++i) {
-    const int t = T - 1 - i;
-    float* dst = static_cast<float*>(((T - 1 - i) % 2 == 0) ? dfeat : tmp);
-    chain_step_kernel<<<grid, block, 0, st>>>(
-        src, static_cast<const __nv_bfloat16*>(M),
-        static_cast<const float*>(fix), dst, static_cast<float*>(dfix),
-        static_cast<char*>(G) + t * plane, g_bf16, H, W, S, lo);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    src = dst;
-  }
-  return 0;
+  return g_bf16 ? launch_s<__nv_bfloat16>(a, S, st)
+                : launch_s<float>(a, S, st);
 }
 
 extern "C" const char* error_string(int code) {

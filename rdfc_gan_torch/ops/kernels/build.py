@@ -57,13 +57,15 @@ _SIGNATURES = {
             [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
     "nlspn_reverse_chain": {
         "nlspn_reverse_chain":
-            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
+            [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+             _P]},
     "shift_correlation": {
         "shift_correlation":
             [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
     "instance_norm": {
         "instance_norm_fwd": [_P, _P, _P, _I, _I, ctypes.c_float, _I, _P],
         "instance_norm_fwd_plan": [_I, _I, _P],
+        "instance_norm_bwd_plan": [_I, _I, _P],
         "instance_norm_bwd": [_P, _P, _P, _P, _I, _I, _I, _P]},
     "conv_block": {
         "conv3x3_fwd": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -25,6 +25,8 @@ from . import build, mask_kernel
 NAME = "nlspn_propagate"
 NAME_X = "nlspn_propagate_x"
 CHAIN = "nlspn_reverse_chain"
+# the shift windows S the reverse chain kernel is built for (R = 0..4)
+CHAIN_WINDOWS = (4, 6, 8, 10, 12)
 
 
 def _stack_dtype(M: torch.Tensor) -> torch.dtype:
@@ -91,29 +93,42 @@ def reverse_chain(g0: torch.Tensor, M16: torch.Tensor,
                   g_dtype: torch.dtype
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Reverse gradient chain (TPU ``_pallas_reverse_chain``). g0, fix:
-    (B, H, W) f32; M16: (B, S, S, H, W) bf16. Returns (G (T, B, H, W) in
-    ``g_dtype``, dfeat, dfix), the last two (B, H, W) f32 (dfix zero
-    without preserve). A CPU tensor takes the plain version; any other
-    launches the CUDA kernel (``prop_time`` launches) or raises."""
+    (B, H, W) f32; M16: (B, S, S, H, W) bf16, S = 4, 6, 8, 10 or 12.
+    Returns (G (T, B, H, W) in ``g_dtype``, dfeat, dfix), the last two
+    (B, H, W) f32 (dfix zero without preserve). A CPU tensor takes the
+    plain version; any other launches the CUDA kernel (one cooperative
+    launch for the chain) or raises. The kernel refuses (raises for) a
+    plane whose block tile of gradient rows passes a block's shared
+    memory: about B * H / 132 + S rows of (W + 16) * 4 bytes on an H100,
+    19 KB at 4x224x304 but 245 KB, past 227 KB, at 16x352x1216."""
     if g0.device.type == "cpu":
         return reverse_chain_plain(g0, M16, fix, prop_time, R, g_dtype)
     lib = build.library(CHAIN)
     lo, S = _check_planes(CHAIN, g0, M16, fix, R)
     if g_dtype not in (torch.float32, torch.bfloat16) or prop_time < 1:
         raise ValueError(f"{CHAIN}: g_dtype f32/bf16 and prop_time >= 1")
+    if S not in CHAIN_WINDOWS:
+        raise ValueError(f"{CHAIN}: a shift window of {S} (R={R}) is not "
+                         f"one of {CHAIN_WINDOWS}")
     B, H, W = g0.shape
+    # the kernel reads g0's rows and M's planes as 16-byte vectors
+    g0, M16 = (t.clone() if t.data_ptr() % 16 else t for t in (g0, M16))
     G = torch.empty((prop_time, B, H, W), dtype=g_dtype, device=g0.device)
     dfeat = torch.empty_like(g0)
     dfix = torch.zeros_like(g0)
     tmp = torch.empty_like(g0) if prop_time > 1 else dfeat
+    # the pre-shifted stack of the runs that stay out of shared memory:
+    # S * S 16-byte vectors (8 bf16) a run of 8 pixels
+    scratch = torch.empty((S * S * B * H * -(-W // 8) * 8,),
+                          dtype=torch.bfloat16, device=g0.device)
     rc = lib.nlspn_reverse_chain(
         g0.data_ptr(), M16.data_ptr(), None if fix is None else fix.data_ptr(),
         G.data_ptr(), dfeat.data_ptr(),
         None if fix is None else dfix.data_ptr(), tmp.data_ptr(),
-        int(g_dtype == torch.bfloat16), B, H, W, S, lo, prop_time,
-        build.stream_handle())
+        scratch.data_ptr(), int(g_dtype == torch.bfloat16), B, H, W, S, lo,
+        prop_time, build.stream_handle())
     build.check(lib, CHAIN, rc)
-    build.LAUNCHES[CHAIN] += prop_time
+    build.LAUNCHES[CHAIN] += 1
     return G, dfeat, dfix
 
 

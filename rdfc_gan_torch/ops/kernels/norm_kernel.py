@@ -20,10 +20,11 @@ counterpart here.
 
 The plain versions sum in their kernel's order, divide as IEEE does and
 take a correctly rounded rsqrt, as the kernels do, so the two agree bit for
-bit. The two kernels sum in different orders: the forward by ``fwd_plan``
-(vectors, thread block clusters and several planes a block,
-``_fwd_sum``), the backward by one block a plane (``bwd_block_threads``,
-``_block_sum``, which the f32 conv-block kernels share).
+bit. Both kernels cut a plane by one rule (``_plan``: vectors, thread block
+clusters and several planes a block), the forward staging x
+(``fwd_plan``, ``_fwd_sum``), the backward dy and y (``bwd_plan``,
+``_bwd_sum``). ``_block_sum`` (one block a plane, ``bwd_block_threads``)
+is the f32 conv-block kernels' order.
 """
 
 from __future__ import annotations
@@ -42,19 +43,20 @@ BWD = "instance_norm_bwd"
 _FLOATS = (torch.float32, torch.bfloat16)
 
 
-# the forward's plan (instance_norm.cu:fwd_plan and its constants)
-FWD_STAGE_BYTES = 40 * 1024
-FWD_MAX_STAGE_BYTES = 200 * 1024
-FWD_MAX_CLUSTER = 8
-FWD_BLOCK_THREADS = 256
-FWD_MAX_TEAM = 512
-FWD_STEPS = 8
+# the plan (instance_norm.cu:plan and its constants)
+STAGE_BYTES = 40 * 1024
+MAX_STAGE_BYTES = 200 * 1024
+MAX_CLUSTER = 8
+WIDE_CLUSTER = 16
+BLOCK_THREADS = 256
+MAX_TEAM = 512
+STEPS = 8
 
 
-class FwdPlan(NamedTuple):
-    """How the forward kernel cuts a plane: ``vec`` elements a vector,
-    ``cluster`` blocks a plane, ``cvec`` vectors a block's chunk, ``team``
-    threads a chunk, ``teams`` planes a block."""
+class Plan(NamedTuple):
+    """How a kernel cuts a plane: ``vec`` elements a vector, ``cluster``
+    blocks a plane, ``cvec`` vectors a block's chunk, ``team`` threads a
+    chunk, ``teams`` planes a block."""
     vec: int
     cluster: int
     cvec: int
@@ -63,36 +65,50 @@ class FwdPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def fwd_plan(n: int, itemsize: int) -> FwdPlan:
-    """The forward's partition of a plane of n values of ``itemsize`` bytes
-    (instance_norm.cu:fwd_plan): the widest vector of at most 16 bytes
-    whose width divides n; a cluster of 2-8 blocks where the plane exceeds
-    ``FWD_STAGE_BYTES``; about ``FWD_STEPS`` vectors a thread."""
+def _plan(n: int, itemsize: int, arrays: int) -> Plan:
+    """The partition of a plane of n values of ``itemsize`` bytes of which a
+    block stages ``arrays`` arrays (instance_norm.cu:plan): the widest
+    vector of at most 16 bytes whose width divides n; a cluster of 2-8
+    blocks where the staged arrays exceed ``STAGE_BYTES``, of 16 where 8
+    blocks cannot stage them; about ``STEPS`` vectors a thread."""
     vec = 16 // itemsize
     while n % vec:
         vec //= 2
     cluster = 1
-    while cluster < FWD_MAX_CLUSTER and n * itemsize > cluster * \
-            FWD_STAGE_BYTES:
+    while cluster < MAX_CLUSTER and n * itemsize * arrays > cluster * \
+            STAGE_BYTES:
         cluster *= 2
     cvec = -(-(n // vec) // cluster)
+    if arrays * cvec * vec * itemsize > MAX_STAGE_BYTES and \
+            cluster == MAX_CLUSTER:
+        cluster = WIDE_CLUSTER  # what 8 blocks cannot stage
+        cvec = -(-(n // vec) // cluster)
     team = 32
-    while team < FWD_MAX_TEAM and 2 * team * FWD_STEPS <= cvec:
+    while team < MAX_TEAM and 2 * team * STEPS <= cvec:
         team *= 2
-    teams = 1 if cluster > 1 else max(1, FWD_BLOCK_THREADS // team)
-    return FwdPlan(vec, cluster, cvec, team, teams)
+    teams = 1 if cluster > 1 else max(1, BLOCK_THREADS // team)
+    return Plan(vec, cluster, cvec, team, teams)
 
 
-def _fwd_sum(v: torch.Tensor, itemsize: int) -> torch.Tensor:
-    """Sum of each (B, C) plane of ``v`` in the forward kernel's order and
-    type, for elements of ``itemsize`` bytes (``fwd_plan``): cluster rank r
-    takes vectors [r cvec, (r + 1) cvec); its thread t adds vectors t,
-    t + team, ... into one accumulator per vector lane, in turn; the lanes
-    are added in order, the warp by xor shuffles over 16, 8, 4, 2, 1 lanes,
-    the team's warps in order, the ranks in order. Returns (B, C)."""
+def fwd_plan(n: int, itemsize: int) -> Plan:
+    """The forward's plan: it stages x."""
+    return _plan(n, itemsize, 1)
+
+
+def bwd_plan(n: int, itemsize: int) -> Plan:
+    """The backward's plan: it stages dy and y."""
+    return _plan(n, itemsize, 2)
+
+
+def _plan_sum(v: torch.Tensor, p: Plan) -> torch.Tensor:
+    """Sum of each (B, C) plane of ``v`` in the order of plan ``p``, in
+    v's type: cluster rank r takes vectors [r cvec, (r + 1) cvec); its
+    thread t adds vectors t, t + team, ... into one accumulator per vector
+    lane, in turn; the lanes are added in order, the warp by xor shuffles
+    over 16, 8, 4, 2, 1 lanes, the team's warps in order, the ranks in
+    order. Returns (B, C)."""
     B, C, H, W = v.shape
     n = H * W
-    p = fwd_plan(n, itemsize)
     steps = -(-p.cvec // p.team)
     # zeros past the plane (or a rank's chunk) add nothing to a sum
     v = F.pad(v.reshape(B * C, n), (0, p.cluster * p.cvec * p.vec - n))
@@ -119,18 +135,29 @@ def _fwd_sum(v: torch.Tensor, itemsize: int) -> torch.Tensor:
     return total.reshape(B, C)
 
 
+def _fwd_sum(v: torch.Tensor, itemsize: int) -> torch.Tensor:
+    """Sum of each plane of ``v`` in the forward kernel's order, for
+    elements of ``itemsize`` bytes."""
+    return _plan_sum(v, fwd_plan(v.shape[2] * v.shape[3], itemsize))
+
+
+def _bwd_sum(v: torch.Tensor, itemsize: int) -> torch.Tensor:
+    """Sum of each plane of ``v`` in the backward kernel's order, for
+    elements of ``itemsize`` bytes."""
+    return _plan_sum(v, bwd_plan(v.shape[2] * v.shape[3], itemsize))
+
+
 def bwd_block_threads(n: int) -> int:
-    """Threads of the backward kernel's block for a plane of n values
-    (instance_norm.cu:threads_for)."""
+    """Threads of the f32 conv-block kernels' block for a plane of n values
+    (conv_block.cu:threads_for)."""
     return 128 if n <= 1024 else 256 if n <= 4096 else 512
 
 
 def _block_sum(v: torch.Tensor) -> torch.Tensor:
-    """Sum of each (B, C) plane of ``v`` in the backward kernel's order and
-    type (one block a plane; the f32 conv-block kernels' order too):
-    thread t adds elements t, t + T, ... in turn; each warp adds by xor
-    shuffles over 16, 8, 4, 2, 1 lanes; the warp sums are added in order.
-    Returns (B, C)."""
+    """Sum of each (B, C) plane of ``v`` in the f32 conv-block kernels'
+    order and type (one block a plane): thread t adds elements t, t + T,
+    ... in turn; each warp adds by xor shuffles over 16, 8, 4, 2, 1 lanes;
+    the warp sums are added in order. Returns (B, C)."""
     B, C, H, W = v.shape
     n = H * W
     T = bwd_block_threads(n)
@@ -176,12 +203,13 @@ def instance_norm_fwd_plain(x: torch.Tensor, eps: float
 def instance_norm_bwd_plain(dy: torch.Tensor, y: torch.Tensor,
                             a: torch.Tensor) -> torch.Tensor:
     """The JAX ``_instance_norm_bwd``: f32 reductions (the product in f32),
-    the combination in dy's type with the statistics rounded once."""
+    the combination in dy's type with the statistics rounded once; the sums
+    in the backward kernel's order."""
     dt = dy.dtype
-    n = dy.shape[2] * dy.shape[3]
-    m1 = _mean(_block_sum(dy.double()), n)[:, :, None, None].to(dt)
-    m2 = _mean(_block_sum(dy.double() * y.double()), n)[:, :, None,
-                                                         None].to(dt)
+    n, size = dy.shape[2] * dy.shape[3], dy.element_size()
+    m1 = _mean(_bwd_sum(dy.double(), size), n)[:, :, None, None].to(dt)
+    m2 = _mean(_bwd_sum(dy.double() * y.double(), size), n)[:, :, None,
+                                                             None].to(dt)
     return a[:, :, None, None].to(dt) * (dy - m1 - y * m2)
 
 
@@ -196,6 +224,20 @@ def _check(name, *tensors):
             raise ValueError(f"{name}: inputs must share one shape and type")
 
 
+def _check_stage(name, p: Plan, arrays: int, H: int, W: int, itemsize: int):
+    """Raise where a block's stage of ``arrays`` arrays passes
+    ``MAX_STAGE_BYTES`` (instance_norm.cu:launch_planned refuses it)."""
+    if arrays * p.teams * p.cvec * p.vec * itemsize > MAX_STAGE_BYTES:
+        raise ValueError(f"{name}: a {H}x{W} plane exceeds a cluster of "
+                         f"{WIDE_CLUSTER} staged blocks")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where it does not start on 16 bytes: the
+    kernels' vectors start at the tensor."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def instance_norm_fwd(x: torch.Tensor, eps: float
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, C, H, W) f32 or bf16. Returns (y in x.dtype, a (B, C) f32)."""
@@ -204,12 +246,9 @@ def instance_norm_fwd(x: torch.Tensor, eps: float
     lib = build.library(SOURCE)
     _check(FWD, x)
     B, C, H, W = x.shape
-    p = fwd_plan(H * W, x.element_size())
-    if p.teams * p.cvec * p.vec * x.element_size() > FWD_MAX_STAGE_BYTES:
-        raise ValueError(f"{FWD}: a {H}x{W} plane exceeds the forward's "
-                         f"cluster of {FWD_MAX_CLUSTER} staged blocks")
-    if x.data_ptr() % 16:  # the kernel's vectors start at x
-        x = x.clone()
+    _check_stage(FWD, fwd_plan(H * W, x.element_size()), 1, H, W,
+                 x.element_size())
+    x = _aligned(x)
     y = torch.empty_like(x)
     a = torch.empty((B, C), dtype=torch.float32, device=x.device)
     rc = lib.instance_norm_fwd(x.data_ptr(), y.data_ptr(), a.data_ptr(),
@@ -233,6 +272,9 @@ def instance_norm_bwd(dy: torch.Tensor, y: torch.Tensor,
     B, C, H, W = dy.shape
     if tuple(a.shape) != (B, C) or a.dtype != torch.float32:
         raise ValueError(f"{BWD}: a must be (B, C) f32")
+    _check_stage(BWD, bwd_plan(H * W, dy.element_size()), 2, H, W,
+                 dy.element_size())
+    dy, y = _aligned(dy), _aligned(y)
     dx = torch.empty_like(dy)
     rc = lib.instance_norm_bwd(dy.data_ptr(), y.data_ptr(), a.data_ptr(),
                                dx.data_ptr(), B * C, H * W,

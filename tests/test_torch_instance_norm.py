@@ -6,11 +6,12 @@ JAX custom VJP and through its autodiff), at planes that include the
 served 14x19, an odd 17x23 and one that the forward kernel splits over a
 thread block cluster, eps 1e-5 and 1e-3, f32 and bf16; the plain versions
 against the retired TPU kernels (attic/norm_kernel.py) in Pallas interpret
-mode.
+mode, also at planes that the port's kernels split over a thread block
+cluster.
 Inputs come from numpy seeds. The kernel-vs-plain checks at the end need a
 CUDA card and skip here; they import nothing of the JAX package, so they
 also run where flax is missing. The plain versions sum in their kernel's
-order (the forward by ``fwd_plan``, the backward one block a plane), so
+order (the forward by ``fwd_plan``, the backward by ``bwd_plan``), so
 those checks are exact.
 
 Tolerances. f32: rtol 1e-3 / atol 1e-4, the port's default; the sums run
@@ -192,6 +193,29 @@ def test_plain_forward_matches_retired_tpu_kernel_past_a_block(
     np.testing.assert_allclose(a.numpy(), np.asarray(aj), rtol=1e-5)
 
 
+@pytest.mark.parametrize("dt", [F32, BF16])
+def test_plain_backward_matches_retired_tpu_kernel_past_a_block(
+        pallas_interpret, monkeypatch, dt):
+    """The plain backward against the TPU backward kernel at a full-width
+    G_B2A plane, which the port's backward kernel splits over a cluster of
+    eight blocks. The retired kernel plans against a TPU VMEM budget (a
+    lane-padded 224x304 plane does not fit the default); interpret mode
+    has no VMEM, so the test raises the budget through the kernel's own
+    knob."""
+    from attic import norm_kernel as ak
+
+    monkeypatch.setenv("RDFC_PALLAS_IN_VMEM_MB", "256")
+    shape = (1, 2, 224, 304)
+    assert nk.bwd_plan(224 * 304, torch.finfo(dt).bits // 8).cluster == 8
+    x, dy = _x(shape, 9), _x(shape, 10, 1.0, 0.0)
+    y, a = nk.instance_norm_fwd_plain(torch.from_numpy(x).to(dt), 1e-5)
+    dyt = torch.from_numpy(dy).to(dt)
+    dx = nk.instance_norm_bwd_plain(dyt, y, a)
+    dxj = ak.instance_norm_bwd_pallas(_nhwc(dy, dt), _nhwc(
+        y.float().numpy(), dt), jnp.asarray(a.numpy()), 1)
+    _close(dx.float().numpy(), _nchw(dxj), dt)
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -206,9 +230,10 @@ def _warp_tree(part):
 
 
 def test_plain_sums_in_the_kernel_order():
-    """The backward's plain statistics follow its kernel's reduction
-    (strided f64 thread sums, xor-shuffle warp trees, warp sums in order)
-    at every block size, and agree with an exact sum to f64 rounding."""
+    """``_block_sum``, the f32 conv-block kernels' reduction (strided f64
+    thread sums, xor-shuffle warp trees, warp sums in order; the IN
+    backward's until it took ``bwd_plan``), follows that order at every
+    block size, and agrees with an exact sum to f64 rounding."""
     for n, threads in ((15, 128), (266, 128), (1064, 256), (4096, 256),
                        (4256, 512), (17024, 512)):
         assert nk.bwd_block_threads(n) == threads
@@ -240,21 +265,13 @@ FWD_PLANS = [
 ]
 
 
-@pytest.mark.parametrize("n_size,plan", FWD_PLANS,
-                         ids=[f"{n}x{s}B" for (n, s), _ in FWD_PLANS])
-def test_plain_fwd_sums_in_the_kernel_order(n_size, plan):
-    """The forward's plain statistics follow its kernel's partition
-    (``fwd_plan``: cluster ranks over contiguous chunks; in a chunk,
-    thread t adds vectors t, t + team, ... with one accumulator a lane;
-    lanes, then the warp's xor tree, then the team's warps, then the ranks,
-    each in order), written out here in Python floats, and agree with an
-    exact sum to f64 rounding."""
-    n, size = n_size
-    p = nk.fwd_plan(n, size)
-    assert tuple(p) == plan
-    v = torch.from_numpy(_x((2, 3, 1, n), n, 1.0, 0.5)).double()
-    got = nk._fwd_sum(v, size)
-    vals = v[0, 0, 0].tolist()
+def _sum_in_plan_order(vals, p):
+    """The sum of ``vals`` in the order of plan ``p``, in Python floats:
+    cluster ranks over contiguous chunks; in a chunk, thread t adds
+    vectors t, t + team, ... with one accumulator a lane; lanes, then the
+    warp's xor tree, then the team's warps, then the ranks, each in
+    order."""
+    n = len(vals)
     want = 0.0
     for r in range(p.cluster):
         part = []
@@ -274,15 +291,75 @@ def test_plain_fwd_sums_in_the_kernel_order(n_size, plan):
         for w in range(1, p.team // 32):
             rank += _warp_tree(part[32 * w:32 * w + 32])
         want = rank if r == 0 else want + rank
-    assert float(got[0, 0]) == want
+    return want
+
+
+@pytest.mark.parametrize("n_size,plan", FWD_PLANS,
+                         ids=[f"{n}x{s}B" for (n, s), _ in FWD_PLANS])
+def test_plain_fwd_sums_in_the_kernel_order(n_size, plan):
+    """The forward's plain statistics follow its kernel's partition
+    (``fwd_plan``: cluster ranks over contiguous chunks; in a chunk,
+    thread t adds vectors t, t + team, ... with one accumulator a lane;
+    lanes, then the warp's xor tree, then the team's warps, then the ranks,
+    each in order), written out here in Python floats, and agree with an
+    exact sum to f64 rounding."""
+    n, size = n_size
+    p = nk.fwd_plan(n, size)
+    assert tuple(p) == plan
+    v = torch.from_numpy(_x((2, 3, 1, n), n, 1.0, 0.5)).double()
+    got = nk._fwd_sum(v, size)
+    assert float(got[0, 0]) == _sum_in_plan_order(v[0, 0, 0].tolist(), p)
     np.testing.assert_allclose(got.numpy(), v.sum((2, 3)).numpy(),
                                rtol=1e-12)
+
+
+# (n, itemsize) -> the backward's plan (it stages dy and y): G_B2A's bf16
+# planes (a cluster of eight, of two; four planes a block), its f32
+# 64-channel plane (a cluster of eight), the W-AdaIN 14x19 (8 planes a
+# block, 4-byte bf16 vectors), odd planes (scalars: one block of 512
+# threads a plane; a cluster of four with a short last rank; a warp a
+# plane), a 480x640 f32 plane (past what eight blocks stage: sixteen)
+BWD_PLANS = [
+    ((68096, 2), (8, 8, 1064, 128, 1)), ((17024, 2), (8, 2, 1064, 128, 1)),
+    ((4256, 2), (8, 1, 532, 64, 4)), ((68096, 4), (4, 8, 2128, 256, 1)),
+    ((266, 2), (2, 1, 133, 32, 8)), ((4097, 2), (1, 1, 4097, 512, 1)),
+    ((12001, 4), (1, 4, 3001, 256, 1)), ((391, 4), (1, 1, 391, 32, 8)),
+    ((307200, 4), (4, 16, 4800, 512, 1)),
+]
+
+
+@pytest.mark.parametrize("n_size,plan", BWD_PLANS,
+                         ids=[f"{n}x{s}B" for (n, s), _ in BWD_PLANS])
+def test_plain_bwd_sums_in_the_kernel_order(n_size, plan):
+    """The backward's plain statistics follow its kernel's partition
+    (``bwd_plan``: the forward's rule with dy and y staged), in the order
+    written out in Python floats, and agree with an exact sum to f64
+    rounding; both of its sums (dy, and dy * y) take that order."""
+    n, size = n_size
+    p = nk.bwd_plan(n, size)
+    assert tuple(p) == plan
+    v = torch.from_numpy(_x((2, 3, 1, n), n, 1.0, 0.5)).double()
+    got = nk._bwd_sum(v, size)
+    assert float(got[0, 0]) == _sum_in_plan_order(v[0, 0, 0].tolist(), p)
+    np.testing.assert_allclose(got.numpy(), v.sum((2, 3)).numpy(),
+                               rtol=1e-12)
+    # the plain f32 backward's statistics are these sums over n, rounded
+    dy = torch.from_numpy(_x((1, 1, 1, n), n + 1, 1.0, 0.0))
+    y = torch.from_numpy(_x((1, 1, 1, n), n + 2, 1.0, 0.0))
+    a = torch.ones((1, 1))
+    m1 = nk._mean(nk._bwd_sum(dy.double(), 4), n)
+    m2 = nk._mean(nk._bwd_sum(dy.double() * y.double(), 4), n)
+    want = a[0, 0] * (dy - m1[0, 0] - y * m2[0, 0])
+    torch.testing.assert_close(nk.instance_norm_bwd_plain(dy, y, a), want,
+                               rtol=0, atol=0)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(4, 512, 14, 19), (4, 192, 112, 152),
                                    (2, 7, 3, 5), (2, 64, 224, 304),
-                                   (4, 3, 17, 23)])
+                                   (4, 3, 17, 23), (2, 256, 56, 76),
+                                   (2, 3, 17, 241), (1, 2, 11, 1091),
+                                   (1, 2, 480, 640)])
 @pytest.mark.parametrize("dt", [F32, BF16])
 def test_kernels_match_plain_on_card(shape, dt):
     _card()
@@ -316,3 +393,22 @@ def test_fwd_plan_matches_the_kernel_on_card():
         for size in (2, 4):
             lib.instance_norm_fwd_plan(n, size, out)
             assert tuple(out) == tuple(nk.fwd_plan(n, size)), (n, size)
+
+
+@pytest.mark.gpu
+def test_bwd_plan_matches_the_kernel_on_card():
+    """``bwd_plan`` mirrors instance_norm.cu:bwd_plan, at the plans of
+    ``BWD_PLANS`` and at every plane size up to 3000 and a sweep past."""
+    import ctypes
+
+    from rdfc_gan_torch.ops.kernels import build
+
+    _card()
+    lib = build.library(nk.SOURCE)
+    out = (ctypes.c_int * 5)()
+    sizes = [n for (n, _), _ in BWD_PLANS] + list(range(1, 3001)) + list(
+        range(3001, 420000, 997))
+    for n in sizes:
+        for size in (2, 4):
+            lib.instance_norm_bwd_plan(n, size, out)
+            assert tuple(out) == tuple(nk.bwd_plan(n, size)), (n, size)

@@ -416,3 +416,39 @@ def test_backward_chain_kernels_match_plain_on_card(R, preserve, dt):
     for a, b in ((out, pout), (X, pX), (G, pG), (dfeat, pdfeat),
                  (dfix, pdfix), (dM, pdM)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# (R, T, (B, H, W), preserve): one step; an odd plane (no vector store;
+# rows end inside a run); S=10 and S=12 with preserve; and three planes
+# whose runs overflow a block's shared memory on an H100 (227 KB a block,
+# 132 blocks), so the rest of the pre-shifted stack is read back from the
+# scratch stack every step: the train step's 4x224x304 at S=8 (208 of 258
+# runs a block resident) and S=10 (131 of 258), and a tall odd plane,
+# 1x4000x61 at S=8 (214 of 243)
+CHAIN_CASES = [(2, 1, (2, 8, 9), False), (2, 5, (2, 17, 23), True),
+               (2, 18, (4, 224, 304), False), (3, 6, (4, 224, 304), True),
+               (4, 3, (1, 17, 23), True), (1, 4, (3, 9, 16), False),
+               (2, 4, (1, 4000, 61), True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,T_,shape,preserve", CHAIN_CASES)
+@pytest.mark.parametrize("dt", [F32, BF16])
+def test_reverse_chain_kernel_matches_plain_on_card(R, T_, shape, preserve,
+                                                    dt):
+    """Bit for bit: G, dfeat and dfix of the one-launch chain against
+    ``reverse_chain_plain``, f32 and bf16 G."""
+    _card()
+    _, S = _window(R)
+    r = np.random.RandomState(20 + R)
+    g0 = torch.from_numpy(r.normal(size=shape).astype(np.float32)).cuda()
+    M16 = torch.from_numpy((r.normal(size=(shape[0], S, S) + shape[1:])
+                            * 0.2).astype(np.float32)).to(BF16).cuda()
+    fix = torch.from_numpy((np.abs(r.normal(size=shape))
+                            * (r.random_sample(shape) > 0.4)).astype(
+        np.float32)).cuda() if preserve else None
+    got = tnk.reverse_chain(g0, M16, fix, T_, R, dt)
+    want = tst.reverse_chain_plain(g0, M16, fix, T_, R, dt)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -207,7 +207,7 @@ def test_kernel_results_carry_grad_fn(monkeypatch):
     assert w.grad is not None and feat.grad is not None
     assert dict(build.LAUNCHES) == {
         "shift_mask_scatter": 1, "nlspn_propagate_x": T,
-        "nlspn_reverse_chain": T, "shift_correlation": 1,
+        "nlspn_reverse_chain": 1, "shift_correlation": 1,
         "shift_mask_gather": 1}
     with torch.no_grad():  # no gradient wanted: the served chain
         nlspn_kernel.nlspn_stencil_propagate(feat, M.reshape(B, S, S, H, W),
