@@ -9,8 +9,10 @@ and PyTorch built for CUDA. It
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes of the NLSPN serving and training paths (B=4, 224x304, T=18;
    S=8 and 10; preserve off and on; f32 and bf16 stacks), and times both;
-   the reverse chain also by its device time a chain and a step, and with
-   no run of the mask stack kept in shared memory (whether L2 holds it);
+   the three chain kernels (each one cooperative launch a chain) also by
+   their device time a chain and a step; the forward chains also at a
+   plane they take in bands of rows (16x352x1216), and their launch plan's
+   Python mirror against the kernel's own;
 3. serves ``configs/rdf_gan_nlspn_config.yaml`` at full width through
    ``python -m rdfc_gan_torch.test``'s code path, with random weights from a
    seed and non-zero NLSPN offsets, and checks that its kernels carried it;
@@ -82,6 +84,9 @@ PEAK_BF16_FLOPS = 989e12
 B, H, W, T = 4, 224, 304, 18
 SCATTER_RTOL, SCATTER_ATOL = 1e-6, 1e-6
 PROP_RTOL, PROP_ATOL = 1e-4, 1e-5
+# the forward chain kernels vs plain: the same sums in the same order, a
+# separately rounded multiply and add, so bit for bit
+CHAIN_RTOL, CHAIN_ATOL = 0.0, 0.0
 SERVE_RTOL, SERVE_ATOL = 1e-4, 1e-5
 # instance norm kernels vs plain: the plain versions sum in the kernels'
 # order and take a correctly rounded rsqrt, so the two agree bit for bit
@@ -263,8 +268,9 @@ def kernel_phase():
             got = kernel()
             torch.cuda.synchronize()
             err = compare(f"nlspn_propagate R={R} T={T} preserve={preserve}",
-                          got, plain(), PROP_RTOL, PROP_ATOL)
+                          got, plain(), CHAIN_RTOL, CHAIN_ATOL)
             if R == 2 and not preserve:
+                served = (feat, M.to(torch.bfloat16))
                 plane = B * H * W * 4
                 n_bytes = B * S * S * H * W * 2 + 2 * plane
                 bnd, by = bound_ms(n_bytes, 2.0 * T * S * S * B * H * W)
@@ -279,7 +285,48 @@ def kernel_phase():
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
               f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
+    feat, M16 = served  # M already bf16: the device time is the chain's
+    _chain_device_times(
+        "nlspn_propagate",
+        lambda t: nlspn_kernel.nlspn_stencil_propagate(feat, M16, None, t, 2,
+                                                       False), T,
+        rows["nlspn_propagate"]["bound_ms"])
+    _banded_chain_check(gen)
+    _check_chain_plan_mirror()
     return rows
+
+
+def _banded_chain_check(gen):
+    """Both forward chains at 16x352x1216, S=8, preserve on, T=2, bit for
+    bit against their plain versions: on an H100 a block's rows and halo
+    pass its shared memory there, so it takes its runs in two bands of
+    rows a step (the reverse chain refuses this plane)."""
+    import torch
+
+    from rdfc_gan_torch.ops import nlspn_stencil as st
+    from rdfc_gan_torch.ops.kernels import nlspn_kernel
+
+    shape, R, T_ = (16, 352, 1216), 2, 2
+    feat = torch.randn(shape, device="cuda", generator=gen)
+    M16 = (torch.randn((shape[0], 8, 8) + shape[1:], device="cuda",
+                       generator=gen) * 0.2).to(torch.bfloat16)
+    keep = torch.rand(shape, device="cuda", generator=gen) > 0.6
+    fix = torch.where(keep, feat.abs(), torch.zeros_like(feat))
+    tag = f"{'x'.join(map(str, shape))} S=8 T={T_} preserve=True"
+    got = nlspn_kernel.nlspn_stencil_propagate(feat[:, None], M16,
+                                               fix[:, None], T_, R, True)
+    torch.cuda.synchronize()
+    compare(f"nlspn_propagate {tag}", got, st.stencil_propagate(
+        feat[:, None], M16, T_, R, fix[:, None], True), CHAIN_RTOL,
+        CHAIN_ATOL)
+    for dt in (torch.float32, torch.bfloat16):
+        out, X = nlspn_kernel.propagate_x(feat, M16, fix, T_, R, dt)
+        torch.cuda.synchronize()
+        pout, pX = st.propagate_x_plain(feat, M16, fix, T_, R, dt)
+        compare(f"nlspn_propagate_x out {tag} {dt}", out, pout, CHAIN_RTOL,
+                CHAIN_ATOL)
+        compare(f"nlspn_propagate_x X {tag} {dt}", X, pX, CHAIN_RTOL,
+                CHAIN_ATOL)
 
 
 def backward_kernel_phase():
@@ -343,9 +390,9 @@ def backward_kernel_phase():
                 pG, pdfeat, pdfix = st.reverse_chain_plain(g0, M16, fx, T, R,
                                                            dt)
                 err_x = max(compare(f"nlspn_propagate_x out {tag}", out,
-                                    pout, PROP_RTOL, PROP_ATOL),
+                                    pout, CHAIN_RTOL, CHAIN_ATOL),
                             compare(f"nlspn_propagate_x X {tag}", X, pX,
-                                    PROP_RTOL, PROP_ATOL))
+                                    CHAIN_RTOL, CHAIN_ATOL))
                 err_c = max(compare(f"nlspn_reverse_chain G {tag}", G, pG,
                                     PROP_RTOL, PROP_ATOL),
                             compare(f"nlspn_reverse_chain dfeat {tag}",
@@ -377,7 +424,7 @@ def backward_kernel_phase():
                         library_ms=None if library is None
                         else time_ms(library))
 
-                chain_case = (g0, M16, T, R, dt)
+                chain_case = (feat0, g0, M16, T, R, dt)
 
                 def gather(dM=dM, sy=sy, sx=sx, S=S, dt=dt):
                     return mask_kernel.shift_mask_gather(dM, sy, sx, S, dt)
@@ -416,25 +463,74 @@ def backward_kernel_phase():
     print(f"  shift_mask_gather device time: kernel "
           f"{_device_ms(gather, n=10):.4f} ms, torch.gather "
           f"{_device_ms(library_gather, n=10):.4f} ms")
-    _chain_device_times(nlspn_kernel, *chain_case, rows)
+    feat0, g0, M16, T_, R, dt = chain_case
+    _chain_device_times(
+        "nlspn_propagate_x",
+        lambda t: nlspn_kernel.propagate_x(feat0, M16, None, t, R, dt), T_,
+        rows["nlspn_propagate_x"]["bound_ms"])
+    _chain_device_times(
+        "nlspn_reverse_chain",
+        lambda t: nlspn_kernel.reverse_chain(g0, M16, None, t, R, dt), T_,
+        rows["nlspn_reverse_chain"]["bound_ms"])
     return rows
 
 
-def _chain_device_times(nlspn_kernel, g0, M16, T_, R, dt, rows):
-    """The reverse chain's device time per chain and per step at the train
-    step's case, and of a one-step chain (the layout pass and a step), so
-    the time of each further step reads apart from the layout pass."""
-    bnd = rows["nlspn_reverse_chain"]["bound_ms"]
-    d = _device_ms(lambda: nlspn_kernel.reverse_chain(g0, M16, None, T_, R,
-                                                      dt), n=10)
-    print(f"  nlspn_reverse_chain device time: {d:.4f} ms a chain of {T_} "
-          f"steps, {d / T_ * 1e3:.2f} us a step; bound {bnd * 1e3:.2f} us "
-          f"(the device time at {_pct(bnd, d)} of it)")
-    ms_1 = _device_ms(lambda: nlspn_kernel.reverse_chain(
-        g0, M16, None, 1, R, dt), n=10)
-    print(f"  nlspn_reverse_chain, as launched: one step chain {ms_1:.4f} ms "
-          f"(the layout pass and a step); each further step "
+def _chain_device_times(name, chain, T_, bnd):
+    """A chain kernel's device time per chain and per step, and of a
+    one-step chain (its set-up, the reverse chain's layout pass or the
+    forward's mask copy, and a step), so the time of each further step
+    reads apart from the set-up. ``chain(t)`` runs a t-step chain."""
+    d = _device_ms(lambda: chain(T_), n=10)
+    print(f"  {name} device time: {d:.4f} ms a chain of {T_} steps, "
+          f"{d / T_ * 1e3:.2f} us a step; bound {bnd * 1e3:.2f} us (the "
+          f"device time at {_pct(bnd, d)} of it)")
+    ms_1 = _device_ms(lambda: chain(1), n=10)
+    print(f"  {name}, as launched: one step chain {ms_1:.4f} ms (the set-up "
+          f"and a step); each further step "
           f"{(d - ms_1) / (T_ - 1) * 1e3:.2f} us")
+
+
+# (B, H, W, S) at which the forward chain's plan mirror is held against the
+# kernel's export: the card tests' planes and a sweep (as
+# tests/test_torch_nlspn_ops.py)
+CHAIN_PLAN_SHAPES = [(2, 8, 9, 8), (2, 17, 23, 8), (1, 17, 23, 10),
+                     (1, 17, 23, 12), (2, 30, 44, 4), (3, 9, 16, 6),
+                     (4, 224, 304, 8), (4, 224, 304, 10), (1, 4000, 61, 8),
+                     (16, 352, 1216, 8)] + [
+    (b, h, w, S) for b in (1, 4, 16) for h in (1, 7, 224, 352, 1000)
+    for w in (1, 9, 61, 304, 1216, 4000, 9000) for S in (4, 8, 12)]
+
+
+def _check_chain_plan_mirror():
+    """``nlspn_kernel.chain_plan`` against the plan the built kernel
+    exports (``nlspn_chain_plan``), for this card's SM count and an H100's
+    and for three shared-memory sizes, at CHAIN_PLAN_SHAPES."""
+    import ctypes
+
+    import torch
+
+    from rdfc_gan_torch.ops.kernels import build, nlspn_kernel as nk
+
+    lib = build.library(nk.NAME)
+    out = (ctypes.c_int * 7)()
+    sms = sorted({132, torch.cuda.get_device_properties(0)
+                  .multi_processor_count, 16})
+    n = 0
+    for shape in CHAIN_PLAN_SHAPES:
+        for sm in sms:
+            for smem in (232448, 48 * 1024, 4096):
+                rc = lib.nlspn_chain_plan(*shape, sm, smem, out)
+                try:
+                    mirror = tuple(nk.chain_plan(*shape, sm, smem))
+                except ValueError:
+                    mirror = None
+                if (mirror is None) != (rc != 0) or (
+                        rc == 0 and tuple(out) != mirror):
+                    fail(f"nlspn_kernel.chain_plan{shape + (sm, smem)} = "
+                         f"{mirror}, the kernel's {tuple(out)} (rc {rc})")
+                n += 1
+    print(f"  chain_plan matches the kernel's exported plan at {n} "
+          f"(plane, window, SMs, shared memory) cases")
 
 
 # offsets of the served model: the scale of conv_offset_aff is set so that
@@ -513,8 +609,7 @@ def serve_phase(workdir):
 
     engine, metrics = res["engine"], res["metrics"]
     G = engine.modules["G"]
-    T_cfg = G.nlspn_spec.prop_time
-    per_forward = {"shift_mask_scatter": 1, "nlspn_propagate": T_cfg,
+    per_forward = {"shift_mask_scatter": 1, "nlspn_propagate": 1,
                    "instance_norm_fwd": 4}
     print(f"serve: {os.path.basename(cfg.model_cfg_path)} at {H}x{W}, batch "
           f"{B}, {len(res['batch_seconds'])} batches; nlspn_max_offset of "
@@ -665,12 +760,10 @@ def train_phase(workdir):
     peak = torch.cuda.max_memory_allocated()
 
     engine, steps = res["engine"], res["steps"]
-    T_cfg = engine.modules["G"].nlspn_spec.prop_time
     evals = engine.n_forward
     want = {"shift_mask_scatter": steps + evals, "shift_mask_gather": steps,
-            "nlspn_propagate_x": steps * T_cfg,
-            "nlspn_reverse_chain": steps,
-            "shift_correlation": steps, "nlspn_propagate": evals * T_cfg,
+            "nlspn_propagate_x": steps, "nlspn_reverse_chain": steps,
+            "shift_correlation": steps, "nlspn_propagate": evals,
             "instance_norm_fwd": 4 * (steps + evals),
             "instance_norm_bwd": 4 * steps,
             "conv3x3_fwd": 2 * fused_blocks(engine.modules["G"]) * steps,

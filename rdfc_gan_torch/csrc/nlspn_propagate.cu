@@ -11,115 +11,524 @@
 //
 // with x zero outside the image (the CUDA zero-pad boundary of the
 // reference's deformable conv). M is bf16, as the TPU kernel holds it; the
-// sum is f32. The result is the last step's sum, not substituted. X, the
+// sum is f32, in the plain version's order (iy outer, ix inner) with a
+// separately rounded multiply and add, so the kernel and ops/
+// nlspn_stencil.py (stencil_propagate, propagate_x_plain) agree bit for
+// bit. The result is the last step's sum, not substituted. X, the
 // (T, B, H, W) stack of substituted step inputs that the backward's
-// mask-gradient contraction reads, is stored in f32 or bf16.
+// mask-gradient contraction reads, is stored in f32 or bf16 (rounded to
+// nearest even).
 //
-// What bounds it on an H100: bytes. One step reads the S^2 mask planes once
-// (S^2 * 2 bytes a pixel) and does S^2 multiply-adds on them, about one
-// operation per byte, far below the ridge. X adds one plane write a step.
+// What bounds it on an H100: bytes. The chain needs the S^2 mask planes
+// (35 MB at 4 x 224 x 304, S = 8) once and T steps of S^2 multiply-adds a
+// pixel, about one operation per byte, far below the ridge; a launch a
+// step, as the TPU kernel runs, reads the whole stack T times.
 //
-// Design: one launch per step, one thread per pixel, ping-ponging two f32
-// planes; 32x8 blocks keep a warp on one row so mask reads, neighbour reads
-// and the store are coalesced. The TPU kernel kept an image's whole mask
-// stack (8.3 MiB at S=8, 224x304) on chip across all T steps; an H100 block
-// has 227 KB of shared memory, so here every step reads the stack again and
-// relies on the 50 MB L2 holding it (35 MB at B=4). The preserve
-// substitution is made where a neighbour is read, since a thread cannot see
-// its neighbours' substituted values otherwise without a pre-pass. Both
-// variants share one step body, as the TPU kernel shares one, so the
-// differentiated forward cannot drift from the served one: the emit-X
-// instantiation only adds, after the sum, the store of the thread's own
-// substituted input. Keep the address arithmetic as it is written: a
-// version that hoisted the pixel offset into a variable took a 32nd
-// register and ran the served chain about a quarter slower on the H100
-// (PERF.md).
+// Design, as the reverse chain (nlspn_reverse_chain.cu): one cooperative
+// launch for the whole chain, one block an SM, a grid barrier between
+// steps. The pixels are cut into runs of 8 along a row (a row padded to a
+// multiple of 8), and each block owns a contiguous range of runs for every
+// step, a thread a run (or several). The forward reads M_s(p) at the
+// pixel's own address, so a run's weights for shift s are already 8
+// consecutive bf16, one aligned 16-byte vector (M's rows are padded with
+// zeros to a multiple of 8 by the wrapper where W is not one): no
+// pre-shift and no scratch stack. At the start a block copies as many of
+// its runs' S^2 vectors as fit beside its x tile into shared memory with
+// cp.async, shift-major (a warp's 16-byte reads are conflict-free); the
+// other runs load theirs from M every step, a window row ahead of use,
+// from L2. One load path for both (a generic pointer and a stride), with
+// no scalar path beside it, keeps the unrolled sums free of spills: a
+// first version, with scalar mask loads for odd widths in the same loop,
+// spilled and ran markedly slower (PERF.md). Every step a block
+// stages the rows of x that its runs read (its rows, -lo halo rows above
+// and hi below, 8 zero columns each side), making the preserve
+// substitution as it stages, so each value is read and substituted once a
+// step; a thread then loads, for each iy, the 8 + S - 1 values its run
+// reads as 16-byte vectors and sums its 8 pixels into 8 f32 accumulators.
+// Its stores (the next plane; X[t] of its run, from the staged tile) are
+// 16 or 32 bytes a run where W is a multiple of 8, else scalars. Where a
+// block's rows and halo would pass its shared memory, it takes its runs in
+// bands within a step: bands of whole rows, or, where not even one row and
+// its halo fit, one row cut into chunks of runs (chain_plan; a band is
+// staged, summed, and the block synchronised before the next). So no
+// plane is refused.
+//
+// Where the time goes (PERF.md): about 7 us a step at 4 x 224 x 304,
+// S = 8, on the H100: the chain is bound by its T dependent steps (a grid
+// barrier, the staging of x and a run's S^2 sequential sums each), not by
+// bytes.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-template <bool kEmitX>
-__global__ void nlspn_step_kernel(const float* __restrict__ x,
-                                  const __nv_bfloat16* __restrict__ M,
-                                  const float* __restrict__ fix,
-                                  float* __restrict__ out,
-                                  void* __restrict__ xt, int x_bf16, int H,
-                                  int W, int S, int lo) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  const int h = blockIdx.y * blockDim.y + threadIdx.y;
-  if (h >= H || w >= W) return;
-  const long long b = blockIdx.z;
-  const long long HW = (long long)H * W;
-  const float* xb = x + b * HW;
-  const float* fb = fix ? fix + b * HW : nullptr;
-  const __nv_bfloat16* mb = M + b * S * S * HW + (long long)h * W + w;
+constexpr int kRun = 8;           // pixels a run
+constexpr int kLeft = 8;          // zero columns left of a band (>= -lo)
+constexpr int kRight = 8;         // zero columns right of a band (>= hi)
+constexpr int kMinRuns = 32;      // runs a block, at least
+constexpr int kMaxThreads = 384;  // 170 registers a thread
 
-  float acc = 0.f;
+// How a chain is cut (nlspn_kernel.py:chain_plan is its mirror): `blocks`
+// blocks of `threads` threads, `rpb` runs a block, the first `nres` of
+// them with their masks resident in shared memory; a block takes its runs
+// in bands of `band_rows` rows of `band_runs` runs (band_runs < runs a row
+// only with band_rows == 1); `smem` bytes of shared memory a block.
+struct Plan {
+  int blocks, threads, rpb, nres, band_rows, band_runs, smem;
+};
+
+// The plan of a (B, H, W) chain with an S x S window on a card of `sms`
+// SMs whose blocks may have `smem_max` bytes of shared memory. False for an
+// empty plane, or where not even a band of one run fits (a card with under
+// 1 KB a block).
+bool chain_plan(int B, int H, int W, int S, int sms, int smem_max, Plan* p) {
+  const int Rr = (W + kRun - 1) / kRun;
+  const long long runs = (long long)B * H * Rr;
+  if (runs < 1 || sms < 1) return false;
+  long long blocks = (runs + kMinRuns - 1) / kMinRuns;
+  if (blocks > sms) blocks = sms;
+  const long long rpb = (runs + blocks - 1) / blocks;
+  p->blocks = (int)((runs + rpb - 1) / rpb);
+  p->rpb = (int)rpb;
+  p->threads = (int)((rpb + 31) / 32 * 32);
+  if (p->threads > kMaxThreads) p->threads = kMaxThreads;
+  // rows that rpb consecutive runs can span
+  long long rows = (rpb + Rr - 2) / Rr + 1;
+  if (rows > (long long)B * H) rows = (long long)B * H;
+  const long long row_bytes = (long long)(kLeft + Rr * kRun + kRight) * 4;
+  const long long fit = smem_max / row_bytes;  // tile rows at full width
+  if (fit >= rows + S - 1) {
+    p->band_rows = (int)rows;
+    p->band_runs = Rr;
+  } else if (fit >= S) {
+    p->band_rows = (int)(fit - (S - 1));
+    p->band_runs = Rr;
+  } else {
+    p->band_rows = 1;
+    p->band_runs = (smem_max / (S * 4) - kLeft - kRight) / kRun;
+    if (p->band_runs < 1) return false;
+  }
+  const long long tile = (long long)(p->band_rows + S - 1) *
+                         (kLeft + p->band_runs * kRun + kRight) * 4;
+  const long long run_bytes = (long long)S * S * 16;
+  long long nres = (smem_max - tile) / run_bytes;
+  if (nres > rpb) nres = rpb;
+  p->nres = (int)nres;
+  p->smem = (int)(tile + nres * run_bytes);
+  return true;
+}
+
+__device__ __forceinline__ float lo_bf16(unsigned v) {
+  return __uint_as_float(v << 16);
+}
+__device__ __forceinline__ float hi_bf16(unsigned v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+__device__ __forceinline__ unsigned bf16_bits(float v) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// the 8 values of a run, as 16- or 32-byte stores (vec) or nvalid scalars
+__device__ __forceinline__ void store_run(float* p, const float (&v)[kRun],
+                                          bool vec, int nvalid) {
+  if (vec) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kRun; ++k)
+      if (k < nvalid) p[k] = v[k];
+  }
+}
+__device__ __forceinline__ void store_run(__nv_bfloat16* p,
+                                          const float (&v)[kRun], bool vec,
+                                          int nvalid) {
+  if (vec) {
+    uint4 q;
+    q.x = bf16_bits(v[0]) | (bf16_bits(v[1]) << 16);
+    q.y = bf16_bits(v[2]) | (bf16_bits(v[3]) << 16);
+    q.z = bf16_bits(v[4]) | (bf16_bits(v[5]) << 16);
+    q.w = bf16_bits(v[6]) | (bf16_bits(v[7]) << 16);
+    *reinterpret_cast<uint4*>(p) = q;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kRun; ++k)
+      if (k < nvalid) p[k] = __float2bfloat16_rn(v[k]);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ float substitute(float v, float f) {
+  return f > 0.f ? f : v;
+}
+
+// The sums of a run's 8 pixels, acc[k] = sum_{iy, ix} M_s[k] * x, in the
+// plain version's order: wrow is the run's window in the staged tile
+// (row iy at wrow + iy * Wt, zero where row h + lo + iy leaves the image),
+// mask(s) the run's 16-byte vector of shift s; a window row's vectors are
+// loaded ahead of the previous row's sums.
+template <int S, typename MaskFn>
+__device__ __forceinline__ void sum_run(float (&acc)[kRun], const float* wrow,
+                                        int Wt, int h, int H, MaskFn mask) {
+  constexpr int LO = 1 - S / 2;
+  // pixel k, shift ix reads window element SKIP + k + ix of NV float4
+  constexpr int SKIP = (kLeft + LO) & 3;
+  constexpr int NV = (SKIP + kRun + S - 1 + 3) / 4;
+#pragma unroll
+  for (int k = 0; k < kRun; ++k) acc[k] = 0.f;
+  uint4 mv[S];
+#pragma unroll
+  for (int ix = 0; ix < S; ++ix) mv[ix] = mask(ix);
+#pragma unroll
   for (int iy = 0; iy < S; ++iy) {
-    const int yy = h + lo + iy;
-    const bool row_in = (unsigned)yy < (unsigned)H;
-    for (int ix = 0; ix < S; ++ix) {
-      const int xx = w + lo + ix;
-      float v = 0.f;
-      if (row_in && (unsigned)xx < (unsigned)W) {
-        const long long q = (long long)yy * W + xx;
-        v = xb[q];
-        if (fb) {
-          const float f = fb[q];
-          if (f > 0.f) v = f;
-        }
+    float win[4 * NV];
+    if ((unsigned)(h + LO + iy) < (unsigned)H) {
+      const float4* wp = reinterpret_cast<const float4*>(wrow + iy * Wt);
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const float4 f = wp[v];
+        win[4 * v] = f.x;
+        win[4 * v + 1] = f.y;
+        win[4 * v + 2] = f.z;
+        win[4 * v + 3] = f.w;
       }
-      // separately rounded multiply and add, in the plain version's order:
-      // the two agree bit for bit on the card
-      acc = __fadd_rn(acc, __fmul_rn(
-          __bfloat162float(mb[(long long)(iy * S + ix) * HW]), v));
+    } else {
+#pragma unroll
+      for (int v = 0; v < 4 * NV; ++v) win[v] = 0.f;
+    }
+    uint4 nx[S];
+    if (iy + 1 < S) {
+#pragma unroll
+      for (int ix = 0; ix < S; ++ix) nx[ix] = mask((iy + 1) * S + ix);
+    }
+#pragma unroll
+    for (int ix = 0; ix < S; ++ix) {
+      const float m[kRun] = {lo_bf16(mv[ix].x), hi_bf16(mv[ix].x),
+                             lo_bf16(mv[ix].y), hi_bf16(mv[ix].y),
+                             lo_bf16(mv[ix].z), hi_bf16(mv[ix].z),
+                             lo_bf16(mv[ix].w), hi_bf16(mv[ix].w)};
+#pragma unroll
+      for (int k = 0; k < kRun; ++k)
+        acc[k] = __fadd_rn(acc[k], __fmul_rn(m[k], win[SKIP + k + ix]));
+    }
+    if (iy + 1 < S) {
+#pragma unroll
+      for (int ix = 0; ix < S; ++ix) mv[ix] = nx[ix];
     }
   }
-  if constexpr (kEmitX) {  // this step's substituted input at the pixel
-    const long long c = (long long)h * W + w;
-    float v = xb[c];
-    if (fb && fb[c] > 0.f) v = fb[c];
-    if (x_bf16)
-      static_cast<__nv_bfloat16*>(xt)[b * HW + c] = __float2bfloat16_rn(v);
-    else
-      static_cast<float*>(xt)[b * HW + c] = v;
+}
+
+struct ChainArgs {
+  const float* feat0;
+  const unsigned short* M;  // (B, S, S, H, Wm) bf16 bits
+  const float* fix;         // null: no preserve
+  float* out;
+  float* tmp;
+  void* X;  // (T, B, H, W) f32 or bf16; null in the served chain
+  int B, H, W, T;
+  int Rr;    // runs a row
+  int Wm;    // M's row stride: Rr * kRun
+  int runs;  // B * H * Rr
+  Plan p;
+  int Wt;  // tile row stride, floats: kLeft + band_runs * kRun + kRight
+};
+
+// Stages the substituted x of global rows ra + LO .. rb - 1 + HI (tile row
+// i is global row ra + LO + i), image columns from c0 - kLeft on, a.Wt of
+// them, into the tile; zero outside the image's columns and outside the
+// B * H rows (a row of another image is read but never used: a run checks
+// that each window row lies in its own image). A few loads in flight a
+// thread.
+template <int LO, int HI>
+__device__ __forceinline__ void stage(const ChainArgs& a, const float* src,
+                                      float* tile, int ra, int rb, int c0) {
+  const int BH = a.B * a.H;
+  const int trows = rb - ra + HI - LO;
+  const int tc0 = c0 - kLeft;  // image column of tile column 0
+  if ((a.W & 3) == 0) {        // a float4 is all inside the image or out
+    const int Wt4 = a.Wt >> 2;
+    const int total = trows * Wt4;
+    for (int base = threadIdx.x; base < total; base += 4 * blockDim.x) {
+      float4 v[4];
+      int to[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int idx = base + u * blockDim.x;
+        to[u] = -1;
+        if (idx < total) {
+          const int row = idx / Wt4;
+          const int q = idx - row * Wt4;
+          const int gr = ra + LO + row;
+          const int col = tc0 + 4 * q;
+          to[u] = row * a.Wt + 4 * q;
+          v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if ((unsigned)gr < (unsigned)BH && (unsigned)col < (unsigned)a.W) {
+            const long long o = (long long)gr * a.W + col;
+            v[u] = __ldcg(reinterpret_cast<const float4*>(src + o));
+            if (a.fix) {
+              const float4 f = __ldg(reinterpret_cast<const float4*>(
+                  a.fix + o));
+              v[u] = make_float4(substitute(v[u].x, f.x),
+                                 substitute(v[u].y, f.y),
+                                 substitute(v[u].z, f.z),
+                                 substitute(v[u].w, f.w));
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (to[u] >= 0) *reinterpret_cast<float4*>(tile + to[u]) = v[u];
+    }
+  } else {
+    const int total = trows * a.Wt;
+    for (int base = threadIdx.x; base < total; base += 8 * blockDim.x) {
+      float v[8];
+      int to[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int idx = base + u * blockDim.x;
+        to[u] = -1;
+        if (idx < total) {
+          const int row = idx / a.Wt;
+          const int c = idx - row * a.Wt;
+          const int gr = ra + LO + row;
+          const int col = tc0 + c;
+          to[u] = idx;
+          v[u] = 0.f;
+          if ((unsigned)gr < (unsigned)BH && (unsigned)col < (unsigned)a.W) {
+            const long long o = (long long)gr * a.W + col;
+            v[u] = __ldcg(src + o);
+            if (a.fix) v[u] = substitute(v[u], __ldg(a.fix + o));
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (to[u] >= 0) tile[to[u]] = v[u];
+    }
   }
-  out[b * HW + (long long)h * W + w] = acc;
+}
+
+// S: the shift window's side (lo = 1 - S / 2); kEmitX: also store X[t],
+// in XT.
+template <int S, bool kEmitX, typename XT>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    propagate_chain_kernel(const ChainArgs a) {
+  constexpr int LO = 1 - S / 2;
+  constexpr int HI = LO + S - 1;
+  constexpr int SS = S * S;
+  // the window of a run's row iy: tile columns from (w0 - c0) + OFF on,
+  // loaded as aligned float4 from (w0 - c0) + A0 (sum_run)
+  constexpr int OFF = kLeft + LO;
+  constexpr int A0 = OFF & ~3;
+  static_assert(OFF >= 0 &&
+                    A0 + 4 * ((OFF - A0 + kRun + S - 1 + 3) / 4) <=
+                        kLeft + kRun + kRight,
+                "the tile's margins are too narrow for S");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* tile = reinterpret_cast<float*>(smem);
+  const Plan& p = a.p;
+  const int r0 = blockIdx.x * p.rpb;
+  const int r1 = min(r0 + p.rpb, a.runs);
+  const int gr0 = r0 / a.Rr;
+  const int grL = (r1 - 1) / a.Rr;
+  // the resident runs' vectors, [SS][p.nres], after the tile (Wt floats
+  // is a multiple of 32 bytes)
+  uint4* Ms = reinterpret_cast<uint4*>(
+      tile + (size_t)(p.band_rows + S - 1) * a.Wt);
+  const int nres = min(p.nres, r1 - r0);
+  const long long HW = (long long)a.H * a.W;
+  const long long HWm = (long long)a.H * a.Wm;
+  const bool vec = (a.W % kRun) == 0;
+
+  // the resident runs' masks, a shift plane's vectors of consecutive runs
+  // by consecutive threads; awaited before the first step's sums
+  for (int i = threadIdx.x; i < SS * nres; i += blockDim.x) {
+    const int s = i / nres;
+    const int j = i - s * nres;
+    const int r = r0 + j;
+    const int gr = r / a.Rr;
+    const int b = gr / a.H;
+    const int w0 = (r - gr * a.Rr) * kRun;
+    cp_async16(Ms + s * p.nres + j,
+               a.M + ((long long)b * SS + s) * HWm +
+                   (long long)(gr - b * a.H) * a.Wm + w0);
+  }
+
+  cg::grid_group grid = cg::this_grid();
+  const long long plane = (long long)a.B * HW;
+  const float* src = a.feat0;
+  for (int t = 0; t < a.T; ++t) {
+    float* dst = ((a.T - 1 - t) % 2 == 0) ? a.out : a.tmp;
+    XT* Xt = nullptr;
+    if constexpr (kEmitX) Xt = static_cast<XT*>(a.X) + (long long)t * plane;
+    bool staged = false;
+    for (int ra = gr0; ra <= grL; ra += p.band_rows) {
+      const int rb = min(ra + p.band_rows, grL + 1);
+      for (int ca = 0; ca < a.Rr; ca += p.band_runs) {
+        // the band's runs: whole rows ra .. rb - 1, or (rb == ra + 1) the
+        // runs ca .. ca + nc - 1 of row ra; contiguous either way
+        const int nc = min(p.band_runs, a.Rr - ca);
+        const int fa = max(r0, ra * a.Rr + ca);
+        const int fb = min(r1, (rb - 1) * a.Rr + ca + nc);
+        if (fa >= fb) continue;
+        if (staged) __syncthreads();  // the tile is free
+        const int c0 = ca * kRun;
+        stage<LO, HI>(a, src, tile, ra, rb, c0);
+        if (!staged && t == 0)  // the resident masks have landed
+          asm volatile("cp.async.wait_all;\n" ::: "memory");
+        staged = true;
+        __syncthreads();
+        for (int r = fa + threadIdx.x; r < fb; r += blockDim.x) {
+          const int j = r - r0;
+          const int gr = r / a.Rr;
+          const int b = gr / a.H;
+          const int h = gr - b * a.H;
+          const int w0 = (r - gr * a.Rr) * kRun;
+          const int nvalid = min(kRun, a.W - w0);
+          const float* wrow = tile + (gr - ra) * a.Wt + (w0 - c0) + A0;
+          // the run's vector of shift s is mv0[s * ms]: in shared memory
+          // where resident, else in M, read from L2
+          const uint4* mv0 =
+              j < nres ? Ms + j
+                       : reinterpret_cast<const uint4*>(
+                             a.M + (long long)b * SS * HWm +
+                             (long long)h * a.Wm + w0);
+          const long long ms = j < nres ? p.nres : HWm / kRun;
+          float acc[kRun];
+          sum_run<S>(acc, wrow, a.Wt, h, a.H,
+                     [=](int s) { return mv0[s * ms]; });
+          const long long c = (long long)gr * a.W + w0;
+          if constexpr (kEmitX) {  // the run's substituted input
+            const float* own =
+                tile + (gr - ra - LO) * a.Wt + (w0 - c0) + kLeft;
+            float x[kRun];
+#pragma unroll
+            for (int k = 0; k < kRun; ++k) x[k] = own[k];
+            store_run(Xt + c, x, vec, nvalid);
+          }
+          store_run(dst + c, acc, vec, nvalid);
+        }
+      }
+    }
+    if (t + 1 < a.T) grid.sync();  // the plane is whole; the tile is free
+    src = dst;
+  }
+}
+
+// One cooperative launch of the chain on plan a.p.
+template <int S, bool kEmitX, typename XT>
+int launch_chain(const ChainArgs& a, cudaStream_t stream) {
+  auto k = propagate_chain_kernel<S, kEmitX, XT>;
+  if (a.p.smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, a.p.smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.p.blocks);
+  cfg.blockDim = dim3(a.p.threads);
+  cfg.dynamicSmemBytes = a.p.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // no fallback: a grid the card cannot hold at once is refused here
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, k, a);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <bool kEmitX, typename XT>
+int launch_s(const ChainArgs& a, int S, cudaStream_t stream) {
+  switch (S) {
+    case 4: return launch_chain<4, kEmitX, XT>(a, stream);
+    case 6: return launch_chain<6, kEmitX, XT>(a, stream);
+    case 8: return launch_chain<8, kEmitX, XT>(a, stream);
+    case 10: return launch_chain<10, kEmitX, XT>(a, stream);
+    case 12: return launch_chain<12, kEmitX, XT>(a, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+int card(int* sms, int* smem_max) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(smem_max,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return (int)e;
 }
 
 }  // namespace
 
-// feat0, fix, out, tmp: (B, H, W) f32, contiguous; fix may be null (no
-// preserve substitution). M: (B, S, S, H, W) bf16. X: null (served
-// forward) or the (T, B, H, W) stack, f32 (x_bf16 = 0) or bf16. Runs T >= 1
-// steps, the last one writing to out (tmp is the other plane of the
-// ping-pong). Returns the first failing launch's cudaError_t, else 0.
+// feat0, fix, out, tmp: (B, H, W) f32, contiguous, 16-byte aligned; fix
+// may be null (no preserve substitution). M: (B, S, S, H, Wm) bf16,
+// 16-byte aligned, Wm = W rounded up to a multiple of 8 (the padding
+// zero). X: null (served forward) or the (T, B, H, W) stack, f32
+// (x_bf16 = 0) or bf16. S is 4, 6, 8, 10 or 12 and lo = 1 - S / 2 (the
+// shift window of a clamp radius R = S / 2 - 2). Runs T >= 1 steps in one
+// cooperative launch, the last writing out (tmp is the other plane of the
+// ping-pong). Returns the launch's cudaError_t.
 extern "C" int nlspn_propagate(const void* feat0, const void* M,
                                const void* fix, void* out, void* tmp,
                                void* X, int x_bf16, int B, int H, int W,
                                int S, int lo, int T, void* stream) {
+  if (T < 1 || lo != 1 - S / 2 || S % 2) return (int)cudaErrorInvalidValue;
+  int sms = 0, smem_max = 0;
+  const int e = card(&sms, &smem_max);
+  if (e != 0) return e;
+  ChainArgs a = {};
+  if (!chain_plan(B, H, W, S, sms, smem_max, &a.p))
+    return (int)cudaErrorInvalidValue;
+  a.feat0 = static_cast<const float*>(feat0);
+  a.M = static_cast<const unsigned short*>(M);
+  a.fix = static_cast<const float*>(fix);
+  a.out = static_cast<float*>(out);
+  a.tmp = static_cast<float*>(tmp);
+  a.X = X;
+  a.B = B;
+  a.H = H;
+  a.W = W;
+  a.T = T;
+  a.Rr = (W + kRun - 1) / kRun;
+  a.Wm = a.Rr * kRun;
+  a.runs = B * H * a.Rr;
+  a.Wt = kLeft + a.p.band_runs * kRun + kRight;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 block(32, 8);
-  const dim3 grid((W + 31) / 32, (H + 7) / 8, B);
-  const float* src = static_cast<const float*>(feat0);
-  const long long plane = (long long)B * H * W * (x_bf16 ? 2 : 4);
-  for (int t = 0; t < T; ++t) {
-    float* dst = static_cast<float*>(((T - 1 - t) % 2 == 0) ? out : tmp);
-    const __nv_bfloat16* m = static_cast<const __nv_bfloat16*>(M);
-    const float* f = static_cast<const float*>(fix);
-    if (X)
-      nlspn_step_kernel<true><<<grid, block, 0, st>>>(
-          src, m, f, dst, static_cast<char*>(X) + t * plane, x_bf16, H, W,
-          S, lo);
-    else
-      nlspn_step_kernel<false><<<grid, block, 0, st>>>(
-          src, m, f, dst, nullptr, 0, H, W, S, lo);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    src = dst;
-  }
+  if (!X) return launch_s<false, float>(a, S, st);
+  return x_bf16 ? launch_s<true, __nv_bfloat16>(a, S, st)
+                : launch_s<true, float>(a, S, st);
+}
+
+// The plan of a (B, H, W) chain with an S x S window on a card of `sms`
+// SMs and `smem_max` bytes of shared memory a block, as nlspn_propagate
+// takes it: out = (blocks, threads, runs a block, resident runs, band
+// rows, band runs, shared bytes). Returns 0, or cudaErrorInvalidValue
+// where no plan fits.
+extern "C" int nlspn_chain_plan(int B, int H, int W, int S, int sms,
+                                int smem_max, int* out) {
+  Plan p;
+  if (!chain_plan(B, H, W, S, sms, smem_max, &p))
+    return (int)cudaErrorInvalidValue;
+  const int v[7] = {p.blocks, p.threads, p.rpb, p.nres, p.band_rows,
+                    p.band_runs, p.smem};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
   return 0;
 }
 

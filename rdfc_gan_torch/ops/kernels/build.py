@@ -54,7 +54,8 @@ _SIGNATURES = {
             [_P, _P, _P, _P, _I, _I, ctypes.c_longlong, _I, _I, _I, _P]},
     "nlspn_propagate": {
         "nlspn_propagate":
-            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
+            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "nlspn_chain_plan": [_I, _I, _I, _I, _I, _I, _P]},
     "nlspn_reverse_chain": {
         "nlspn_reverse_chain":
             [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

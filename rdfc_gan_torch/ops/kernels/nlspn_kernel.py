@@ -5,6 +5,8 @@ differentiable ``nlspn_stencil_propagate`` built from them, and the
 dispatcher ``propagate_auto`` (port of rdfc_gan_tpu/ops/pallas/
 nlspn_kernel.py). The plain versions are ``stencil_propagate``,
 ``propagate_x_plain`` and ``reverse_chain_plain`` of ``ops/nlspn_stencil``.
+Each kernel runs a whole chain in one cooperative launch; ``chain_plan``
+mirrors how the forward one cuts it.
 
 As on the TPU, the kernel path rounds the mask stack to bf16 and sums in
 f32 (nlspn_kernel.py:303), so its output differs from the unrounded plain
@@ -14,9 +16,10 @@ the rounding as the identity (straight-through, nlspn_kernel.py:404-413).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..nlspn_stencil import (propagate_x_plain, reverse_chain_plain,
                              shift_window, stencil_propagate)
@@ -25,8 +28,61 @@ from . import build, mask_kernel
 NAME = "nlspn_propagate"
 NAME_X = "nlspn_propagate_x"
 CHAIN = "nlspn_reverse_chain"
-# the shift windows S the reverse chain kernel is built for (R = 0..4)
+# the shift windows S the chain kernels are built for (R = 0..4)
 CHAIN_WINDOWS = (4, 6, 8, 10, 12)
+# the forward chain's plan (nlspn_propagate.cu:chain_plan and its
+# constants): runs of RUN pixels, tile margins, runs and threads a block
+RUN, LEFT, RIGHT, MIN_RUNS, MAX_THREADS = 8, 8, 8, 32, 384
+
+
+class ChainPlan(NamedTuple):
+    """How the forward chain kernel cuts a (B, H, W) chain: ``blocks``
+    blocks of ``threads`` threads, ``rpb`` runs of 8 pixels a block (block
+    i owns runs i * rpb on), the first ``nres`` of a block's runs with
+    their masks resident in shared memory, its runs taken in bands of
+    ``band_rows`` rows of ``band_runs`` runs (fewer runs than a row has
+    only with one row a band), ``smem`` bytes of shared memory a block."""
+    blocks: int
+    threads: int
+    rpb: int
+    nres: int
+    band_rows: int
+    band_runs: int
+    smem: int
+
+
+def chain_plan(B: int, H: int, W: int, S: int, sms: int,
+               smem_optin: int) -> ChainPlan:
+    """The forward chain's plan on a card of ``sms`` SMs whose blocks may
+    have ``smem_optin`` bytes of shared memory (the mirror of
+    nlspn_propagate.cu:chain_plan, which ``nlspn_chain_plan`` exports). A
+    block's tile holds its band's rows of x and S - 1 halo rows, each
+    LEFT + band_runs * RUN + RIGHT floats; whole rows where they fit,
+    else bands of rows, else one row in chunks of runs. Raises ValueError
+    for an empty plane, or where not even a band of one run fits."""
+    Rr = -(-W // RUN)
+    runs = B * H * Rr
+    if runs < 1 or sms < 1:
+        raise ValueError(f"{NAME}: no plan for an empty plane or card")
+    blocks = min(-(-runs // MIN_RUNS), sms)
+    rpb = -(-runs // blocks)
+    threads = min(-(-rpb // 32) * 32, MAX_THREADS)
+    rows = min((rpb + Rr - 2) // Rr + 1, B * H)
+    fit = smem_optin // ((LEFT + Rr * RUN + RIGHT) * 4)
+    if fit >= rows + S - 1:
+        band_rows, band_runs = rows, Rr
+    elif fit >= S:
+        band_rows, band_runs = fit - (S - 1), Rr
+    else:
+        band_rows = 1
+        band_runs = (smem_optin // (S * 4) - LEFT - RIGHT) // RUN
+        if band_runs < 1:
+            raise ValueError(f"{NAME}: no band of the chain fits in "
+                             f"{smem_optin} bytes of shared memory")
+    tile = (band_rows + S - 1) * (LEFT + band_runs * RUN + RIGHT) * 4
+    nres = min(rpb, (smem_optin - tile) // (S * S * 16))
+    return ChainPlan(-(-runs // rpb), threads, rpb, nres, band_rows,
+                     band_runs, tile + nres * S * S * 16)
 
 
 def _stack_dtype(M: torch.Tensor) -> torch.dtype:
@@ -38,6 +94,9 @@ def _stack_dtype(M: torch.Tensor) -> torch.dtype:
 def _check_planes(name, planes, M16, fix, R):
     lo, hi = shift_window(R)
     S = hi - lo + 1
+    if S not in CHAIN_WINDOWS:
+        raise ValueError(f"{name}: a shift window of {S} (R={R}) is not "
+                         f"one of {CHAIN_WINDOWS}")
     B, H, W = planes.shape
     if tuple(M16.shape) != (B, S, S, H, W) or M16.dtype != torch.bfloat16:
         raise ValueError(f"{name}: plane (B,H,W) f32 and M (B,{S},{S},H,W) "
@@ -53,9 +112,16 @@ def _check_planes(name, planes, M16, fix, R):
 
 def _launch_chain(lib, feat0, M16, fix, X, R, prop_time):
     """Runs kernels 3 (X None) or 4 (X the (T,B,H,W) stack) for
-    ``prop_time`` >= 1 steps; returns the (B, H, W) f32 output."""
+    ``prop_time`` >= 1 steps in one cooperative launch; returns the
+    (B, H, W) f32 output."""
     lo, S = _check_planes(NAME, feat0, M16, fix, R)
     B, H, W = feat0.shape
+    # the kernel reads the planes' rows and each run's masks as 16-byte
+    # vectors: M's rows are padded with zeros to a multiple of 8 values
+    if W % RUN:
+        M16 = F.pad(M16, (0, -W % RUN))
+    feat0, M16, fix = (t.clone() if t is not None and t.data_ptr() % 16
+                       else t for t in (feat0, M16, fix))
     out = torch.empty_like(feat0)
     tmp = torch.empty_like(feat0) if prop_time > 1 else out
     rc = lib.nlspn_propagate(feat0.data_ptr(), M16.data_ptr(),
@@ -75,7 +141,7 @@ def propagate_x(feat0: torch.Tensor, M16: torch.Tensor,
     feat0, fix: (B, H, W) f32 (fix None: no preserve substitution); M16:
     (B, S, S, H, W) bf16. Returns (out f32, X (T, B, H, W) in ``x_dtype``).
     A CPU tensor takes the plain version; any other launches the CUDA
-    kernel (``prop_time`` launches) or raises."""
+    kernel (one cooperative launch for the chain) or raises."""
     if feat0.device.type == "cpu":
         return propagate_x_plain(feat0, M16, fix, prop_time, R, x_dtype)
     lib = build.library(NAME)
@@ -84,7 +150,7 @@ def propagate_x(feat0: torch.Tensor, M16: torch.Tensor,
     X = torch.empty((prop_time,) + tuple(feat0.shape), dtype=x_dtype,
                     device=feat0.device)
     out = _launch_chain(lib, feat0, M16, fix, X, R, prop_time)
-    build.LAUNCHES[NAME_X] += prop_time
+    build.LAUNCHES[NAME_X] += 1
     return out, X
 
 
@@ -107,9 +173,6 @@ def reverse_chain(g0: torch.Tensor, M16: torch.Tensor,
     lo, S = _check_planes(CHAIN, g0, M16, fix, R)
     if g_dtype not in (torch.float32, torch.bfloat16) or prop_time < 1:
         raise ValueError(f"{CHAIN}: g_dtype f32/bf16 and prop_time >= 1")
-    if S not in CHAIN_WINDOWS:
-        raise ValueError(f"{CHAIN}: a shift window of {S} (R={R}) is not "
-                         f"one of {CHAIN_WINDOWS}")
     B, H, W = g0.shape
     # the kernel reads g0's rows and M's planes as 16-byte vectors
     g0, M16 = (t.clone() if t.data_ptr() % 16 else t for t in (g0, M16))
@@ -181,7 +244,9 @@ def nlspn_stencil_propagate(feat_init: torch.Tensor, M: torch.Tensor,
     ``prop_time`` steps. When a gradient is wanted it is the card Function
     (kernels 4, 5 and the shift correlation on the card, their plain
     versions on the CPU); otherwise the served chain: the plain stencil for
-    a CPU tensor, else the CUDA kernel (``prop_time`` launches) or raise."""
+    a CPU tensor, else the CUDA kernel (one cooperative launch) or raise.
+    The kernels take the shift windows of ``CHAIN_WINDOWS`` (R = 0..4);
+    another raises ValueError."""
     if feat_init.device.type == "cpu":
         if _needs_grad(feat_init, M, feat_fix):
             return _CardPropagate.apply(feat_init, M, feat_fix, prop_time, R,
@@ -205,7 +270,7 @@ def nlspn_stencil_propagate(feat_init: torch.Tensor, M: torch.Tensor,
     fix = feat_fix[:, 0].float().contiguous() if preserve_input else None
     out = _launch_chain(lib, feat0, M.to(torch.bfloat16).contiguous(), fix,
                         None, R, prop_time)
-    build.LAUNCHES[NAME] += prop_time
+    build.LAUNCHES[NAME] += 1
     return out[:, None].to(feat_init.dtype)
 
 

@@ -19,6 +19,7 @@ import torch
 from rdfc_gan_torch.ops import nlspn as tn
 from rdfc_gan_torch.ops import nlspn_guard as tguard
 from rdfc_gan_torch.ops import nlspn_stencil as tst
+from rdfc_gan_torch.ops.kernels import build
 from rdfc_gan_torch.ops.kernels import mask_kernel as tmk
 from rdfc_gan_torch.ops.kernels import nlspn_kernel as tnk
 from rdfc_gan_tpu.ops import nlspn as jn
@@ -255,3 +256,148 @@ def test_propagation_kernel_matches_plain_on_card(R, preserve):
                                  preserve)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# ------------------------------------------- the forward chains' kernel --
+# (R, T, (B, H, W), preserve): one step; an odd plane (scalar stores, M's
+# rows padded); S=10 and S=12 with preserve; R=0 and R=1; the served
+# 4x224x304 at S=8 (208 of a block's 258 runs resident on an H100) and at
+# S=10 (131 of 258); a tall odd plane; and 16x352x1216 at S=8, whose
+# blocks take their runs in two bands of rows a step (the rows of 6486
+# runs and their halo pass a block's 227 KB)
+FORWARD_CASES = [(2, 1, (2, 8, 9), False), (2, 5, (2, 17, 23), True),
+                 (3, 4, (1, 17, 23), True), (4, 3, (1, 17, 23), True),
+                 (0, 3, (2, 30, 44), True), (1, 4, (3, 9, 16), False),
+                 (2, 18, (4, 224, 304), False), (3, 6, (4, 224, 304), True),
+                 (2, 4, (1, 4000, 61), True),
+                 (2, 2, (16, 352, 1216), True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,T_,shape,preserve", FORWARD_CASES)
+def test_forward_chain_kernels_match_plain_on_card(R, T_, shape, preserve):
+    """Bit for bit: the served chain against ``stencil_propagate``, and the
+    chain that stores X against ``propagate_x_plain`` with X in f32 and
+    bf16, each one cooperative launch a chain."""
+    _card()
+    S = 2 * R + 4
+    r = np.random.RandomState(30 + R)
+    feat = torch.from_numpy(r.normal(size=shape).astype(np.float32)).cuda()
+    M16 = torch.from_numpy((r.normal(size=(shape[0], S, S) + shape[1:])
+                            * 0.2).astype(np.float32)).to(
+        torch.bfloat16).cuda()
+    fix = torch.from_numpy((np.abs(r.normal(size=shape))
+                            * (r.random_sample(shape) > 0.4)).astype(
+        np.float32)).cuda() if preserve else None
+    fix4 = None if fix is None else fix[:, None]
+    build.reset_launches()
+    got = tnk.nlspn_stencil_propagate(feat[:, None], M16, fix4, T_, R,
+                                      preserve)
+    want = tst.stencil_propagate(feat[:, None], M16, T_, R, fix4, preserve)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for dt in (torch.float32, torch.bfloat16):
+        out, X = tnk.propagate_x(feat, M16, fix, T_, R, dt)
+        pout, pX = tst.propagate_x_plain(feat, M16, fix, T_, R, dt)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, pout, rtol=0, atol=0)
+        torch.testing.assert_close(X, pX, rtol=0, atol=0)
+    assert dict(build.LAUNCHES) == {tnk.NAME: 1, tnk.NAME_X: 2}
+
+
+# an H100 SXM: 132 SMs, 227 KB of shared memory a block
+H100_SMS, H100_SMEM = 132, 232448
+# (B, H, W, S): the planes of FORWARD_CASES
+PLAN_SHAPES = sorted({(s[0], s[1], s[2], 2 * R + 4)
+                      for R, _, s, _ in FORWARD_CASES})
+# a sweep of batches, heights, widths (odd ones, and widths whose row and
+# halo alone pass a block's shared memory, which the plan cuts into chunks
+# of runs) and windows
+PLAN_SWEEP = [(b, h, w, S) for b in (1, 4, 16)
+              for h in (1, 7, 224, 352, 1000)
+              for w in (1, 9, 61, 304, 1216, 4000, 9000) for S in (4, 8, 12)]
+
+
+def _bands(p, Rr, runs, block):
+    """The bands of ``block`` in the order the kernel takes them
+    (nlspn_propagate.cu:propagate_chain_kernel): (first run, end run,
+    first row, end row, first run of the row chunk)."""
+    r0 = block * p.rpb
+    r1 = min(r0 + p.rpb, runs)
+    for ra in range(r0 // Rr, (r1 - 1) // Rr + 1, p.band_rows):
+        rb = min(ra + p.band_rows, (r1 - 1) // Rr + 1)
+        for ca in range(0, Rr, p.band_runs):
+            nc = min(p.band_runs, Rr - ca)
+            fa, fb = max(r0, ra * Rr + ca), min(r1, (rb - 1) * Rr + ca + nc)
+            if fa < fb:
+                yield fa, fb, ra, rb, ca
+
+
+def _check_chain_plan(B_, H_, W_, S):
+    """The forward chain's plan on an H100: every run is owned by one block
+    and lies in one band of it; a band's rows and halo and the resident
+    runs' masks fit in a block's shared memory; no plane is refused."""
+    p = tnk.chain_plan(B_, H_, W_, S, H100_SMS, H100_SMEM)
+    Rr = -(-W_ // tnk.RUN)
+    runs = B_ * H_ * Rr
+    assert 1 <= p.blocks <= H100_SMS
+    assert p.threads % 32 == 0 and 32 <= p.threads <= tnk.MAX_THREADS
+    assert (p.blocks - 1) * p.rpb < runs <= p.blocks * p.rpb
+    assert 0 <= p.nres <= p.rpb
+    assert p.band_rows >= 1 and 1 <= p.band_runs <= Rr
+    assert p.band_runs == Rr or p.band_rows == 1  # a band's runs: one range
+    tile = (p.band_rows + S - 1) * (
+        tnk.LEFT + p.band_runs * tnk.RUN + tnk.RIGHT) * 4
+    assert p.smem == tile + p.nres * S * S * 16 <= H100_SMEM
+    seen = np.zeros(runs, np.int32)
+    for block in range(p.blocks):
+        for fa, fb, ra, rb, ca in _bands(p, Rr, runs, block):
+            assert rb - ra <= p.band_rows
+            for r in (fa, fb - 1):  # a band's runs lie in its rows and chunk
+                assert ra <= r // Rr < rb
+                assert ca <= r % Rr < ca + p.band_runs
+            seen[fa:fb] += 1
+    assert (seen == 1).all()
+    return p
+
+
+@pytest.mark.parametrize("B_,H_,W_,S", PLAN_SHAPES)
+def test_chain_plan_covers_every_run_once(B_, H_, W_, S):
+    """The plan (the mirror of the kernel's, which the card check holds
+    against the kernel's export) at the card tests' planes; the served
+    4x224x304 keeps 208 of a block's 258 runs resident, 16x352x1216 takes
+    two bands of rows."""
+    p = _check_chain_plan(B_, H_, W_, S)
+    if (B_, H_, W_, S) == (4, 224, 304, 8):
+        assert (p.rpb, p.nres, p.band_rows) == (258, 208, 8)
+    if (B_, H_, W_) == (16, 352, 1216):
+        assert p.band_runs == 152 and p.band_rows == 40 and p.nres == 0
+
+
+def test_chain_plan_sweep_refuses_no_plane():
+    """The plan's invariants over a sweep of 315 planes and windows, the
+    widest cut into chunks of runs."""
+    chunked = 0
+    for shape in PLAN_SWEEP:
+        p = _check_chain_plan(*shape)
+        chunked += p.band_runs < -(-shape[2] // tnk.RUN)
+    assert chunked > 0
+
+
+def test_chain_kernels_refuse_other_windows(monkeypatch):
+    """The chain kernels are built for S = 4..12 (R = 0..4): another window
+    raises ValueError naming them, before any launch (meta tensors, the
+    library faked)."""
+    monkeypatch.setattr(build, "library", lambda name: None)
+    monkeypatch.setattr(build, "require_cuda", lambda name, *t: None)
+    B_, H_, W_, R = 1, 5, 6, 5
+    S = 2 * R + 4
+    plane = torch.empty((B_, H_, W_), device="meta")
+    M16 = torch.empty((B_, S, S, H_, W_), dtype=torch.bfloat16, device="meta")
+    for call in (
+            lambda: tnk.propagate_x(plane, M16, None, 3, R, torch.float32),
+            lambda: tnk.reverse_chain(plane, M16, None, 3, R, torch.float32),
+            lambda: tnk.nlspn_stencil_propagate(plane[:, None], M16, None, 3,
+                                                R, False)):
+        with pytest.raises(ValueError, match=r"\(4, 6, 8, 10, 12\)"):
+            call()
