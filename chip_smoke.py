@@ -10,9 +10,11 @@ and PyTorch built for CUDA. It
    shapes of the NLSPN serving and training paths (B=4, 224x304, T=18;
    S=8 and 10; preserve off and on; f32 and bf16 stacks), and times both;
    the three chain kernels (each one cooperative launch a chain) also by
-   their device time a chain and a step; the forward chains also at a
-   plane they take in bands of rows (16x352x1216), and their launch plan's
-   Python mirror against the kernel's own;
+   their device time a chain and a step; all three chains also at a plane
+   they take in bands of rows (16x352x1216), and their launch plan's
+   Python mirror against each kernel's own; the shift correlation with dM
+   in f32 and in bf16, each timed beside its own bound, and its cut's
+   Python mirror against the kernel's;
 3. serves ``configs/rdf_gan_nlspn_config.yaml`` at full width through
    ``python -m rdfc_gan_torch.test``'s code path, with random weights from a
    seed and non-zero NLSPN offsets, and checks that its kernels carried it;
@@ -20,7 +22,8 @@ and PyTorch built for CUDA. It
 5. trains the same config one epoch (16 steps at batch 4, its bfloat16
    compute type) through ``python -m rdfc_gan_torch.train``'s code path
    from seeded G and D, checks the losses, the launch counts of every
-   kernel, that G and D moved, and that ``rdfc_gan_torch.test`` serves the
+   kernel, that the correlation writes dM in the masks' bf16 (no cast
+   pass), that G and D moved, and that ``rdfc_gan_torch.test`` serves the
    written ``best.pth``; prints step times and peak memory; profiles two
    steps;
 6. runs one f32 train step through the kernels and one with their plain
@@ -83,9 +86,8 @@ PEAK_BF16_FLOPS = 989e12
 
 B, H, W, T = 4, 224, 304, 18
 SCATTER_RTOL, SCATTER_ATOL = 1e-6, 1e-6
-PROP_RTOL, PROP_ATOL = 1e-4, 1e-5
-# the forward chain kernels vs plain: the same sums in the same order, a
-# separately rounded multiply and add, so bit for bit
+# the chain kernels and the shift correlation vs plain: the same sums in
+# the same order, a separately rounded multiply and add, so bit for bit
 CHAIN_RTOL, CHAIN_ATOL = 0.0, 0.0
 SERVE_RTOL, SERVE_ATOL = 1e-4, 1e-5
 # instance norm kernels vs plain: the plain versions sum in the kernels'
@@ -300,7 +302,8 @@ def _banded_chain_check(gen):
     """Both forward chains at 16x352x1216, S=8, preserve on, T=2, bit for
     bit against their plain versions: on an H100 a block's rows and halo
     pass its shared memory there, so it takes its runs in two bands of
-    rows a step (the reverse chain refuses this plane)."""
+    rows a step (as the reverse chain does:
+    ``_banded_reverse_chain_check``)."""
     import torch
 
     from rdfc_gan_torch.ops import nlspn_stencil as st
@@ -384,7 +387,8 @@ def backward_kernel_phase():
                 out, X = nlspn_kernel.propagate_x(feat0, M16, fx, T, R, dt)
                 G, dfeat, dfix = nlspn_kernel.reverse_chain(g0, M16, fx, T,
                                                             R, dt)
-                dMk = mask_kernel.shift_correlation(G, X, S, lo)
+                dMk = {odt: mask_kernel.shift_correlation(G, X, S, lo, odt)
+                       for odt in (torch.float32, torch.bfloat16)}
                 torch.cuda.synchronize()
                 pout, pX = st.propagate_x_plain(feat0, M16, fx, T, R, dt)
                 pG, pdfeat, pdfix = st.reverse_chain_plain(g0, M16, fx, T, R,
@@ -394,14 +398,15 @@ def backward_kernel_phase():
                             compare(f"nlspn_propagate_x X {tag}", X, pX,
                                     CHAIN_RTOL, CHAIN_ATOL))
                 err_c = max(compare(f"nlspn_reverse_chain G {tag}", G, pG,
-                                    PROP_RTOL, PROP_ATOL),
+                                    CHAIN_RTOL, CHAIN_ATOL),
                             compare(f"nlspn_reverse_chain dfeat {tag}",
-                                    dfeat, pdfeat, PROP_RTOL, PROP_ATOL),
+                                    dfeat, pdfeat, CHAIN_RTOL, CHAIN_ATOL),
                             compare(f"nlspn_reverse_chain dfix {tag}",
-                                    dfix, pdfix, PROP_RTOL, PROP_ATOL))
-                err_s = compare(f"shift_correlation {tag}", dMk,
-                                mask_kernel.shift_correlation_plain(
-                                    G, X, S, lo), PROP_RTOL, PROP_ATOL)
+                                    dfix, pdfix, CHAIN_RTOL, CHAIN_ATOL))
+                err_s = max(compare(
+                    f"shift_correlation {tag}, dM {odt}", got,
+                    mask_kernel.shift_correlation_plain(G, X, S, lo, odt),
+                    CHAIN_RTOL, CHAIN_ATOL) for odt, got in dMk.items())
                 if R != 2 or preserve or dt != torch.bfloat16:
                     continue
                 plane = B * HW * 4
@@ -425,6 +430,7 @@ def backward_kernel_phase():
                         else time_ms(library))
 
                 chain_case = (feat0, g0, M16, T, R, dt)
+                corr_case = (G, X, S, lo, stack, chain_ops)
 
                 def gather(dM=dM, sy=sy, sx=sx, S=S, dt=dt):
                     return mask_kernel.shift_mask_gather(dM, sy, sx, S, dt)
@@ -451,11 +457,14 @@ def backward_kernel_phase():
                                                        dt),
                     lambda: st.reverse_chain_plain(g0, M16, None, T, R, dt),
                     mbytes + 2 * plane + stack, chain_ops, plain_reps=3)
+                # dM in bf16, the masks' type in the bf16 train step
+                bf16 = torch.bfloat16
                 row("shift_correlation", "shift_correlation",
                     "rdfc_gan_tpu/ops/pallas/mask_kernel.py:167", err_s,
-                    lambda: mask_kernel.shift_correlation(G, X, S, lo),
-                    lambda: mask_kernel.shift_correlation_plain(G, X, S, lo),
-                    2 * stack + B * S * S * HW * 4, chain_ops, plain_reps=3)
+                    lambda: mask_kernel.shift_correlation(G, X, S, lo, bf16),
+                    lambda: mask_kernel.shift_correlation_plain(G, X, S, lo,
+                                                                bf16),
+                    2 * stack + B * S * S * HW * 2, chain_ops, plain_reps=3)
     for r in rows.values():
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
@@ -472,7 +481,88 @@ def backward_kernel_phase():
         "nlspn_reverse_chain",
         lambda t: nlspn_kernel.reverse_chain(g0, M16, None, t, R, dt), T_,
         rows["nlspn_reverse_chain"]["bound_ms"])
+    G, X, S, lo, stack, chain_ops = corr_case
+    for odt in (torch.float32, torch.bfloat16):
+        bnd, by = bound_ms(2 * stack + B * S * S * HW * odt.itemsize,
+                           chain_ops)
+
+        def corr(odt=odt):
+            return mask_kernel.shift_correlation(G, X, S, lo, odt)
+
+        dev = _device_ms(corr, n=10)
+        print(f"  shift_correlation, dM {odt}: events {time_ms(corr):.4f} "
+              f"ms, device {dev:.4f} ms; bound {bnd * 1e3:.2f} us ({by}), "
+              f"the device time at {_pct(bnd, dev)} of it")
+    _banded_reverse_chain_check(gen)
+    _check_corr_plan_mirror()
     return rows
+
+
+def _banded_reverse_chain_check(gen):
+    """The reverse chain at 16x352x1216, S=8, preserve on, T=2, f32 and bf16
+    G, bit for bit against its plain version: on an H100 a block's rows and
+    halo pass its shared memory there, so it takes its runs in two bands of
+    rows a step. Then its device time for T=18 and T=1 (bf16 G)."""
+    import torch
+
+    from rdfc_gan_torch.ops import nlspn_stencil as st
+    from rdfc_gan_torch.ops.kernels import nlspn_kernel
+
+    shape, R, T_ = (16, 352, 1216), 2, 2
+    g0 = torch.randn(shape, device="cuda", generator=gen)
+    M16 = (torch.randn((shape[0], 8, 8) + shape[1:], device="cuda",
+                       generator=gen) * 0.2).to(torch.bfloat16)
+    keep = torch.rand(shape, device="cuda", generator=gen) > 0.6
+    fix = torch.where(keep, g0.abs(), torch.zeros_like(g0))
+    tag = f"{'x'.join(map(str, shape))} S=8 T={T_} preserve=True"
+    for dt in (torch.float32, torch.bfloat16):
+        got = nlspn_kernel.reverse_chain(g0, M16, fix, T_, R, dt)
+        torch.cuda.synchronize()
+        want = st.reverse_chain_plain(g0, M16, fix, T_, R, dt)
+        for what, a, b in zip(("G", "dfeat", "dfix"), got, want):
+            compare(f"nlspn_reverse_chain {what} {tag} {dt}", a, b,
+                    CHAIN_RTOL, CHAIN_ATOL)
+
+    def chain(t):  # the train step's G type
+        return nlspn_kernel.reverse_chain(g0, M16, fix, t, R, torch.bfloat16)
+
+    d = _device_ms(lambda: chain(T), n=5)
+    d1 = _device_ms(lambda: chain(1), n=5)
+    print(f"  nlspn_reverse_chain {'x'.join(map(str, shape))} S=8 "
+          f"preserve=True, G bf16: device {d:.4f} ms a chain of {T} steps "
+          f"(the wrapper's zeroed dfix included), {d1:.4f} a one-step "
+          f"chain, {(d - d1) / (T - 1) * 1e3:.2f} us each further step; "
+          f"events {time_ms(lambda: chain(T), reps=5):.4f} ms")
+
+
+# (B, H, W, S) at which the correlation's cut is held against the kernel's
+# export: planes it takes and planes and windows it refuses
+CORR_PLAN_SHAPES = [(b, h, w, S) for b in (1, 4, 16, 70000)
+                    for h in (1, 7, 8, 224, 352, 600000)
+                    for w in (1, 23, 32, 304, 1216) for S in range(2, 15)]
+
+
+def _check_corr_plan_mirror():
+    """``mask_kernel.corr_plan`` against the cut the built correlation
+    kernel exports (``shift_correlation_plan``) at CORR_PLAN_SHAPES."""
+    import ctypes
+
+    from rdfc_gan_torch.ops.kernels import build, mask_kernel
+
+    lib = build.library(mask_kernel.CORR)
+    out = (ctypes.c_int * 8)()
+    for shape in CORR_PLAN_SHAPES:
+        rc = lib.shift_correlation_plan(*shape, out)
+        try:
+            mirror = tuple(mask_kernel.corr_plan(*shape))
+        except ValueError:
+            mirror = None
+        if (mirror is None) != (rc != 0) or (rc == 0 and
+                                             tuple(out) != mirror):
+            fail(f"mask_kernel.corr_plan{shape} = {mirror}, the kernel's "
+                 f"{tuple(out)} (rc {rc})")
+    print(f"  corr_plan matches the kernel's exported cut at "
+          f"{len(CORR_PLAN_SHAPES)} (plane, window) cases")
 
 
 def _chain_device_times(name, chain, T_, bnd):
@@ -502,35 +592,39 @@ CHAIN_PLAN_SHAPES = [(2, 8, 9, 8), (2, 17, 23, 8), (1, 17, 23, 10),
 
 
 def _check_chain_plan_mirror():
-    """``nlspn_kernel.chain_plan`` against the plan the built kernel
-    exports (``nlspn_chain_plan``), for this card's SM count and an H100's
-    and for three shared-memory sizes, at CHAIN_PLAN_SHAPES."""
+    """``nlspn_kernel.chain_plan`` against the plan each built chain kernel
+    exports (``nlspn_chain_plan``, ``nlspn_reverse_chain_plan``), for this
+    card's SM count and an H100's and for three shared-memory sizes, at
+    CHAIN_PLAN_SHAPES."""
     import ctypes
 
     import torch
 
     from rdfc_gan_torch.ops.kernels import build, nlspn_kernel as nk
 
-    lib = build.library(nk.NAME)
     out = (ctypes.c_int * 7)()
     sms = sorted({132, torch.cuda.get_device_properties(0)
                   .multi_processor_count, 16})
-    n = 0
-    for shape in CHAIN_PLAN_SHAPES:
-        for sm in sms:
-            for smem in (232448, 48 * 1024, 4096):
-                rc = lib.nlspn_chain_plan(*shape, sm, smem, out)
-                try:
-                    mirror = tuple(nk.chain_plan(*shape, sm, smem))
-                except ValueError:
-                    mirror = None
-                if (mirror is None) != (rc != 0) or (
-                        rc == 0 and tuple(out) != mirror):
-                    fail(f"nlspn_kernel.chain_plan{shape + (sm, smem)} = "
-                         f"{mirror}, the kernel's {tuple(out)} (rc {rc})")
-                n += 1
-    print(f"  chain_plan matches the kernel's exported plan at {n} "
-          f"(plane, window, SMs, shared memory) cases")
+    for name, export in ((nk.NAME, "nlspn_chain_plan"),
+                         (nk.CHAIN, "nlspn_reverse_chain_plan")):
+        plan = getattr(build.library(name), export)
+        n = 0
+        for shape in CHAIN_PLAN_SHAPES:
+            for sm in sms:
+                for smem in (232448, 48 * 1024, 4096):
+                    rc = plan(*shape, sm, smem, out)
+                    try:
+                        mirror = tuple(nk.chain_plan(*shape, sm, smem))
+                    except ValueError:
+                        mirror = None
+                    if (mirror is None) != (rc != 0) or (
+                            rc == 0 and tuple(out) != mirror):
+                        fail(f"nlspn_kernel.chain_plan"
+                             f"{shape + (sm, smem)} = {mirror}, {export}'s "
+                             f"{tuple(out)} (rc {rc})")
+                    n += 1
+        print(f"  chain_plan matches {export} at {n} (plane, window, SMs, "
+              f"shared memory) cases")
 
 
 # offsets of the served model: the scale of conv_offset_aff is set so that
@@ -735,7 +829,7 @@ def train_phase(workdir):
     from rdfc_gan_torch import test as port_test
     from rdfc_gan_torch import train as port_train
     from rdfc_gan_torch.cli import parse_config
-    from rdfc_gan_torch.ops.kernels import build, norm_kernel
+    from rdfc_gan_torch.ops.kernels import build, mask_kernel, norm_kernel
     from rdfc_gan_torch.ops.nlspn_guard import escalate_nlspn_cfg
 
     pth = _seeded_nets(parse_config(_train_args(workdir, "")[:-2]), workdir)
@@ -743,16 +837,24 @@ def train_phase(workdir):
     cfg = parse_config(args)
     in_dtypes = collections.Counter()
     real_in_fwd = norm_kernel.instance_norm_fwd
+    dM_dtypes = collections.Counter()
+    real_corr = mask_kernel.shift_correlation
 
     def in_fwd(x, eps):  # the type autocast hands to the IN Function
         in_dtypes[str(x.dtype)] += 1
         return real_in_fwd(x, eps)
 
+    def corr(*args):  # the type the correlation itself writes dM in
+        dM = real_corr(*args)
+        dM_dtypes[str(dM.dtype)] += 1
+        return dM
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
     t0 = time.perf_counter()
-    with mock.patch.object(norm_kernel, "instance_norm_fwd", in_fwd):
+    with mock.patch.object(norm_kernel, "instance_norm_fwd", in_fwd), \
+            mock.patch.object(mask_kernel, "shift_correlation", corr):
         res = port_train.run(cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -782,6 +884,12 @@ def train_phase(workdir):
     print(f"  kernel launches {counts}; expected {want}")
     print(f"  instance norm inputs by type (W-AdaIN under the step's "
           f"autocast, and the evaluation): {dict(in_dtypes)}")
+    print(f"  dM by the type the correlation kernel wrote it in (the "
+          f"masks' type: no cast pass): {dict(dM_dtypes)}")
+    if engine.compute_dtype == torch.bfloat16 and set(dM_dtypes) != {
+            str(torch.bfloat16)}:
+        fail(f"the bf16 step's correlation wrote dM as {dict(dM_dtypes)}, "
+             f"not in the masks' bf16")
     print("  metrics after the epoch: " + ", ".join(
         f"{k}={v:.6g}" for k, v in res["metrics"].items()))
     if not all(np.isfinite(v) for v in res["losses"].values()):

@@ -51,7 +51,8 @@
 // bands within a step: bands of whole rows, or, where not even one row and
 // its halo fit, one row cut into chunks of runs (chain_plan; a band is
 // staged, summed, and the block synchronised before the next). So no
-// plane is refused.
+// plane is refused. The plan and the staging are shared with the reverse
+// chain (nlspn_chain.cuh).
 //
 // Where the time goes (PERF.md): about 7 us a step at 4 x 224 x 304,
 // S = 8, on the H100: the chain is bound by its T dependent steps (a grid
@@ -62,65 +63,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "nlspn_chain.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int kRun = 8;           // pixels a run
-constexpr int kLeft = 8;          // zero columns left of a band (>= -lo)
-constexpr int kRight = 8;         // zero columns right of a band (>= hi)
-constexpr int kMinRuns = 32;      // runs a block, at least
-constexpr int kMaxThreads = 384;  // 170 registers a thread
-
-// How a chain is cut (nlspn_kernel.py:chain_plan is its mirror): `blocks`
-// blocks of `threads` threads, `rpb` runs a block, the first `nres` of
-// them with their masks resident in shared memory; a block takes its runs
-// in bands of `band_rows` rows of `band_runs` runs (band_runs < runs a row
-// only with band_rows == 1); `smem` bytes of shared memory a block.
-struct Plan {
-  int blocks, threads, rpb, nres, band_rows, band_runs, smem;
-};
-
-// The plan of a (B, H, W) chain with an S x S window on a card of `sms`
-// SMs whose blocks may have `smem_max` bytes of shared memory. False for an
-// empty plane, or where not even a band of one run fits (a card with under
-// 1 KB a block).
-bool chain_plan(int B, int H, int W, int S, int sms, int smem_max, Plan* p) {
-  const int Rr = (W + kRun - 1) / kRun;
-  const long long runs = (long long)B * H * Rr;
-  if (runs < 1 || sms < 1) return false;
-  long long blocks = (runs + kMinRuns - 1) / kMinRuns;
-  if (blocks > sms) blocks = sms;
-  const long long rpb = (runs + blocks - 1) / blocks;
-  p->blocks = (int)((runs + rpb - 1) / rpb);
-  p->rpb = (int)rpb;
-  p->threads = (int)((rpb + 31) / 32 * 32);
-  if (p->threads > kMaxThreads) p->threads = kMaxThreads;
-  // rows that rpb consecutive runs can span
-  long long rows = (rpb + Rr - 2) / Rr + 1;
-  if (rows > (long long)B * H) rows = (long long)B * H;
-  const long long row_bytes = (long long)(kLeft + Rr * kRun + kRight) * 4;
-  const long long fit = smem_max / row_bytes;  // tile rows at full width
-  if (fit >= rows + S - 1) {
-    p->band_rows = (int)rows;
-    p->band_runs = Rr;
-  } else if (fit >= S) {
-    p->band_rows = (int)(fit - (S - 1));
-    p->band_runs = Rr;
-  } else {
-    p->band_rows = 1;
-    p->band_runs = (smem_max / (S * 4) - kLeft - kRight) / kRun;
-    if (p->band_runs < 1) return false;
-  }
-  const long long tile = (long long)(p->band_rows + S - 1) *
-                         (kLeft + p->band_runs * kRun + kRight) * 4;
-  const long long run_bytes = (long long)S * S * 16;
-  long long nres = (smem_max - tile) / run_bytes;
-  if (nres > rpb) nres = rpb;
-  p->nres = (int)nres;
-  p->smem = (int)(tile + nres * run_bytes);
-  return true;
-}
 
 __device__ __forceinline__ float lo_bf16(unsigned v) {
   return __uint_as_float(v << 16);
@@ -165,10 +112,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(src));
-}
-
-__device__ __forceinline__ float substitute(float v, float f) {
-  return f > 0.f ? f : v;
 }
 
 // The sums of a run's 8 pixels, acc[k] = sum_{iy, ix} M_s[k] * x, in the
@@ -242,90 +185,12 @@ struct ChainArgs {
   int Wt;  // tile row stride, floats: kLeft + band_runs * kRun + kRight
 };
 
-// Stages the substituted x of global rows ra + LO .. rb - 1 + HI (tile row
-// i is global row ra + LO + i), image columns from c0 - kLeft on, a.Wt of
-// them, into the tile; zero outside the image's columns and outside the
-// B * H rows (a row of another image is read but never used: a run checks
-// that each window row lies in its own image). A few loads in flight a
-// thread.
-template <int LO, int HI>
-__device__ __forceinline__ void stage(const ChainArgs& a, const float* src,
-                                      float* tile, int ra, int rb, int c0) {
-  const int BH = a.B * a.H;
-  const int trows = rb - ra + HI - LO;
-  const int tc0 = c0 - kLeft;  // image column of tile column 0
-  if ((a.W & 3) == 0) {        // a float4 is all inside the image or out
-    const int Wt4 = a.Wt >> 2;
-    const int total = trows * Wt4;
-    for (int base = threadIdx.x; base < total; base += 4 * blockDim.x) {
-      float4 v[4];
-      int to[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int idx = base + u * blockDim.x;
-        to[u] = -1;
-        if (idx < total) {
-          const int row = idx / Wt4;
-          const int q = idx - row * Wt4;
-          const int gr = ra + LO + row;
-          const int col = tc0 + 4 * q;
-          to[u] = row * a.Wt + 4 * q;
-          v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-          if ((unsigned)gr < (unsigned)BH && (unsigned)col < (unsigned)a.W) {
-            const long long o = (long long)gr * a.W + col;
-            v[u] = __ldcg(reinterpret_cast<const float4*>(src + o));
-            if (a.fix) {
-              const float4 f = __ldg(reinterpret_cast<const float4*>(
-                  a.fix + o));
-              v[u] = make_float4(substitute(v[u].x, f.x),
-                                 substitute(v[u].y, f.y),
-                                 substitute(v[u].z, f.z),
-                                 substitute(v[u].w, f.w));
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (to[u] >= 0) *reinterpret_cast<float4*>(tile + to[u]) = v[u];
-    }
-  } else {
-    const int total = trows * a.Wt;
-    for (int base = threadIdx.x; base < total; base += 8 * blockDim.x) {
-      float v[8];
-      int to[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int idx = base + u * blockDim.x;
-        to[u] = -1;
-        if (idx < total) {
-          const int row = idx / a.Wt;
-          const int c = idx - row * a.Wt;
-          const int gr = ra + LO + row;
-          const int col = tc0 + c;
-          to[u] = idx;
-          v[u] = 0.f;
-          if ((unsigned)gr < (unsigned)BH && (unsigned)col < (unsigned)a.W) {
-            const long long o = (long long)gr * a.W + col;
-            v[u] = __ldcg(src + o);
-            if (a.fix) v[u] = substitute(v[u], __ldg(a.fix + o));
-          }
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < 8; ++u)
-        if (to[u] >= 0) tile[to[u]] = v[u];
-    }
-  }
-}
-
 // S: the shift window's side (lo = 1 - S / 2); kEmitX: also store X[t],
 // in XT.
 template <int S, bool kEmitX, typename XT>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     propagate_chain_kernel(const ChainArgs a) {
   constexpr int LO = 1 - S / 2;
-  constexpr int HI = LO + S - 1;
   constexpr int SS = S * S;
   // the window of a run's row iy: tile columns from (w0 - c0) + OFF on,
   // loaded as aligned float4 from (w0 - c0) + A0 (sum_run)
@@ -385,7 +250,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
         if (fa >= fb) continue;
         if (staged) __syncthreads();  // the tile is free
         const int c0 = ca * kRun;
-        stage<LO, HI>(a, src, tile, ra, rb, c0);
+        stage_rows(src, a.fix, tile, a.W, a.B * a.H, a.Wt, ra + LO,
+                   rb - ra + S - 1, c0 - kLeft);
         if (!staged && t == 0)  // the resident masks have landed
           asm volatile("cp.async.wait_all;\n" ::: "memory");
         staged = true;
@@ -464,17 +330,6 @@ int launch_s(const ChainArgs& a, int S, cudaStream_t stream) {
   return (int)cudaErrorInvalidValue;
 }
 
-int card(int* sms, int* smem_max) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(smem_max,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return (int)e;
-}
-
 }  // namespace
 
 // feat0, fix, out, tmp: (B, H, W) f32, contiguous, 16-byte aligned; fix
@@ -494,7 +349,7 @@ extern "C" int nlspn_propagate(const void* feat0, const void* M,
   const int e = card(&sms, &smem_max);
   if (e != 0) return e;
   ChainArgs a = {};
-  if (!chain_plan(B, H, W, S, sms, smem_max, &a.p))
+  if (!chain_plan(B, H, W, S - 1, S * S * 16, sms, smem_max, &a.p))
     return (int)cudaErrorInvalidValue;
   a.feat0 = static_cast<const float*>(feat0);
   a.M = static_cast<const unsigned short*>(M);
@@ -524,7 +379,7 @@ extern "C" int nlspn_propagate(const void* feat0, const void* M,
 extern "C" int nlspn_chain_plan(int B, int H, int W, int S, int sms,
                                 int smem_max, int* out) {
   Plan p;
-  if (!chain_plan(B, H, W, S, sms, smem_max, &p))
+  if (!chain_plan(B, H, W, S - 1, S * S * 16, sms, smem_max, &p))
     return (int)cudaErrorInvalidValue;
   const int v[7] = {p.blocks, p.threads, p.rpb, p.nres, p.band_rows,
                     p.band_runs, p.smem};

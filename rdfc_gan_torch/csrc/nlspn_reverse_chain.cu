@@ -43,7 +43,13 @@
 // a thread; a thread loads, for each iy, the 8 + S - 1 values its run
 // reads as 16-byte vectors, and sums its 8 pixels' products into 8 f32
 // accumulators. Its stores (G[t], the next plane, dfix) are 16 or 32 bytes
-// a run where W is a multiple of 8, else scalars.
+// a run where W is a multiple of 8, else scalars. Where a block's rows
+// and halo would pass its shared memory, it takes its runs in bands within
+// a step, as the forward chains do: bands of whole rows, or, where not even
+// one row and its halo fit, one row cut into chunks of runs; a band is
+// staged, summed, and the block synchronised before the next. The plan
+// (chain_plan) and the staging are the forward chains' own
+// (nlspn_chain.cuh), so no plane is refused.
 //
 // Where the time goes (PERF.md): the layout pass, then a few us a step:
 // the chain is bound by its T dependent steps (a grid barrier, the staging
@@ -53,17 +59,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <cstdint>
+#include "nlspn_chain.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int kRun = 8;        // pixels a run
-constexpr int kLeft = 8;       // zero columns left of a tile row (>= hi)
-constexpr int kRight = 8;      // zero columns right of a tile row's runs
-constexpr int kMinRuns = 32;   // runs a block, at least
-constexpr int kMaxThreads = 384;  // 170 registers a thread
 
 __device__ __forceinline__ float lo_bf16(unsigned v) {
   return __uint_as_float(v << 16);
@@ -110,12 +110,10 @@ struct ChainArgs {
   float* tmp;
   uint4* scratch;  // (S * S, runs) runs' vectors past the resident ones
   int B, H, W, T;
-  int Rr;      // runs a row
-  int runs;    // B * H * Rr
-  int rpb;     // runs a block
-  int nres;    // runs of a block resident in shared memory
-  int Wt;      // tile row stride, floats: kLeft + Rr * kRun + kRight
-  int tile_rows;  // rows of a block's tile, at most
+  int Rr;    // runs a row
+  int runs;  // B * H * Rr
+  Plan p;
+  int Wt;  // tile row stride, floats: kLeft + band_runs * kRun + kRight
 };
 
 // 8 bf16 (one 16-byte vector) of a row from element `first` on, zero
@@ -195,16 +193,75 @@ __device__ __forceinline__ void preshift_row(const unsigned short* row0,
   }
 }
 
-// S: the shift window's side (lo = 1 - S / 2); GT: the G stack's type.
-template <int S, typename GT>
+// Stages global rows row0 .. row0 + trows - 1 of the plane's image columns
+// into tile columns kLeft .. kLeft + W - 1 (tile row i is row row0 + i),
+// leaving the margins as they are; rows outside the B * H rows are left too
+// (a run never reads them). A few loads in flight a thread.
+__device__ __forceinline__ void stage_image_rows(const float* src,
+                                                 float* tile, int W, int BH,
+                                                 int Wt, int row0,
+                                                 int trows) {
+  if ((W & 3) == 0) {
+    const int W4 = W >> 2;
+    const int total = trows * W4;
+    for (int base = threadIdx.x; base < total; base += 4 * blockDim.x) {
+      float4 v[4];
+      int to[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int idx = base + u * blockDim.x;
+        const int row = idx / W4;
+        const int gr = row0 + row;
+        to[u] = -1;
+        if (idx < total && gr >= 0 && gr < BH) {
+          const int c4 = idx - row * W4;
+          v[u] = __ldcg(reinterpret_cast<const float4*>(
+                            src + (long long)gr * W) + c4);
+          to[u] = row * Wt + kLeft + 4 * c4;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (to[u] >= 0) *reinterpret_cast<float4*>(tile + to[u]) = v[u];
+    }
+  } else {
+    const int total = trows * W;
+    for (int base = threadIdx.x; base < total; base += 8 * blockDim.x) {
+      float v[8];
+      int to[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int idx = base + u * blockDim.x;
+        const int row = idx / W;
+        const int gr = row0 + row;
+        to[u] = -1;
+        if (idx < total && gr >= 0 && gr < BH) {
+          const int c = idx - row * W;
+          v[u] = __ldcg(src + (long long)gr * W + c);
+          to[u] = row * Wt + kLeft + c;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (to[u] >= 0) tile[to[u]] = v[u];
+    }
+  }
+}
+
+// S: the shift window's side (lo = 1 - S / 2); GT: the G stack's type;
+// kChunks: the plan cuts a row into chunks of runs (band_runs < Rr). Bands
+// of whole rows keep their margins outside the image in every band, so
+// they are zeroed once and only the image columns are staged; chunks stage
+// their margins' neighbouring columns too (stage_rows).
+template <int S, typename GT, bool kChunks>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     reverse_chain_kernel(const ChainArgs a) {
   constexpr int LO = 1 - S / 2;
   constexpr int HI = LO + S - 1;
   constexpr int SS = S * S;
-  // the window of a run's row iy: tile columns from w0 + OFF on, loaded as
-  // NV aligned float4 from w0 + A0; pixel k, shift ix reads window
-  // element SKIP + k - ix + S - 1
+  // the window of a run's row iy: tile columns from (w0 - c0) + OFF on,
+  // loaded as NV aligned float4 from (w0 - c0) + A0 (c0: the band's first
+  // column); pixel k, shift ix reads window element SKIP + k - ix + S - 1
   constexpr int OFF = kLeft - HI;
   constexpr int A0 = OFF & ~3;
   constexpr int SKIP = OFF - A0;
@@ -214,25 +271,28 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 
   extern __shared__ __align__(16) unsigned char smem[];
   float* tile = reinterpret_cast<float*>(smem);
-  const int r0 = blockIdx.x * a.rpb;
-  const int r1 = min(r0 + a.rpb, a.runs);
+  const Plan& p = a.p;
+  const int r0 = blockIdx.x * p.rpb;
+  const int r1 = min(r0 + p.rpb, a.runs);
   const int nrun = r1 - r0;
   const int gr0 = r0 / a.Rr;
-  const int grA = gr0 - HI;                      // the tile's first row
-  const int nrows = (r1 - 1) / a.Rr - gr0 + S;  // rows the tile holds
-  // the resident runs' vectors, [SS][nres], after the tile (Wt floats is
-  // a multiple of 16 bytes)
-  uint4* Ms = reinterpret_cast<uint4*>(tile + (size_t)a.tile_rows * a.Wt);
+  const int grL = (r1 - 1) / a.Rr;
+  // the resident runs' vectors, [SS][p.nres], after the tile (Wt floats is
+  // a multiple of 32 bytes)
+  uint4* Ms = reinterpret_cast<uint4*>(
+      tile + (size_t)(p.band_rows + S - 1) * a.Wt);
   const int BH = a.B * a.H;
   const long long HW = (long long)a.H * a.W;
   const bool vec = (a.W % kRun) == 0;
 
-  // zero the tile columns that no step writes: left and right margins
-  const int margin = a.Wt - a.W;
-  for (int i = threadIdx.x; i < nrows * margin; i += blockDim.x) {
-    const int row = i / margin;
-    const int c = i - row * margin;
-    tile[row * a.Wt + (c < kLeft ? c : a.W + c)] = 0.f;
+  if constexpr (!kChunks) {  // the margins, zero in every band
+    const int rows = min(p.band_rows, grL - gr0 + 1) + S - 1;
+    const int margin = a.Wt - a.W;
+    for (int i = threadIdx.x; i < rows * margin; i += blockDim.x) {
+      const int row = i / margin;
+      const int c = i - row * margin;
+      tile[row * a.Wt + (c < kLeft ? c : a.W + c)] = 0.f;
+    }
   }
 
   // the pre-shifted masks of the owned runs
@@ -257,8 +317,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       }
 #pragma unroll
       for (int ix = 0; ix < S; ++ix) {
-        if (j < a.nres)
-          Ms[(s0 + ix) * a.nres + j] = q[ix];
+        if (j < p.nres)
+          Ms[(s0 + ix) * p.nres + j] = q[ix];
         else
           a.scratch[(size_t)(s0 + ix) * a.runs + r] = q[ix];
       }
@@ -267,177 +327,133 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 
   cg::grid_group grid = cg::this_grid();
   const long long plane = (long long)BH * a.W;
-  const bool vec4 = (a.W % 4) == 0;
   const float* src = a.g0;
   for (int i = 0; i < a.T; ++i) {
     const int t = a.T - 1 - i;
     float* dst = ((a.T - 1 - i) % 2 == 0) ? a.dfeat : a.tmp;
-    // this step's gg rows, from L2 (other blocks wrote them), a few loads
-    // in flight a thread
-    if (vec4) {
-      const int W4 = a.W >> 2;
-      const int total = nrows * W4;
-      for (int base = threadIdx.x; base < total; base += 4 * blockDim.x) {
-        float4 v[4];
-        int to[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int idx = base + u * blockDim.x;
-          const int row = idx / W4;
-          const int gr = grA + row;
-          to[u] = -1;
-          if (idx < total && gr >= 0 && gr < BH) {
-            const int c4 = idx - row * W4;
-            v[u] = __ldcg(reinterpret_cast<const float4*>(
-                              src + (long long)gr * a.W) + c4);
-            to[u] = row * a.Wt + kLeft + 4 * c4;
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          if (to[u] >= 0) *reinterpret_cast<float4*>(tile + to[u]) = v[u];
-      }
-    } else {
-      const int total = nrows * a.W;
-      for (int base = threadIdx.x; base < total; base += 8 * blockDim.x) {
-        float v[8];
-        int to[8];
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          const int idx = base + u * blockDim.x;
-          const int row = idx / a.W;
-          const int gr = grA + row;
-          to[u] = -1;
-          if (idx < total && gr >= 0 && gr < BH) {
-            const int c = idx - row * a.W;
-            v[u] = __ldcg(src + (long long)gr * a.W + c);
-            to[u] = row * a.Wt + kLeft + c;
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-          if (to[u] >= 0) tile[to[u]] = v[u];
-      }
-    }
-    __syncthreads();
     GT* Gt = static_cast<GT*>(a.G) + (long long)t * plane;
-    for (int j = threadIdx.x; j < nrun; j += blockDim.x) {
-      const int r = r0 + j;
-      const int gr = r / a.Rr;
-      const int b = gr / a.H;
-      const int h = gr - b * a.H;
-      const int w0 = (r - gr * a.Rr) * kRun;
-      float acc[kRun];
+    bool staged = false;
+    for (int ra = gr0; ra <= grL; ra += p.band_rows) {
+      const int rb = min(ra + p.band_rows, grL + 1);
+      for (int ca = 0; ca < a.Rr; ca += p.band_runs) {
+        // the band's runs: whole rows ra .. rb - 1, or (rb == ra + 1) the
+        // runs ca .. ca + nc - 1 of row ra; contiguous either way
+        const int nc = min(p.band_runs, a.Rr - ca);
+        const int fa = max(r0, ra * a.Rr + ca);
+        const int fb = min(r1, (rb - 1) * a.Rr + ca + nc);
+        if (fa >= fb) continue;
+        if (staged) __syncthreads();  // the tile is free
+        const int c0 = ca * kRun;
+        // this step's gg rows ra - HI .. rb - 1 - LO (tile row 0 is row
+        // ra - HI), from L2: other blocks wrote them
+        if constexpr (kChunks)
+          stage_rows(src, nullptr, tile, a.W, BH, a.Wt, ra - HI,
+                     rb - ra + S - 1, c0 - kLeft);
+        else
+          stage_image_rows(src, tile, a.W, BH, a.Wt, ra - HI,
+                           rb - ra + S - 1);
+        staged = true;
+        __syncthreads();
+        // the tile's place of global row 0, image column 0
+        const float* band = tile + (HI - ra) * a.Wt - c0;
+        for (int r = fa + threadIdx.x; r < fb; r += blockDim.x) {
+          const int j = r - r0;
+          const int gr = r / a.Rr;
+          const int b = gr / a.H;
+          const int h = gr - b * a.H;
+          const int w0 = (r - gr * a.Rr) * kRun;
+          float acc[kRun];
 #pragma unroll
-      for (int k = 0; k < kRun; ++k) acc[k] = 0.f;
-      const float* wrow = tile + (gr - LO - grA) * a.Wt + w0 + A0;
-      // the run's vectors of shift s: resident ones in shared memory, the
-      // rest from the scratch stack (written by this thread, read back from
-      // L2); the next window row's vectors are loaded ahead of the sums
-      const uint4* mv0 = j < a.nres ? Ms + j : a.scratch + r;
-      const size_t mstride = j < a.nres ? (size_t)a.nres : (size_t)a.runs;
-      uint4 mv[S];
+          for (int k = 0; k < kRun; ++k) acc[k] = 0.f;
+          const float* wrow = band + (gr - LO) * a.Wt + w0 + A0;
+          // the run's vectors of shift s: resident ones in shared memory,
+          // the rest from the scratch stack (written in the layout pass,
+          // read back from L2); the next window row's vectors are loaded
+          // ahead of the sums
+          const uint4* mv0 = j < p.nres ? Ms + j : a.scratch + r;
+          const size_t mstride =
+              j < p.nres ? (size_t)p.nres : (size_t)a.runs;
+          uint4 mv[S];
 #pragma unroll
-      for (int ix = 0; ix < S; ++ix) mv[ix] = mv0[ix * mstride];
+          for (int ix = 0; ix < S; ++ix) mv[ix] = mv0[ix * mstride];
 #pragma unroll
-      for (int iy = 0; iy < S; ++iy) {
-        float win[4 * NV];
-        if ((unsigned)(h - (LO + iy)) < (unsigned)a.H) {
-          const float4* wp =
-              reinterpret_cast<const float4*>(wrow - iy * a.Wt);
+          for (int iy = 0; iy < S; ++iy) {
+            float win[4 * NV];
+            if ((unsigned)(h - (LO + iy)) < (unsigned)a.H) {
+              const float4* wp =
+                  reinterpret_cast<const float4*>(wrow - iy * a.Wt);
 #pragma unroll
-          for (int v = 0; v < NV; ++v) {
-            const float4 f = wp[v];
-            win[4 * v] = f.x;
-            win[4 * v + 1] = f.y;
-            win[4 * v + 2] = f.z;
-            win[4 * v + 3] = f.w;
+              for (int v = 0; v < NV; ++v) {
+                const float4 f = wp[v];
+                win[4 * v] = f.x;
+                win[4 * v + 1] = f.y;
+                win[4 * v + 2] = f.z;
+                win[4 * v + 3] = f.w;
+              }
+            } else {
+#pragma unroll
+              for (int v = 0; v < 4 * NV; ++v) win[v] = 0.f;
+            }
+            uint4 nx[S];
+            if (iy + 1 < S) {
+#pragma unroll
+              for (int ix = 0; ix < S; ++ix)
+                nx[ix] = mv0[((iy + 1) * S + ix) * mstride];
+            }
+#pragma unroll
+            for (int ix = 0; ix < S; ++ix) {
+              const float m[kRun] = {lo_bf16(mv[ix].x), hi_bf16(mv[ix].x),
+                                     lo_bf16(mv[ix].y), hi_bf16(mv[ix].y),
+                                     lo_bf16(mv[ix].z), hi_bf16(mv[ix].z),
+                                     lo_bf16(mv[ix].w), hi_bf16(mv[ix].w)};
+#pragma unroll
+              for (int k = 0; k < kRun; ++k)
+                acc[k] = __fadd_rn(
+                    acc[k], __fmul_rn(m[k], win[SKIP + k - ix + S - 1]));
+            }
+            if (iy + 1 < S) {
+#pragma unroll
+              for (int ix = 0; ix < S; ++ix) mv[ix] = nx[ix];
+            }
           }
-        } else {
+          const int nvalid = min(kRun, a.W - w0);
+          const long long c = (long long)gr * a.W + w0;
+          const float* own = band + gr * a.Wt + w0 + kLeft;
+          float g[kRun];
 #pragma unroll
-          for (int v = 0; v < 4 * NV; ++v) win[v] = 0.f;
-        }
-        uint4 nx[S];
-        if (iy + 1 < S) {
-#pragma unroll
-          for (int ix = 0; ix < S; ++ix)
-            nx[ix] = mv0[((iy + 1) * S + ix) * mstride];
-        }
-#pragma unroll
-        for (int ix = 0; ix < S; ++ix) {
-          const float m[kRun] = {lo_bf16(mv[ix].x), hi_bf16(mv[ix].x),
-                                 lo_bf16(mv[ix].y), hi_bf16(mv[ix].y),
-                                 lo_bf16(mv[ix].z), hi_bf16(mv[ix].z),
-                                 lo_bf16(mv[ix].w), hi_bf16(mv[ix].w)};
-#pragma unroll
-          for (int k = 0; k < kRun; ++k)
-            acc[k] = __fadd_rn(acc[k],
-                               __fmul_rn(m[k], win[SKIP + k - ix + S - 1]));
-        }
-        if (iy + 1 < S) {
-#pragma unroll
-          for (int ix = 0; ix < S; ++ix) mv[ix] = nx[ix];
+          for (int k = 0; k < kRun; ++k) g[k] = own[k];
+          store_run(Gt + c, g, vec, nvalid);
+          if (a.fix) {
+            for (int k = 0; k < nvalid; ++k) {
+              if (a.fix[c + k] > 0.f) {
+                a.dfix[c + k] = __fadd_rn(a.dfix[c + k], acc[k]);
+                acc[k] = 0.f;
+              }
+            }
+          }
+          store_run(dst + c, acc, vec, nvalid);
         }
       }
-      const int nvalid = min(kRun, a.W - w0);
-      const long long c = (long long)gr * a.W + w0;
-      const float* own = tile + (gr - grA) * a.Wt + kLeft + w0;
-      float g[kRun];
-#pragma unroll
-      for (int k = 0; k < kRun; ++k) g[k] = own[k];
-      store_run(Gt + c, g, vec, nvalid);
-      if (a.fix) {
-        for (int k = 0; k < nvalid; ++k) {
-          if (a.fix[c + k] > 0.f) {
-            a.dfix[c + k] = __fadd_rn(a.dfix[c + k], acc[k]);
-            acc[k] = 0.f;
-          }
-        }
-      }
-      store_run(dst + c, acc, vec, nvalid);
     }
     if (i + 1 < a.T) grid.sync();  // the plane is whole; the tile is free
     src = dst;
   }
 }
 
-// The chain's launch: the plan of blocks, threads and shared memory from
-// the card's SM count and shared memory, then one cooperative launch.
+// One cooperative launch of the chain on plan a.p.
 template <int S, typename GT>
-int launch_chain(ChainArgs a, cudaStream_t stream) {
-  auto k = reverse_chain_kernel<S, GT>;
-  int dev = 0, sms = 0, smem_max = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&smem_max,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return (int)e;
-  int blocks = (a.runs + kMinRuns - 1) / kMinRuns;
-  if (blocks > sms) blocks = sms;
-  a.rpb = (a.runs + blocks - 1) / blocks;
-  blocks = (a.runs + a.rpb - 1) / a.rpb;
-  int threads = (a.rpb + 31) / 32 * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  // rows that rpb consecutive runs can span, and the halo
-  a.tile_rows = (a.rpb + a.Rr - 2) / a.Rr + 1 + S - 1;
-  const size_t tile = (size_t)a.tile_rows * a.Wt * sizeof(float);
-  const size_t run_bytes = (size_t)S * S * sizeof(uint4);
-  if (tile > (size_t)smem_max) return (int)cudaErrorInvalidValue;
-  size_t nres = ((size_t)smem_max - tile) / run_bytes;
-  if (nres > (size_t)a.rpb) nres = a.rpb;
-  a.nres = (int)nres;
-  const size_t smem = tile + nres * run_bytes;
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+int launch_chain(const ChainArgs& a, cudaStream_t stream) {
+  auto k = a.p.band_runs < a.Rr ? reverse_chain_kernel<S, GT, true>
+                                : reverse_chain_kernel<S, GT, false>;
+  if (a.p.smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, a.p.smem);
     if (e != cudaSuccess) return (int)e;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
+  cfg.gridDim = dim3(a.p.blocks);
+  cfg.blockDim = dim3(a.p.threads);
+  cfg.dynamicSmemBytes = a.p.smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeCooperative;
@@ -445,9 +461,17 @@ int launch_chain(ChainArgs a, cudaStream_t stream) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   // no fallback: a grid the card cannot hold at once is refused here
-  e = cudaLaunchKernelEx(&cfg, k, a);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, k, a);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// the plan of the reverse chain: a band stages S - 1 halo rows (above
+// its rows: hi of them, below: -lo), a resident run keeps S * S
+// pre-shifted 16-byte vectors
+bool reverse_plan(int B, int H, int W, int S, int sms, int smem_max,
+                  Plan* p) {
+  return chain_plan(B, H, W, S - 1, S * S * 16, sms, smem_max, p);
 }
 
 template <typename GT>
@@ -470,19 +494,19 @@ int launch_s(const ChainArgs& a, int S, cudaStream_t stream) {
 // 16-byte vectors, 16-byte aligned; all contiguous. S is 4, 6, 8, 10 or 12 and
 // lo = 1 - S / 2 (the shift window of a clamp radius R = S / 2 - 2).
 // Runs T >= 1 steps in one cooperative launch, the last writing dfeat (tmp
-// is the other plane of the ping-pong). A block's tile of gg rows (its
-// rows of runs, about B * H / SMs, and S - 1 of halo, (W + 16) * 4 bytes a
-// row) must fit in its shared memory: on a 132-SM H100, 19 KB at
-// 4 x 224 x 304, S = 8, but 245 KB, past the 227 KB a block may have, at
-// 16 x 352 x 1216; a plane past that is refused (cudaErrorInvalidValue).
-// Returns the launch's cudaError_t.
+// is the other plane of the ping-pong). Returns the launch's cudaError_t.
 extern "C" int nlspn_reverse_chain(const void* g0, const void* M,
                                    const void* fix, void* G, void* dfeat,
                                    void* dfix, void* tmp, void* scratch,
                                    int g_bf16, int B, int H, int W, int S,
                                    int lo, int T, void* stream) {
   if (T < 1 || lo != 1 - S / 2 || S % 2) return (int)cudaErrorInvalidValue;
+  int sms = 0, smem_max = 0;
+  const int e = card(&sms, &smem_max);
+  if (e != 0) return e;
   ChainArgs a = {};
+  if (!reverse_plan(B, H, W, S, sms, smem_max, &a.p))
+    return (int)cudaErrorInvalidValue;
   a.g0 = static_cast<const float*>(g0);
   a.M = static_cast<const unsigned short*>(M);
   a.fix = static_cast<const float*>(fix);
@@ -497,10 +521,26 @@ extern "C" int nlspn_reverse_chain(const void* g0, const void* M,
   a.T = T;
   a.Rr = (W + kRun - 1) / kRun;
   a.runs = B * H * a.Rr;
-  a.Wt = kLeft + a.Rr * kRun + kRight;
+  a.Wt = kLeft + a.p.band_runs * kRun + kRight;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return g_bf16 ? launch_s<__nv_bfloat16>(a, S, st)
                 : launch_s<float>(a, S, st);
+}
+
+// The plan of a (B, H, W) reverse chain with an S x S window on a card of
+// `sms` SMs and `smem_max` bytes of shared memory a block, as
+// nlspn_reverse_chain takes it: out = (blocks, threads, runs a block,
+// resident runs, band rows, band runs, shared bytes). Returns 0, or
+// cudaErrorInvalidValue where no plan fits.
+extern "C" int nlspn_reverse_chain_plan(int B, int H, int W, int S, int sms,
+                                        int smem_max, int* out) {
+  Plan p;
+  if (!reverse_plan(B, H, W, S, sms, smem_max, &p))
+    return (int)cudaErrorInvalidValue;
+  const int v[7] = {p.blocks, p.threads, p.rpb, p.nres, p.band_rows,
+                    p.band_runs, p.smem};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
 }
 
 extern "C" const char* error_string(int code) {

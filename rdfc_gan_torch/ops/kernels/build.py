@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
 by ``nvcc`` for ``sm_90a`` into ``rdfc_gan_torch/_build/lib<name>-<hash>.so``
-(the hash is of the source and the flags, so an edited source is rebuilt) and
-loaded with ``ctypes``. ``build_all`` starts one ``nvcc`` per source at once.
-Nothing here runs at import: the CPU tests import every module.
+(the hash is of the source, the headers of ``csrc`` and the flags, so an
+edited source or header is rebuilt) and loaded with ``ctypes``.
+``build_all`` starts one ``nvcc`` per source at once. Nothing here runs at
+import: the CPU tests import every module.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a wrapper adds
 to it right after a launch succeeds and nowhere else. One source may hold
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -59,10 +61,12 @@ _SIGNATURES = {
     "nlspn_reverse_chain": {
         "nlspn_reverse_chain":
             [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-             _P]},
+             _P],
+        "nlspn_reverse_chain_plan": [_I, _I, _I, _I, _I, _I, _P]},
     "shift_correlation": {
         "shift_correlation":
-            [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
+            [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        "shift_correlation_plan": [_I, _I, _I, _I, _P]},
     "instance_norm": {
         "instance_norm_fwd": [_P, _P, _P, _I, _I, ctypes.c_float, _I, _P],
         "instance_norm_fwd_plan": [_I, _I, _P],
@@ -101,8 +105,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of its source, the headers of
+    ``csrc`` (any of them may be included) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC, f"{name}.cu")] + sorted(
+            glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -15,6 +15,8 @@ launches its kernel, or raises, for any other.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -24,6 +26,11 @@ NAME = "shift_mask_scatter"
 GATHER = "shift_mask_gather"
 CORR = "shift_correlation"
 _FLOATS = (torch.float32, torch.bfloat16)
+# the correlation kernel's cut (shift_correlation.cu): tiles of 8 x 32
+# pixels, runs of 4 pixels and 2 window rows a thread, the windows it is
+# built for
+CORR_TILE, CORR_RUN, CORR_ROWS = (8, 32), 4, 2
+CORR_WINDOWS = (4, 6, 8, 10, 12)
 
 
 def scatter_shift_masks_plain(w: torch.Tensor, sy: torch.Tensor,
@@ -136,10 +143,13 @@ def shift_mask_gather(dM: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
 
 
 def shift_correlation_plain(G: torch.Tensor, X: torch.Tensor, S: int,
-                            lo: int) -> torch.Tensor:
+                            lo: int,
+                            out_dtype: torch.dtype = torch.float32
+                            ) -> torch.Tensor:
     """Plain version: for t in order, every shifted window of X[t] at once
     (``unfold``) times G[t], added to an f32 accumulator; the kernel's
-    separately rounded products and sums in the kernel's order."""
+    separately rounded products and sums in the kernel's order, the f32 sum
+    rounded once to ``out_dtype``."""
     T, B, H, W = G.shape
     pad = max(-lo, lo + S - 1)
     off = pad + lo
@@ -150,27 +160,68 @@ def shift_correlation_plain(G: torch.Tensor, X: torch.Tensor, S: int,
         win = Xp[t, :, off:off + H + S - 1, off:off + W + S - 1]
         acc = acc + G[t].float().reshape(B, 1, H * W) * F.unfold(
             win[:, None], S)
-    return acc.reshape(B, S * S, H, W)
+    return acc.reshape(B, S * S, H, W).to(out_dtype)
 
 
-def shift_correlation(G: torch.Tensor, X: torch.Tensor, S: int,
-                      lo: int) -> torch.Tensor:
+class CorrPlan(NamedTuple):
+    """How the correlation kernel cuts a (B, H, W) plane: a grid of
+    ``grid_w`` x ``grid_h`` x ``grid_b`` blocks of ``threads`` threads, a
+    block a tile of ``tile_h`` x ``tile_w`` pixels of one image and all S^2
+    shifts, a thread a run of ``run`` pixels of a row and ``rows`` window
+    rows iy (thread i: run i % (tile_w / run), tile row i // (tile_w / run)
+    % tile_h, window rows from i // (tile_w / run * tile_h) * rows)."""
+    grid_w: int
+    grid_h: int
+    grid_b: int
+    threads: int
+    tile_h: int
+    tile_w: int
+    run: int
+    rows: int
+
+
+def corr_plan(B: int, H: int, W: int, S: int) -> CorrPlan:
+    """The mirror of shift_correlation.cu's cut (its export
+    ``shift_correlation_plan``). Raises ValueError for a plane or window
+    the kernel does not take."""
+    th, tw = CORR_TILE
+    if not (1 <= B <= 65535 and H >= 1 and W >= 1
+            and -(-H // th) <= 65535 and S in CORR_WINDOWS):
+        raise ValueError(f"{CORR}: no plan for a {B}x{H}x{W} plane with "
+                         f"S={S} (S one of {CORR_WINDOWS})")
+    return CorrPlan(-(-W // tw), -(-H // th), B,
+                    tw // CORR_RUN * th * (S // CORR_ROWS), th, tw, CORR_RUN,
+                    CORR_ROWS)
+
+
+def shift_correlation(G: torch.Tensor, X: torch.Tensor, S: int, lo: int,
+                      out_dtype: torch.dtype = torch.float32
+                      ) -> torch.Tensor:
     """G, X: (T, B, H, W), one type, f32 or bf16. Returns dM (B, S*S, H, W)
-    in f32 (mask_kernel.py:shift_correlation with out_dtype f32)."""
+    in ``out_dtype``, f32 or bf16 (mask_kernel.py:shift_correlation). The
+    kernel takes S = 4, 6, 8, 10 or 12 with lo = 1 - S / 2 (the windows of
+    the chain kernels) and T >= 1; it raises for another."""
     if G.device.type == "cpu":
-        return shift_correlation_plain(G, X, S, lo)
+        return shift_correlation_plain(G, X, S, lo, out_dtype)
     lib = build.library(CORR)
     build.require_cuda(CORR, G, X)
     if G.dim() != 4 or X.shape != G.shape or X.dtype != G.dtype:
         raise ValueError(f"{CORR}: G and X must share one (T,B,H,W) shape "
                          f"and type")
-    if G.dtype not in _FLOATS:
-        raise ValueError(f"{CORR}: G and X must be f32 or bf16")
+    if G.dtype not in _FLOATS or out_dtype not in _FLOATS:
+        raise ValueError(f"{CORR}: G, X and dM must be f32 or bf16")
     T, B, H, W = G.shape
-    dM = torch.empty((B, S * S, H, W), dtype=torch.float32, device=G.device)
+    corr_plan(B, H, W, S)
+    if lo != 1 - S // 2 or T < 1:
+        raise ValueError(f"{CORR}: lo = 1 - S/2 and T >= 1 expected, got "
+                         f"lo={lo}, T={T}")
+    # the kernel copies 16 bytes at a time from G and X
+    G, X = (t.clone() if t.data_ptr() % 16 else t for t in (G, X))
+    dM = torch.empty((B, S * S, H, W), dtype=out_dtype, device=G.device)
     rc = lib.shift_correlation(G.data_ptr(), X.data_ptr(), dM.data_ptr(), T,
                                B, H, W, S, lo,
                                int(G.dtype == torch.bfloat16),
+                               int(out_dtype == torch.bfloat16),
                                build.stream_handle())
     build.check(lib, CORR, rc)
     build.LAUNCHES[CORR] += 1

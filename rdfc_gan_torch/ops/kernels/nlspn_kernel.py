@@ -6,7 +6,7 @@ dispatcher ``propagate_auto`` (port of rdfc_gan_tpu/ops/pallas/
 nlspn_kernel.py). The plain versions are ``stencil_propagate``,
 ``propagate_x_plain`` and ``reverse_chain_plain`` of ``ops/nlspn_stencil``.
 Each kernel runs a whole chain in one cooperative launch; ``chain_plan``
-mirrors how the forward one cuts it.
+mirrors how both cut it (the plan of ``csrc/nlspn_chain.cuh``).
 
 As on the TPU, the kernel path rounds the mask stack to bf16 and sums in
 f32 (nlspn_kernel.py:303), so its output differs from the unrounded plain
@@ -30,18 +30,19 @@ NAME_X = "nlspn_propagate_x"
 CHAIN = "nlspn_reverse_chain"
 # the shift windows S the chain kernels are built for (R = 0..4)
 CHAIN_WINDOWS = (4, 6, 8, 10, 12)
-# the forward chain's plan (nlspn_propagate.cu:chain_plan and its
-# constants): runs of RUN pixels, tile margins, runs and threads a block
+# the chains' plan (nlspn_chain.cuh:chain_plan and its constants): runs of
+# RUN pixels, tile margins, runs and threads a block
 RUN, LEFT, RIGHT, MIN_RUNS, MAX_THREADS = 8, 8, 8, 32, 384
 
 
 class ChainPlan(NamedTuple):
-    """How the forward chain kernel cuts a (B, H, W) chain: ``blocks``
-    blocks of ``threads`` threads, ``rpb`` runs of 8 pixels a block (block
-    i owns runs i * rpb on), the first ``nres`` of a block's runs with
-    their masks resident in shared memory, its runs taken in bands of
-    ``band_rows`` rows of ``band_runs`` runs (fewer runs than a row has
-    only with one row a band), ``smem`` bytes of shared memory a block."""
+    """How a chain kernel (forward or reverse) cuts a (B, H, W) chain:
+    ``blocks`` blocks of ``threads`` threads, ``rpb`` runs of 8 pixels a
+    block (block i owns runs i * rpb on), the first ``nres`` of a block's
+    runs with their masks resident in shared memory, its runs taken in
+    bands of ``band_rows`` rows of ``band_runs`` runs (fewer runs than a
+    row has only with one row a band), ``smem`` bytes of shared memory a
+    block."""
     blocks: int
     threads: int
     rpb: int
@@ -53,13 +54,16 @@ class ChainPlan(NamedTuple):
 
 def chain_plan(B: int, H: int, W: int, S: int, sms: int,
                smem_optin: int) -> ChainPlan:
-    """The forward chain's plan on a card of ``sms`` SMs whose blocks may
-    have ``smem_optin`` bytes of shared memory (the mirror of
-    nlspn_propagate.cu:chain_plan, which ``nlspn_chain_plan`` exports). A
-    block's tile holds its band's rows of x and S - 1 halo rows, each
-    LEFT + band_runs * RUN + RIGHT floats; whole rows where they fit,
-    else bands of rows, else one row in chunks of runs. Raises ValueError
-    for an empty plane, or where not even a band of one run fits."""
+    """The chains' plan on a card of ``sms`` SMs whose blocks may have
+    ``smem_optin`` bytes of shared memory (the mirror of
+    nlspn_chain.cuh:chain_plan, which both chains take and export:
+    ``nlspn_chain_plan`` and ``nlspn_reverse_chain_plan``). A block's tile
+    holds its band's rows of the plane and S - 1 halo rows (below a row in
+    the forward chains, above it in the reverse chain), each LEFT +
+    band_runs * RUN + RIGHT floats; a resident run's masks take S * S
+    16-byte vectors in both. Whole rows where they fit, else bands of rows,
+    else one row in chunks of runs. Raises ValueError for an empty plane,
+    or where not even a band of one run fits."""
     Rr = -(-W // RUN)
     runs = B * H * Rr
     if runs < 1 or sms < 1:
@@ -163,10 +167,9 @@ def reverse_chain(g0: torch.Tensor, M16: torch.Tensor,
     Returns (G (T, B, H, W) in ``g_dtype``, dfeat, dfix), the last two
     (B, H, W) f32 (dfix zero without preserve). A CPU tensor takes the
     plain version; any other launches the CUDA kernel (one cooperative
-    launch for the chain) or raises. The kernel refuses (raises for) a
-    plane whose block tile of gradient rows passes a block's shared
-    memory: about B * H / 132 + S rows of (W + 16) * 4 bytes on an H100,
-    19 KB at 4x224x304 but 245 KB, past 227 KB, at 16x352x1216."""
+    launch for the chain) or raises. Where a block's rows of the gradient
+    and their halo pass its shared memory it takes them in bands
+    (``chain_plan``): 16x352x1216 in two bands of 40 rows on an H100."""
     if g0.device.type == "cpu":
         return reverse_chain_plain(g0, M16, fix, prop_time, R, g_dtype)
     lib = build.library(CHAIN)
@@ -222,7 +225,9 @@ class _CardPropagate(torch.autograd.Function):
                                        ctx.prop_time, ctx.R, X.dtype)
         dM = None
         if ctx.needs_input_grad[1]:
-            dM = mask_kernel.shift_correlation(G, X, S, lo).reshape(
+            # the kernel writes dM in the stacks' type, which is M's where
+            # M is f32 or bf16 (_stack_dtype): no cast pass then
+            dM = mask_kernel.shift_correlation(G, X, S, lo, X.dtype).reshape(
                 B, S, S, H, W).to(ctx.M_dtype)
         dfix_out = None
         if fix is not None and ctx.needs_input_grad[2]:

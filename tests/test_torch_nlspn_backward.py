@@ -15,7 +15,10 @@ Stacks stored in bf16 may round one ulp apart (2^-8): rtol 8e-3. Gradients
 through whole Functions: rtol 1e-4, atol 1e-5 in f32; with bf16 stacks the
 mask gradient sums bf16-rounded products, so it is held by its relative L2
 error (< 1e-2) and elementwise at 2% of its scale, as the JAX package's own
-test holds its kernels against its f32 reference.
+test holds its kernels against its f32 reference. A correlation stored in
+bf16 from f32 stacks: the two f32 sums (equal within the f32 case's
+tolerance) may round to neighbouring bf16 values, so 1 bf16 ulp of the
+reference plus the f32 case's atol.
 """
 
 import functools
@@ -228,6 +231,42 @@ def test_shift_correlation_plain_matches_pallas_and_xla(R, dt,
                                        rtol=1e-5, atol=1e-5)
 
 
+def _assert_within_bf16_ulp(got, want, atol):
+    """|got - want| <= one bf16 ulp of want (2^-7 of the power of two at or
+    below |want|) + atol."""
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+    bad = np.abs(got - want) > ulp + atol
+    assert not bad.any(), (got[bad][:5], want[bad][:5])
+
+
+@pytest.mark.parametrize("R,dt", [(2, F32), (3, BF16)])
+def test_shift_correlation_plain_bf16_out_matches_pallas_and_xla(
+        R, dt, pallas_interpret):
+    """dM stored in bf16 (the JAX function's ``out_dtype``), as the bf16
+    train step stores it."""
+    import rdfc_gan_tpu.ops.pallas.mask_kernel as mk
+
+    r = np.random.RandomState(14)
+    lo, S = _window(R)
+    G = torch.from_numpy(r.normal(size=(T, B, H, W)).astype(np.float32)).to(
+        dt)
+    X = torch.from_numpy(r.normal(size=(T, B, H, W)).astype(np.float32)).to(
+        dt)
+    got = tmk.shift_correlation(G, X, S, lo, BF16)
+    assert got.dtype == BF16 and got.shape == (B, S * S, H, W)
+    jG = jnp.asarray(G.float().numpy()).astype(JDT[dt])
+    jX = jnp.asarray(X.float().numpy()).astype(JDT[dt])
+    pallas = mk.shift_correlation(jG, jX, S, lo, out_dtype=jnp.bfloat16)
+    mk._FORCE_PALLAS = False
+    xla = mk.shift_correlation(jG, jX, S, lo, out_dtype=jnp.bfloat16)
+    for want in (pallas, xla):
+        assert want.dtype == jnp.bfloat16
+        if dt == BF16:  # JAX rounds each product to bf16, the port not
+            _assert_bf16_sums(_np(got), _np(want))
+        else:
+            _assert_within_bf16_ulp(_np(got), _np(want), atol=1e-5)
+
+
 # ------------------------------------------------ the Functions' grads --
 def _cotangent(seed):
     return np.random.RandomState(seed).normal(size=(B, 1, H, W)).astype(
@@ -336,6 +375,74 @@ def test_card_function_plain_twin_matches_pallas_grad(dt, preserve,
     _assert_bf16_sums(got_g[1].float().numpy(), _np(want_g[1]))
 
 
+@pytest.mark.parametrize("dt", [F32, BF16])
+def test_card_function_twin_correlates_into_M_dtype(dt, monkeypatch):
+    """The card Function's backward asks the correlation for dM in M's
+    type, so a bf16 step casts no dM: on the CPU twin the correlation's own
+    result is already bf16 (f32 for an f32 M) and is M's gradient."""
+    seen = []
+
+    def spy(G, X, S, lo, out_dtype=F32):
+        dM = tmk.shift_correlation_plain(G, X, S, lo, out_dtype)
+        seen.append(dM)
+        return dM
+
+    monkeypatch.setattr(tmk, "shift_correlation", spy)
+    R = 2
+    feat0, M16, fix = _chain_inputs(12, R)
+    M = M16.to(dt, copy=True).requires_grad_(True)
+    out = tnk.nlspn_stencil_propagate(feat0[:, None], M, fix[:, None], T, R,
+                                      True)
+    (out * torch.from_numpy(_cotangent(13))).sum().backward()
+    assert len(seen) == 1 and seen[0].dtype == dt
+    assert M.grad.dtype == dt
+    assert torch.equal(M.grad, seen[0].reshape(M.shape))
+
+
+# a sweep of planes (odd ones, W not a multiple of the run, planes smaller
+# than a tile) and the correlation kernel's windows
+CORR_PLAN_SHAPES = [(b, h, w, S) for b in (1, 3) for h in (1, 7, 8, 17, 224)
+                    for w in (1, 5, 31, 33, 304) for S in (4, 6, 8, 10, 12)]
+
+
+@pytest.mark.parametrize("B_,H_,W_,S", CORR_PLAN_SHAPES[::7] + [
+    (4, 224, 304, 8), (2, 17, 23, 12), (1, 5, 7, 4)])
+def test_corr_plan_covers_every_output_once(B_, H_, W_, S):
+    """The correlation kernel's cut (``corr_plan``, the mirror of the
+    kernel's export, which the card check holds against it): walking its
+    blocks and threads as the kernel does, every output (b, shift, h, w)
+    is written by one thread, and nothing outside the plane."""
+    p = tmk.corr_plan(B_, H_, W_, S)
+    runs_row = p.tile_w // p.run
+    assert p.threads == runs_row * p.tile_h * (S // p.rows)
+    assert p.threads % 32 == 0 and p.threads <= 1024
+    assert S % p.rows == 0 and p.grid_b == B_
+    tid = np.arange(p.threads)
+    wl = tid % runs_row * p.run
+    hl = tid // runs_row % p.tile_h
+    iy0 = tid // (runs_row * p.tile_h) * p.rows
+    seen = np.zeros((B_, S * S, H_, W_), np.int32)
+    for by in range(p.grid_h):
+        for bx in range(p.grid_w):
+            h = by * p.tile_h + hl
+            w = bx * p.tile_w + wl
+            keep = (h < H_) & (w < W_)
+            for j in range(p.rows):
+                for ix in range(S):
+                    s = (iy0 + j) * S + ix
+                    for k in range(p.run):
+                        ok = keep & (w + k < W_)
+                        seen[:, s[ok], h[ok], w[ok] + k] += 1
+    assert (seen == 1).all()
+
+
+def test_corr_plan_refuses_other_windows():
+    with pytest.raises(ValueError, match=r"\(4, 6, 8, 10, 12\)"):
+        tmk.corr_plan(1, 8, 8, 14)
+    with pytest.raises(ValueError):
+        tmk.corr_plan(0, 8, 8, 8)
+
+
 @pytest.mark.parametrize("R", [2, 3])
 def test_build_shift_masks_grads_match_jax(R):
     """Gradients of the mask build in the offsets and the affinities: the
@@ -418,17 +525,77 @@ def test_backward_chain_kernels_match_plain_on_card(R, preserve, dt):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+# (S, (T, B, H, W)): the train step's plane; an odd plane (staged value by
+# value, scalar stores); W a multiple of 4 but not of 8 (f32 stacks copied
+# 16 bytes at a time, bf16 ones value by value); W even but not a multiple
+# of 4; planes smaller than one tile, W a multiple of 8 (copied) or odd; a
+# tall plane; H not a multiple of the tile's 8 rows, W of its 32 columns
+CORR_CASES = [(8, (18, 4, 224, 304)), (4, (3, 2, 17, 23)),
+              (10, (5, 1, 9, 36)), (12, (4, 3, 30, 46)),
+              (4, (2, 2, 5, 16)), (12, (2, 1, 5, 7)), (8, (6, 1, 300, 20)),
+              (10, (3, 1, 13, 40))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,shape", CORR_CASES)
+@pytest.mark.parametrize("dt", [F32, BF16])
+def test_correlation_kernel_matches_plain_on_card(S, shape, dt):
+    """Bit for bit, dM in f32 and in bf16; one launch a call."""
+    _card()
+    from rdfc_gan_torch.ops.kernels import build
+
+    lo = 1 - S // 2
+    g = torch.Generator(device="cuda").manual_seed(S)
+    G = torch.randn(shape, device="cuda", generator=g).to(dt)
+    X = torch.randn(shape, device="cuda", generator=g).to(dt)
+    build.reset_launches()
+    for out_dt in (F32, BF16):
+        got = tmk.shift_correlation(G, X, S, lo, out_dt)
+        want = tmk.shift_correlation_plain(G, X, S, lo, out_dt)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dt
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert build.LAUNCHES[tmk.CORR] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [F32, BF16])
+def test_correlation_kernel_multiplies_out_of_image_zeros(dt):
+    """A non-finite G at the border: the out-of-image X is a zero that is
+    multiplied, so the shifts that leave the image give NaN, as the plain
+    version's do."""
+    _card()
+    S, shape = 8, (3, 2, 17, 22)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    G = torch.randn(shape, device="cuda", generator=g).to(dt)
+    X = torch.randn(shape, device="cuda", generator=g).to(dt)
+    G[1, 0, 0, 0] = float("inf")
+    G[2, 1, -1, -1] = float("nan")
+    for out_dt in (F32, BF16):
+        got = tmk.shift_correlation(G, X, S, 1 - S // 2, out_dt)
+        want = tmk.shift_correlation_plain(G, X, S, 1 - S // 2, out_dt)
+        torch.cuda.synchronize()
+        assert torch.isnan(want).any()
+        torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                   equal_nan=True)
+
+
 # (R, T, (B, H, W), preserve): one step; an odd plane (no vector store;
 # rows end inside a run); S=10 and S=12 with preserve; and three planes
 # whose runs overflow a block's shared memory on an H100 (227 KB a block,
 # 132 blocks), so the rest of the pre-shifted stack is read back from the
 # scratch stack every step: the train step's 4x224x304 at S=8 (208 of 258
 # runs a block resident) and S=10 (131 of 258), and a tall odd plane,
-# 1x4000x61 at S=8 (214 of 243)
+# 1x4000x61 at S=8 (214 of 243); 16x352x1216 at S=8, whose blocks take
+# their rows in two bands of 40 a step (the rows of 6486 runs and their
+# halo pass a block's 227 KB; none of its runs is resident); and
+# 1x16x8000, whose rows and halo alone pass it, so a block takes a row in
+# chunks of 906 runs
 CHAIN_CASES = [(2, 1, (2, 8, 9), False), (2, 5, (2, 17, 23), True),
                (2, 18, (4, 224, 304), False), (3, 6, (4, 224, 304), True),
                (4, 3, (1, 17, 23), True), (1, 4, (3, 9, 16), False),
-               (2, 4, (1, 4000, 61), True)]
+               (2, 4, (1, 4000, 61), True), (2, 2, (16, 352, 1216), True),
+               (2, 3, (1, 16, 8000), True)]
 
 
 @pytest.mark.gpu

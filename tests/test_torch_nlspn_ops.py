@@ -262,15 +262,16 @@ def test_propagation_kernel_matches_plain_on_card(R, preserve):
 # (R, T, (B, H, W), preserve): one step; an odd plane (scalar stores, M's
 # rows padded); S=10 and S=12 with preserve; R=0 and R=1; the served
 # 4x224x304 at S=8 (208 of a block's 258 runs resident on an H100) and at
-# S=10 (131 of 258); a tall odd plane; and 16x352x1216 at S=8, whose
-# blocks take their runs in two bands of rows a step (the rows of 6486
-# runs and their halo pass a block's 227 KB)
+# S=10 (131 of 258); a tall odd plane; 16x352x1216 at S=8, whose blocks
+# take their runs in two bands of rows a step (the rows of 6486 runs and
+# their halo pass a block's 227 KB); and 1x16x8000, whose rows and halo
+# alone pass it, so a block takes a row in chunks of 906 runs
 FORWARD_CASES = [(2, 1, (2, 8, 9), False), (2, 5, (2, 17, 23), True),
                  (3, 4, (1, 17, 23), True), (4, 3, (1, 17, 23), True),
                  (0, 3, (2, 30, 44), True), (1, 4, (3, 9, 16), False),
                  (2, 18, (4, 224, 304), False), (3, 6, (4, 224, 304), True),
                  (2, 4, (1, 4000, 61), True),
-                 (2, 2, (16, 352, 1216), True)]
+                 (2, 2, (16, 352, 1216), True), (2, 3, (1, 16, 8000), True)]
 
 
 @pytest.mark.gpu
@@ -333,11 +334,19 @@ def _bands(p, Rr, runs, block):
                 yield fa, fb, ra, rb, ca
 
 
-def _check_chain_plan(B_, H_, W_, S):
-    """The forward chain's plan on an H100: every run is owned by one block
-    and lies in one band of it; a band's rows and halo and the resident
-    runs' masks fit in a block's shared memory; no plane is refused."""
+def _check_chain_plan(B_, H_, W_, S, reverse=False):
+    """The chains' plan on an H100: every run is owned by one block and lies
+    in one band of it; a band's rows and halo and the resident runs' masks
+    fit in a block's shared memory; no plane is refused. Each run's window
+    (rows h + lo .. h + hi and columns w + lo .. w + 7 + hi of the forward
+    chains; the reverse chain reads the transpose, h - hi .. h - lo and
+    w - hi .. w + 7 - lo) lies in the band's staged tile: rows ra + lo ..
+    rb - 1 + hi (forward) or ra - hi .. rb - 1 - lo (reverse), columns
+    from LEFT before the band's first run on."""
     p = tnk.chain_plan(B_, H_, W_, S, H100_SMS, H100_SMEM)
+    lo, hi = 1 - S // 2, S // 2
+    if reverse:
+        lo, hi = -hi, -lo
     Rr = -(-W_ // tnk.RUN)
     runs = B_ * H_ * Rr
     assert 1 <= p.blocks <= H100_SMS
@@ -356,6 +365,16 @@ def _check_chain_plan(B_, H_, W_, S):
             for r in (fa, fb - 1):  # a band's runs lie in its rows and chunk
                 assert ra <= r // Rr < rb
                 assert ca <= r % Rr < ca + p.band_runs
+            # the band's tile: rows and image columns staged
+            t_rows = (ra + lo, rb - 1 + hi)
+            t_cols = (ca * tnk.RUN - tnk.LEFT,
+                      ca * tnk.RUN - tnk.LEFT + tnk.LEFT
+                      + p.band_runs * tnk.RUN + tnk.RIGHT - 1)
+            for r in (fa, fb - 1):
+                gr, w0 = r // Rr, r % Rr * tnk.RUN
+                assert t_rows[0] <= gr + lo and gr + hi <= t_rows[1]
+                assert t_cols[0] <= w0 + lo
+                assert w0 + tnk.RUN - 1 + hi <= t_cols[1]
             seen[fa:fb] += 1
     assert (seen == 1).all()
     return p
@@ -382,6 +401,39 @@ def test_chain_plan_sweep_refuses_no_plane():
         p = _check_chain_plan(*shape)
         chunked += p.band_runs < -(-shape[2] // tnk.RUN)
     assert chunked > 0
+
+
+# (B, H, W, S): the planes of the reverse chain's card tests
+# (tests/test_torch_nlspn_backward.py CHAIN_CASES)
+REVERSE_PLAN_SHAPES = [(2, 8, 9, 8), (2, 17, 23, 8), (4, 224, 304, 8),
+                       (4, 224, 304, 10), (1, 17, 23, 12), (3, 9, 16, 6),
+                       (1, 4000, 61, 8), (16, 352, 1216, 8),
+                       (1, 16, 8000, 8)]
+
+
+@pytest.mark.parametrize("B_,H_,W_,S", REVERSE_PLAN_SHAPES)
+def test_reverse_chain_plan_covers_every_run_once(B_, H_, W_, S):
+    """The same plan as the reverse chain takes it (its halo above a row):
+    at the train step's 4x224x304, S=8, whole rows, 208 of a block's 258
+    runs resident, as the kernel took them before it took bands; at
+    16x352x1216 two bands of 40 rows, none resident."""
+    p = _check_chain_plan(B_, H_, W_, S, reverse=True)
+    if (B_, H_, W_, S) == (4, 224, 304, 8):
+        assert (p.rpb, p.nres, p.band_rows, p.band_runs) == (258, 208, 8, 38)
+    if (B_, H_, W_) == (16, 352, 1216):
+        assert p.band_runs == 152 and p.band_rows == 40 and p.nres == 0
+    if (B_, H_, W_) == (1, 16, 8000):
+        assert p.band_rows == 1 and p.band_runs == 906
+
+
+def test_reverse_chain_plan_sweep_refuses_no_plane():
+    """The reverse chain's plan over the sweep of 315 planes and windows,
+    16x352x1216 among them, the widest cut into chunks of runs."""
+    chunked = 0
+    for shape in PLAN_SWEEP:
+        p = _check_chain_plan(*shape, reverse=True)
+        chunked += p.band_runs < -(-shape[2] // tnk.RUN)
+    assert (16, 352, 1216, 8) in PLAN_SWEEP and chunked > 0
 
 
 def test_chain_kernels_refuse_other_windows(monkeypatch):
