@@ -54,7 +54,18 @@ and PyTorch built for CUDA. It
    step times, peak memory and a two-step profile; then one f32 flagship
    step through the kernels against the plain step, run-to-run and a
    control with the identity blocks on torch's convolution;
-10. prints the card's name and power limit, one ``{"kernels": [...]}``
+10. writes a NYUv2-1400 fixture (16 train, 8 test scenes at 480x640) with
+   the port's generator and reads every PNG back (the native C++ unfilter
+   equal to what was written and to the plain unfilter); trains the
+   flagship on it (bf16, batch 4) 2 epochs straight, and 1 epoch, then
+   ``--resume_from epoch_1.pth`` and a second with the process loader,
+   and compares the two ``epoch_2.pth`` entry by entry, bit for bit (the
+   reflect pads of G_B2A by concatenation in these runs: the CUDA
+   reflection-pad backward adds with atomics); checks the sample
+   grids; serves the test split from ``epoch_2.pth`` and with the NLSPN
+   config (launch counts); runs ``rdfc_gan_torch.inference`` on one
+   image; prints step times, the loader's wait, decode time, peak memory;
+11. prints the card's name and power limit, one ``{"kernels": [...]}``
    line, and ``{"ok": true, "device": {...}}`` as the last line.
 
 It exits non-zero, printing no result, when there is no card or no
@@ -1969,6 +1980,293 @@ def flagship_breakdown_phase(engine, batch):
               f"({_pct(v, total)} of the forward's device time)")
 
 
+
+# the NYUv2-1400 fixture of the file-dataset phase: scenes a split, at the
+# corpus's 480x640
+FILE_TRAIN, FILE_TEST = 16, 8
+
+
+def _reflect_pad_cat(x, pad: int):
+    """``F.pad(x, (pad,) * 4, mode="reflect")`` from slices, flips and
+    concatenations: the same values, and a backward that adds the
+    reflected gradients in a fixed order. The CUDA reflection-pad backward
+    adds them with atomics, the one run-to-run nondeterminism of the
+    flagship step under deterministic cuDNN (with it, two straight
+    8-step runs on an H100 differed in 3412 of 4637 checkpoint
+    tensors)."""
+    import torch
+
+    x = torch.cat([x[:, :, 1:pad + 1].flip(2), x,
+                   x[:, :, -pad - 1:-1].flip(2)], 2)
+    x = torch.cat([x[:, :, :, 1:pad + 1].flip(3), x,
+                   x[:, :, :, -pad - 1:-1].flip(3)], 3)
+    # F.pad's layout on the card: 1-channel planes may carry channels-last
+    # strides (and count as contiguous), which a convolution passes on to
+    # its output, which the instance-norm kernels refuse
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _plain_png_check(path):
+    """(path, the plain unfilter's decode equals the native one's); run in
+    a worker process."""
+    import numpy as np
+
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    from rdfc_gan_torch.data import image_io
+
+    a = image_io.imread(path)
+    b = image_io.imread(path, plain=True)
+    return path, bool(a.dtype == b.dtype and np.array_equal(a, b))
+
+
+def _flat_leaves(obj, path=""):
+    """{path: leaf} of a loaded checkpoint (dicts, lists, tuples walked)."""
+    if isinstance(obj, (dict, list, tuple)):
+        items = obj.items() if isinstance(obj, dict) else enumerate(obj)
+        out = {}
+        for k, v in items:
+            out.update(_flat_leaves(v, f"{path}/{k}"))
+        return out
+    return {path: obj}
+
+
+def _file_fixture(workdir):
+    """Write the fixture with the port's generator, read every PNG back
+    (native unfilter) against what was written and (in worker processes)
+    against the plain unfilter; time a sample's decode. Returns the root."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    from rdfc_gan_torch.data import image_io
+    from rdfc_gan_torch.data.nyuv2 import NYUV21400Dataset
+    from rdfc_gan_torch.tools.make_nyuv2_fixture import write_fixture
+
+    root = os.path.join(workdir, "nyuv2")
+    t0 = time.perf_counter()
+    written = write_fixture(root, n_train=FILE_TRAIN, n_test=FILE_TEST,
+                            seed=0)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for rel, arr in written.items():
+        got = image_io.imread(os.path.join(root, rel))
+        if got.dtype != arr.dtype or not np.array_equal(got, arr):
+            fail(f"{rel} does not read back as written")
+    t_read = time.perf_counter() - t0
+    paths = [os.path.join(root, rel) for rel in written]
+    with ProcessPoolExecutor(max_workers=os.cpu_count() or 4,
+                             mp_context=mp.get_context("spawn")) as pool:
+        bad = [p for p, ok in pool.map(_plain_png_check, paths) if not ok]
+    if bad:
+        fail(f"plain and native unfilter disagree on {bad[:4]}")
+    ds = NYUV21400Dataset(root, mode="train")
+    t0 = time.perf_counter()
+    for i in range(len(ds)):
+        ds._load_raw(i)
+    decode_ms = (time.perf_counter() - t0) / len(ds) * 1e3
+    t0 = time.perf_counter()
+    for i in range(len(ds)):
+        ds[i]
+    sample_ms = (time.perf_counter() - t0) / len(ds) * 1e3
+    print(f"file datasets: NYUv2-1400 fixture, {FILE_TRAIN} train + "
+          f"{FILE_TEST} test scenes at 480x640, {len(written)} PNGs written "
+          f"in {t_write:.2f} s; every PNG read back equal to what was "
+          f"written ({t_read / len(written) * 1e3:.2f} ms a PNG), the plain "
+          f"unfilter equal to the native one on every file")
+    print(f"  host decode per sample (5 PNGs + border cut, one thread): "
+          f"{decode_ms:.3f} ms; whole train sample (decode, rotate, resize, "
+          f"crop, normalize): {sample_ms:.3f} ms")
+    return root
+
+
+def _check_grids(samples, steps):
+    """The sample grids of a run of ``steps`` steps dumped every 4."""
+    from rdfc_gan_torch.data import image_io
+
+    shapes = {"A-B": (B * H, 3 * W, 3), "B-A": (B * H, 3 * W, 3),
+              "normal": (B * H, 2 * W, 3), "label": (B * H, 2 * W, 3)}
+    grids = sorted(os.listdir(samples))
+    want = sorted(f"sample-{s}-{it:06d}-{k}.png" for s in ("train", "test")
+                  for it in range(4, steps + 1, 4) for k in shapes)
+    if grids != want:
+        fail(f"sample grids {grids}, expected {want}")
+    for name in grids:
+        img = image_io.imread(os.path.join(samples, name))
+        kind = name.split("-", 3)[3][:-4]
+        if img.shape != shapes[kind] or str(img.dtype) != "uint8":
+            fail(f"{name}: {img.shape} {img.dtype}")
+    print(f"  sample grids: {len(grids)} PNGs (every 4 steps, the fixed "
+          f"train and test batches), shapes {shapes}")
+
+
+def file_dataset_phase(workdir):
+    """The flagship's data-to-checkpoint loop on NYUv2-layout files: the
+    fixture (``_file_fixture``); the flagship trained (bf16, batch 4,
+    deterministic cuDNN algorithms, G_B2A's reflect pads by concatenation,
+    so that the step is deterministic) 2 epochs straight, and 1 epoch, then
+    --resume_from epoch_1.pth and the second epoch with the process loader,
+    the two epoch_2.pth bit-equal entry by entry; the sample grids; the
+    test split served from epoch_2.pth (the flagship) and with a seeded
+    NLSPN generator, counting launches; single-image inference; the step
+    times, the loader's wait and peak memory."""
+    import numpy as np
+    import torch
+
+    from rdfc_gan_torch import inference
+    from rdfc_gan_torch import test as port_test
+    from rdfc_gan_torch import train as port_train
+    from rdfc_gan_torch.cli import parse_config
+    from rdfc_gan_torch.data import image_io
+    from rdfc_gan_torch.models import resnet_generator
+    from rdfc_gan_torch.ops.kernels import build
+
+    t_phase = time.perf_counter()
+    print(gpu_line())
+    root = _file_fixture(workdir)
+    flagship = os.path.join(ROOT, "configs", "rdf_cycle_patchgan_config.yaml")
+
+    def args(work, config=flagship, extra=()):
+        return ["--dataset", "nyuv2", "--data_root", root, "--model_cfg_path",
+                config, "--work_dir", os.path.join(workdir, work),
+                "--batch_size", str(B), "--num_workers", "4",
+                "--device", "cuda", *extra]
+
+    def train(work, n_epochs, extra=()):
+        common = ["--n_epochs", str(n_epochs), "--save_interval", "1",
+                  "--sample_interval", "4", "--log_interval", "4",
+                  "--val_interval", "1000"]
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=False), \
+                mock.patch.object(resnet_generator, "reflect_pad",
+                                  _reflect_pad_cat):
+            return port_train.run(parse_config(args(work, extra=common
+                                                    + list(extra))))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    res = train("file_straight", 2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    engine, steps = res["engine"], res["steps"]
+    blocks = fused_blocks(engine.modules["G_A2B"])
+    n_in = sum(1 for m in engine.modules["G_B2A"].modules()
+               if type(m).__name__ == "InstanceNorm")
+    dumps = len(res["samples"])
+    # a step as in the flagship train phase; a sample dump is one
+    # forward_test (4 W-AdaIN) and two G_B2A applications
+    want = {"conv3x3_fwd": 2 * 2 * blocks * steps,
+            "conv3x3_bwd": 2 * 2 * blocks * steps,
+            "instance_norm_fwd": (2 * 4 + n_in) * steps
+            + (4 + 2 * n_in) * dumps,
+            "instance_norm_bwd": (2 * 4 + n_in) * steps}
+    sec = np.asarray(res["step_seconds"][1:]) * 1e3
+    wait = np.asarray(res["wait_seconds"]) * 1e3
+    print(f"  flagship train on the files: {steps} steps (2 epochs) at "
+          f"{H}x{W}, batch {B}, bf16, deterministic cuDNN, G_B2A's reflect "
+          f"pads by concatenation, thread loader, {dumps} sample dumps, "
+          f"wall {wall:.2f} s incl. build")
+    print(f"  step ms (host clock, first step left out, dumps included): "
+          f"median {np.median(sec):.3f}, p90 {np.percentile(sec, 90):.3f}, "
+          f"max {sec.max():.3f}; loader wait ms a step: mean "
+          f"{wait.mean():.3f}, median {np.median(wait):.3f}, max "
+          f"{wait.max():.3f}; peak device memory {peak / 2**20:.1f} MiB")
+    print(f"  kernel launches {counts}; expected {want}")
+    _no_f32_conv(counts, "the flagship epochs on files")
+    if counts != want:
+        fail(f"file-dataset launch counts {counts} are not {want}")
+    if not all(np.isfinite(v) for v in res["losses"].values()):
+        fail(f"file-dataset losses {res['losses']}")
+    _check_grids(os.path.join(workdir, "file_straight", "samples"), steps)
+    del engine, res
+
+    train("file_half", 1)
+    resumed = train("file_resumed", 2, [
+        "--resume_from", os.path.join(workdir, "file_half", "epoch_1.pth"),
+        "--loader_backend", "process"])
+    if resumed["start_epoch"] != 1 or resumed["steps"] != steps // 2:
+        fail(f"resumed at epoch {resumed['start_epoch']} for "
+             f"{resumed['steps']} steps")
+    del resumed
+    ep2 = os.path.join(workdir, "file_straight", "epoch_2.pth")
+    a, b = (_flat_leaves(torch.load(p, map_location="cpu", weights_only=True))
+            for p in (ep2, os.path.join(workdir, "file_resumed",
+                                        "epoch_2.pth")))
+    if set(a) != set(b):
+        fail(f"epoch_2.pth entries differ: {sorted(set(a) ^ set(b))[:6]}")
+    differ = [k for k, x in a.items() if not (
+        torch.equal(x, b[k]) and x.dtype == b[k].dtype
+        if isinstance(x, torch.Tensor) else x == b[k])]
+    n_tensors = sum(isinstance(x, torch.Tensor) for x in a.values())
+    if differ:
+        fail(f"resumed epoch_2.pth differs from the straight run's at "
+             f"{len(differ)} of {len(a)} entries, e.g. {differ[:4]}")
+    print(f"  resume: epoch_2.pth of 1 epoch + --resume_from + 1 epoch "
+          f"(process loader) is bit-equal to the straight run's: all "
+          f"{n_tensors} tensors (nets, optimizers, schedulers) and "
+          f"{len(a) - n_tensors} other entries")
+
+    build.reset_launches()
+    served = port_test.run(parse_config(args("file_serve",
+                                             extra=["--load_from", ep2])))
+    counts = dict(build.LAUNCHES)
+    fwd, metrics = served["forwards"], served["metrics"]
+    print(f"  flagship served from epoch_2.pth on the {FILE_TEST} test "
+          f"scenes: " + ", ".join(f"{k}={v:.6g}" for k, v in metrics.items())
+          + f"; forwards {fwd}, launches {counts}")
+    if len(metrics) != 8 or not all(np.isfinite(v)
+                                    for v in metrics.values()):
+        fail(f"served metrics {metrics}")
+    if counts != {"instance_norm_fwd": 4 * fwd}:
+        fail(f"flagship serve on files: launches {counts}, expected "
+             f"{{'instance_norm_fwd': {4 * fwd}}}")
+    del served
+
+    nlspn = os.path.join(ROOT, "configs", "rdf_gan_nlspn_config.yaml")
+    cfg = parse_config(args("file_nlspn", nlspn))
+    first = next(iter(port_test.build_val_loader(cfg, torch.device("cuda"))))
+    g = _seeded_generator(cfg, "cuda", first)
+    gpth = os.path.join(workdir, "file_G.pth")
+    torch.save({"G_state_dict": g.state_dict()}, gpth)
+    del g
+    build.reset_launches()
+    served = port_test.run(parse_config(args("file_nlspn", nlspn,
+                                             ["--load_from", gpth])))
+    counts = dict(build.LAUNCHES)
+    fwd = served["forwards"]
+    print(f"  NLSPN served on the test scenes: " + ", ".join(
+        f"{k}={v:.6g}" for k, v in served["metrics"].items())
+        + f"; max offset {served['max_offset']:.4f}, forwards {fwd}, "
+        f"launches {counts}")
+    want = {"shift_mask_scatter": fwd, "nlspn_propagate": fwd,
+            "instance_norm_fwd": 4 * fwd}
+    if counts != want or not all(np.isfinite(v) for v in
+                                 served["metrics"].values()):
+        fail(f"NLSPN serve on files: launches {counts}, expected {want}")
+    del served
+
+    out = os.path.join(workdir, "file_pred.png")
+    inf = inference.run(["--model_cfg_path", flagship, "--load_from", ep2,
+                         "--rgb", os.path.join(root, "test/rgb/0000.png"),
+                         "--depth", os.path.join(root,
+                                                 "test/depth_raw/0000.png"),
+                         "--out", out])
+    pred = image_io.imread(out)
+    vis = image_io.imread(inf["vis"])
+    if pred.dtype != np.uint16 or pred.shape != (H, W) \
+            or vis.shape != (H, W, 3):
+        fail(f"inference wrote {pred.dtype}{pred.shape}, vis {vis.shape}")
+    print(f"  inference: {os.path.basename(out)} uint16 {pred.shape}, "
+          f"range [{int(pred.min())}, {int(pred.max())}] mm; "
+          f"{os.path.basename(inf['vis'])} {vis.shape}")
+    print(f"  file-dataset phase wall {time.perf_counter() - t_phase:.2f} s")
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "rdfc_gan_torch", "csrc")):
         fail(f"no rdfc_gan_torch package beside {__file__}")
@@ -2013,6 +2311,7 @@ def main():
         train_profile_phase(engine, batch, title="flagship train profile")
         del engine
         flagship_step_compare_phase(workdir, fpth)
+        file_dataset_phase(workdir)
     # launches: the scatter and the served chain from the serve run, the
     # NLSPN backward kernels from the RDFGAN train run, the IN and conv
     # kernels from the flagship train run

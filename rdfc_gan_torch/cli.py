@@ -80,6 +80,8 @@ def build_parser() -> argparse.ArgumentParser:
     add("--criterion_to_get_best_ckpt", type=str, default="RMSE")
     add("--start_eval_epoch", type=int, default=d.start_eval_epoch)
     add("--sample_dir", type=str, default="./")
+    add("--profile_dir", type=str, default=d.profile_dir,
+        help="write a torch.profiler Chrome trace of train step 50")
     # runtime
     add("--seed", type=int, default=0)
     add("--gpus", type=str, default="0",

@@ -137,6 +137,8 @@ def default_config() -> Config:
             criterion_to_get_best_ckpt="RMSE",
             start_eval_epoch=1,
             sample_dir="./",
+            # torch.profiler Chrome trace of train step 50 (train.py:114)
+            profile_dir=None,
             # runtime
             seed=0,
             test_only=False,

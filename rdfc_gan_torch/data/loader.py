@@ -5,21 +5,58 @@ With ``shuffle`` the order is a permutation that is a pure function of
 (seed, epoch), the JAX loader's (loader.py:129-133): ``set_epoch`` picks the
 epoch, as DistributedSampler.set_epoch does. Without it batches follow the
 dataset order. Each array of a sample is stacked over the batch; (H, W, C)
-images become (B, C, H, W) tensors. A thread pool builds the next two
-batches while the current one is used. With ``drop_last`` a short final
-batch is dropped; otherwise it is padded by repeating its last row, and
-``sample_idx`` marks pad rows with -1 (loader.py:161-173), so the batch
-shape stays fixed and the evaluator drops them.
+images become (B, C, H, W) tensors. The next two batches are built while
+the current one is used. With ``drop_last`` a short final batch is dropped;
+otherwise it is padded by repeating its last row, and ``sample_idx`` marks
+pad rows with -1 (loader.py:161-173), so the batch shape stays fixed and
+the evaluator drops them.
+
+Workers (``worker_backend``): ``thread`` (the default) builds samples in a
+thread pool, which overlaps the GIL-free parts (zlib, the PNG unfilter,
+numpy) with the device step; ``process`` keeps a persistent pool of spawned
+processes, each holding an unpickled copy of the dataset (the reference's
+``workers_per_gpu`` DataLoader, helper.py:217-230). A process task is one
+whole batch, handed the epoch with it, so the per-sample generators, keyed
+by (seed, epoch, index), give both backends the same batches. Workers see
+numpy only and never touch the card. ``close`` stops the pool.
 """
 
 from __future__ import annotations
 
 import collections
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator
 
 import numpy as np
 import torch
+
+BACKENDS = ("thread", "process")
+
+_WORKER_DS = None
+_WORKER_EPOCH = -1
+
+
+def _stack(samples) -> Dict[str, np.ndarray]:
+    return {k: np.stack([s[k] for s in samples], axis=0) for k in samples[0]}
+
+
+def _proc_init(ds_bytes: bytes):
+    import os
+    import pickle
+
+    # the workers build numpy samples only: keep them off the card
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    global _WORKER_DS
+    _WORKER_DS = pickle.loads(ds_bytes)
+
+
+def _proc_fetch(rows, epoch: int) -> Dict[str, np.ndarray]:
+    global _WORKER_EPOCH
+    if epoch != _WORKER_EPOCH and hasattr(_WORKER_DS, "set_epoch"):
+        _WORKER_DS.set_epoch(epoch)
+        _WORKER_EPOCH = epoch
+    return _stack([_WORKER_DS[int(j)] for j in rows])
 
 
 class DataLoader:
@@ -27,9 +64,13 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size: int, device="cpu",
                  num_workers: int = 4, shuffle: bool = False,
-                 drop_last: bool = False, seed: int = 0):
+                 drop_last: bool = False, seed: int = 0,
+                 worker_backend: str = "thread"):
         if batch_size < 1:
             raise ValueError(f"batch_size {batch_size} < 1")
+        if worker_backend not in BACKENDS:
+            raise ValueError(f"worker_backend {worker_backend!r} not in "
+                             f"{BACKENDS}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.device = torch.device(device)
@@ -38,6 +79,11 @@ class DataLoader:
         self.drop_last = drop_last
         self.seed = seed
         self.epoch = 0
+        self.worker_backend = worker_backend
+        self._pool = None
+        # host seconds the consumer waited for each batch of the last
+        # iteration (the loader's share of a step)
+        self.wait_seconds = []
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
@@ -62,10 +108,9 @@ class DataLoader:
             rows = np.concatenate([rows, np.repeat(rows[-1:], pads)])
         return rows, pads
 
-    def _to_device(self, samples, rows, pads) -> Dict[str, torch.Tensor]:
+    def _to_device(self, arrays, rows, pads) -> Dict[str, torch.Tensor]:
         batch = {}
-        for k in samples[0]:
-            arr = np.stack([s[k] for s in samples], axis=0)
+        for k, arr in arrays.items():
             t = torch.from_numpy(arr)
             if t.dim() == 4:  # (B, H, W, C) -> (B, C, H, W)
                 t = t.permute(0, 3, 1, 2).contiguous()
@@ -76,21 +121,65 @@ class DataLoader:
         batch["sample_idx"] = torch.from_numpy(si)
         return batch
 
+    def _process_pool(self):
+        """The persistent spawn pool, made at first use and kept across
+        epochs (spawning and unpickling the dataset is the costly part)."""
+        if self._pool is None:
+            import multiprocessing as mp
+            import pickle
+            from concurrent.futures import ProcessPoolExecutor
+
+            self._pool = ProcessPoolExecutor(
+                max_workers=self.num_workers,
+                mp_context=mp.get_context("spawn"),
+                initializer=_proc_init,
+                initargs=(pickle.dumps(self.dataset),))
+        return self._pool
+
+    def close(self):
+        """Stop the process pool, if one was started."""
+        if self._pool is not None:
+            self._pool.shutdown()
+            self._pool = None
+
+    def __del__(self):  # pragma: no cover - interpreter teardown
+        try:
+            self.close()
+        except Exception:
+            pass
+
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
         nb = len(self)
         order = self.indices()
         queue = collections.deque()
-        with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+        self.wait_seconds = []
+        if self.worker_backend == "process":
+            pool, threads = self._process_pool(), None
+
             def submit(i):
                 rows, pads = self._rows(order, i)
-                return [pool.submit(self.dataset.__getitem__, int(j))
-                        for j in rows], rows, pads
+                fut = pool.submit(_proc_fetch, rows, self.epoch)
+                return (lambda: fut.result()), rows, pads
+        else:
+            pool = threads = ThreadPoolExecutor(max_workers=self.num_workers)
 
+            def submit(i):
+                rows, pads = self._rows(order, i)
+                futs = [pool.submit(self.dataset.__getitem__, int(j))
+                        for j in rows]
+                return (lambda: _stack([f.result() for f in futs])), rows, \
+                    pads
+        try:
             for i in range(min(self.PREFETCH, nb)):
                 queue.append(submit(i))
             for i in range(nb):
-                futures, rows, pads = queue.popleft()
+                result, rows, pads = queue.popleft()
                 if i + self.PREFETCH < nb:
                     queue.append(submit(i + self.PREFETCH))
-                yield self._to_device([f.result() for f in futures], rows,
-                                      pads)
+                t0 = time.perf_counter()
+                arrays = result()
+                self.wait_seconds.append(time.perf_counter() - t0)
+                yield self._to_device(arrays, rows, pads)
+        finally:
+            if threads is not None:
+                threads.shutdown(wait=True, cancel_futures=True)

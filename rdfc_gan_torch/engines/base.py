@@ -3,6 +3,9 @@ keyed like the reference checkpoint schema, the device they run on, the
 compute type of the train step, the optimizers and the epoch-wise learning
 rate schedules.
 
+``train_state`` / ``load_train_state`` carry the optimizers' and
+schedulers' state through a checkpoint (``utils.checkpoint.resume_from``).
+
 The JAX package folds the per-epoch factor into an optax step schedule
 (``epoch = count // steps_per_epoch``, evaluated at the count before the
 update). Here each optimizer has a ``LambdaLR`` stepped once per optimizer
@@ -188,3 +191,31 @@ class BaseEngine:
         if self.compute_dtype is None:
             return contextlib.nullcontext()
         return torch.autocast("cuda", dtype=self.compute_dtype)
+
+    def train_state(self) -> Dict[str, dict]:
+        """The checkpoint entries of training (reference schema):
+        ``{k}_optimizer_state_dict`` and ``{k}_lr_scheduler_state_dict``
+        for each optimizer ``k``."""
+        out = {}
+        for k, opt in self.optimizers.items():
+            out[f"{k}_optimizer_state_dict"] = opt.state_dict()
+            out[f"{k}_lr_scheduler_state_dict"] = \
+                self.schedulers[k].state_dict()
+        return out
+
+    def load_train_state(self, entries: Dict[str, dict], start_step: int):
+        """Restore what ``train_state`` wrote, every entry checked first
+        (KeyError naming the first missing one), and continue the global
+        step at ``start_step`` (the per-step generators are seeded from
+        it)."""
+        for k in self.optimizers:
+            for suffix in ("optimizer", "lr_scheduler"):
+                if f"{k}_{suffix}_state_dict" not in entries:
+                    raise KeyError(f"checkpoint has no "
+                                   f"{k}_{suffix}_state_dict: it cannot "
+                                   f"resume training")
+        for k, opt in self.optimizers.items():
+            opt.load_state_dict(entries[f"{k}_optimizer_state_dict"])
+            self.schedulers[k].load_state_dict(
+                entries[f"{k}_lr_scheduler_state_dict"])
+        self.n_step = int(start_step)

@@ -170,6 +170,55 @@ class RDFCGAN(BaseEngine):
                          real_B.shape[0]))
         return dict(pepper=pepper, keep=keep)
 
+    @torch.inference_mode()
+    def save_samples(self, fixed_samples: Dict[str, torch.Tensor],
+                     save_dir: str, iters: int, prefix: str = "sample",
+                     batch_size: int = 8):
+        """Image-grid dumps of the cycle (JAX rdfc_gan.py:436-490; reference
+        rdfc_gan.py:342-410), in eval mode: ``{prefix}-{iters:06d}-A-B.png``
+        (raw depth, gt depth, fake_B), ``-B-A.png`` (rgb, fake_A = G_B2A(gt),
+        rec_A = G_B2A(fake_B)), ``-normal.png`` (gt, predicted) and
+        ``-label.png`` (gt, predicted, in the palette). PNG, not the JAX
+        package's JPEG (``utils.save_vis``)."""
+        import os
+
+        from ..utils import save_vis
+
+        def nhwc(t):
+            t = t.detach().float().cpu()
+            return (t.permute(0, 2, 3, 1) if t.dim() == 4 else t).numpy()
+
+        os.makedirs(save_dir, exist_ok=True)
+        rgb, gt_depth = fixed_samples["rgb"], fixed_samples["gt_depth"]
+        aux = fixed_samples["raw_depth"]
+        ret = self.forward_test(rgb=rgb, raw_depth=aux)
+        lbl = ret["pred_label"]
+        lbl = lbl[0] if isinstance(lbl, (list, tuple)) else lbl
+        G_B2A = self.modules["G_B2A"].eval()
+        fake_A = G_B2A(gt_depth)
+        rec_A = G_B2A(ret["pred_depth"])
+        p = os.path.join(save_dir, f"{prefix}-{iters:06d}")
+        n = int(self.cfg.num_classes)
+        save_vis.save_image_grid(
+            f"{p}-A-B.png", [nhwc(aux), nhwc(gt_depth),
+                             nhwc(ret["pred_depth"])],
+            num_imgs_per_scene=3, batch_size=batch_size)
+        save_vis.save_image_grid(
+            f"{p}-B-A.png", [nhwc(rgb), nhwc(fake_A), nhwc(rec_A)],
+            num_imgs_per_scene=3, batch_size=batch_size)
+        save_vis.save_image_grid(
+            f"{p}-normal.png", [nhwc(fixed_samples["gt_normal"]),
+                                nhwc(ret["pred_normal"])],
+            num_imgs_per_scene=2, batch_size=batch_size)
+        pred_lbl = save_vis.color_label(
+            lbl.argmax(1).cpu().numpy(), save_vis.PALETTE, n)
+        gt_lbl = save_vis.color_label(
+            fixed_samples["labels"].cpu().numpy(), save_vis.PALETTE, n)
+        save_vis.save_image_grid(
+            f"{p}-label.png", [gt_lbl / 255.0, pred_lbl / 255.0],
+            num_imgs_per_scene=2, batch_size=batch_size)
+        return p
+
     def _optimize(self, names, loss: torch.Tensor):
         """One backward of ``loss``, then each named optimizer's clip, step
         and schedule, in order."""

@@ -7,9 +7,13 @@ reference RDFC-GAN/test.py:1-92).
     python -m rdfc_gan_torch.test --dataset synthetic \\
         --model_cfg_path configs/rdf_cycle_patchgan_config.yaml \\
         --work_dir work/f [--depth_only] [--cal_fps] [--load_from x.pth]
+    python -m rdfc_gan_torch.test --dataset nyuv2 --data_root NYU \\
+        --model_cfg_path configs/rdf_cycle_patchgan_config.yaml \\
+        --work_dir work/n --load_from W/best.pth
 
 Builds the engine of ``model.type`` (RDFGAN, or the flagship RDFCGAN) on
-``--device`` (default cuda, which raises without a card), optionally loads
+``--device`` (default cuda, which raises without a card) and the val split
+of ``--dataset`` (a file dataset needs ``--data_root``), optionally loads
 a reference ``.pth`` (the nets the engine has; the others are logged as
 left unread), runs the val split through ``forward_test`` and prints the 8
 depth metrics. ``--depth_only`` skips the RDFCGAN's G_label, whose labels
@@ -24,9 +28,6 @@ synchronize.
 from __future__ import annotations
 
 import sys
-import time
-
-import torch
 
 from .cli import parse_config
 from .data import DataLoader
@@ -36,42 +37,26 @@ from .ops.nlspn_guard import escalate_nlspn_cfg, probe_max_offset
 from .registry import build_dataset
 from .utils import Logger, set_random_seed
 from .utils.checkpoint import load_checkpoint
-
-
-def _sync(device: torch.device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+from .utils.profiling import fps_harness
 
 
 def cal_fps(engine, loader, n_images: int = 300, warmup: int = 5,
             logger=None, depth_only: bool = False) -> float:
-    it = iter(loader)
-    batch = next(it)
-    for _ in range(warmup):
-        engine.forward_test(rgb=batch["rgb"], raw_depth=batch["raw_depth"],
-                            depth_only=depth_only)
-        _sync(engine.device)
-    done = 0
-    t0 = time.perf_counter()
-    while done < n_images:
-        try:
-            batch = next(it)
-        except StopIteration:
-            it = iter(loader)
-            batch = next(it)
-        engine.forward_test(rgb=batch["rgb"], raw_depth=batch["raw_depth"],
-                            depth_only=depth_only)
-        _sync(engine.device)
-        done += batch["rgb"].shape[0]
-    dt = time.perf_counter() - t0
-    fps = done / dt
+    """img/s served: ``utils.profiling.fps_harness`` over ``forward_test``."""
+    fps = fps_harness(
+        lambda b: engine.forward_test(rgb=b["rgb"], raw_depth=b["raw_depth"],
+                                      depth_only=depth_only),
+        loader, n_images=n_images, warmup=warmup)
     (logger.log if logger else print)(
-        f"FPS: {fps:.2f} ({done} imgs in {dt:.2f}s)")
+        f"FPS: {fps:.2f} ({n_images} imgs after {warmup} warm-up forwards)")
     return fps
 
 
 def build_split(cfg, mode: str):
-    """The ``mode`` ("train" or "val") split of ``cfg.dataset``."""
+    """The ``mode`` ("train" or "val") split of ``cfg.dataset``: the
+    synthetic set at (out_height, out_width), or a file dataset (``nyuv2``,
+    ``nyuv2_sparse``, ``nyuv2_pseudo``, ``nyuv2_raw``, ``sunrgbd``) under
+    ``data_root`` (train.py:36-43), which raises without one."""
     from . import data  # noqa: F401  (registers the datasets)
 
     common = dict(num_classes=cfg.num_classes, seed=cfg.seed)

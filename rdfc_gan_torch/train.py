@@ -1,28 +1,37 @@
 """Training entry point of the port (port of the repository's ``train.py``;
 reference RDFC-GAN/train.py:1-189).
 
-    python -m rdfc_gan_torch.train --dataset synthetic \\
-        --model_cfg_path configs/rdf_gan_nlspn_config.yaml --work_dir W \\
-        [--n_epochs N] [--batch_size 4] [--out_height 224 --out_width 304] \\
-        [--device cuda|cpu] [--load_from G_and_D.pth]
-    python -m rdfc_gan_torch.train --dataset synthetic \\
-        --model_cfg_path configs/rdf_cycle_patchgan_config.yaml --work_dir W \\
-        [--device cuda|cpu] [--load_from six_nets.pth]
+    python -m rdfc_gan_torch.train --dataset nyuv2 --data_root NYU \
+        --model_cfg_path configs/rdf_cycle_patchgan_config.yaml --work_dir W \
+        [--n_epochs N] [--batch_size 4] [--device cuda|cpu] \
+        [--resume_from W/epoch_5.pth | --load_from six_nets.pth] \
+        [--loader_backend thread|process] [--sample_interval 1000] \
+        [--profile_dir P]
+    python -m rdfc_gan_torch.train --dataset synthetic \
+        --model_cfg_path configs/rdf_gan_nlspn_config.yaml --work_dir W ...
 
 Builds the shuffled, ``drop_last`` train loader (its order a pure function
-of (seed, epoch)) and the padded val loader, the engine on ``--device``
-(default cuda, which raises without a card), then runs the epoch loop:
+of (seed, epoch); thread or process workers) and the padded val loader, the
+engine on ``--device`` (default cuda, which raises without a card), then
+runs the epoch loop: the loader's and the dataset's epoch set (the
+per-sample augmentation draws are keyed by (seed, epoch, index));
 ``train_step`` per batch; the losses stay on the device until a log
 boundary (every ``log_interval`` steps and at the end of each epoch), where
 the whole window is read back in one transfer, averaged and logged with the
-``nlspn_max_offset`` warning; ``epoch_{n}.pth`` every ``save_interval``
-epochs; evaluation (``engine.forward_test``) every ``val_interval`` epochs
-from ``start_eval_epoch`` on, with ``best.pth`` on
+``nlspn_max_offset`` warning; every ``sample_interval`` steps the engine's
+sample grids (RDFCGAN: ``save_samples``) of two fixed batches, the first
+train batch and the first val batch, under ``work_dir/samples``; a
+``torch.profiler`` Chrome trace of step 50 under ``profile_dir``; ``epoch_{n}.pth`` every ``save_interval`` epochs;
+evaluation (``engine.forward_test``) every ``val_interval`` epochs from
+``start_eval_epoch`` on, with ``best.pth`` on
 ``criterion_to_get_best_ckpt``. The engine is ``model.type``'s: the RDFGAN
 (G and D) or the flagship RDFCGAN (six nets, four optimizers). Checkpoints
-are the reference schema (``{net}_state_dict`` for every net and
-``meta``), which ``python -m rdfc_gan_torch.test --load_from`` serves.
-Sample dumps, resume and optimizer state are not ported yet.
+are the reference schema (``{net}_state_dict`` for every net, each
+optimizer's and scheduler's state, ``meta`` {epoch, batch_size}), which
+``python -m rdfc_gan_torch.test --load_from`` serves and ``--resume_from``
+continues: the nets, optimizers, schedulers and the global step (the
+per-step draws are seeded by it) are restored, so a resumed run gives the
+straight run's checkpoint.
 """
 
 from __future__ import annotations
@@ -40,15 +49,18 @@ from .engines import build_engine, resolve_device
 from .evaluator import Eval
 from .test import build_split, build_val_loader
 from .utils import Logger, MovingAverage, set_random_seed
-from .utils.checkpoint import load_checkpoint, save_checkpoint
+from .utils.checkpoint import load_checkpoint, resume_from, save_checkpoint
+from .utils.profiling import StepTimer, trace
 
 _MINIMIZE = ("RMSE", "MAE", "iRMSE", "iMAE", "REL")
+_PROFILE_STEP = 50  # the traced step of --profile_dir (train.py:121)
 
 
 def build_train_loader(cfg, device) -> DataLoader:
     return DataLoader(build_split(cfg, "train"), cfg.batch_size,
                       device=device, num_workers=cfg.num_workers,
-                      shuffle=True, drop_last=True, seed=cfg.seed)
+                      shuffle=True, drop_last=True, seed=cfg.seed,
+                      worker_backend=cfg.get("loader_backend", "thread"))
 
 
 class _LossLog:
@@ -91,20 +103,38 @@ def run(cfg) -> dict:
     """Train ``cfg``. Returns the engine, the last evaluation's metrics,
     the best criterion, the last logged window's mean losses, the host
     seconds of each step (a step that ends at a log boundary includes the
-    device sync of its readback) and the number of steps."""
-    if cfg.resume_from:
-        raise NotImplementedError("--resume_from: resume and optimizer "
-                                  "state are not ported yet")
+    device sync of its readback), the host seconds each step waited for
+    its batch, the number of steps, the epoch it started from and the
+    sample grids written."""
     set_random_seed(cfg.seed)
     logger = Logger(cfg.work_dir, filename="train.log")
     device = resolve_device(cfg.get("device", "cuda"))
     train_loader = build_train_loader(cfg, device)
     val_loader = build_val_loader(cfg, device)
+    try:
+        return _train(cfg, logger, device, train_loader, val_loader)
+    finally:
+        train_loader.close()
+        val_loader.close()
+        logger.close()
+
+
+def _train(cfg, logger, device, train_loader, val_loader) -> dict:
     engine = build_engine(cfg, is_train=True,
                           steps_per_epoch=len(train_loader))
     logger.log(f"device {device}, train batches/epoch {len(train_loader)}, "
-               f"compute dtype {engine.compute_dtype or torch.float32}")
-    if cfg.load_from:
+               f"compute dtype {engine.compute_dtype or torch.float32}, "
+               f"loader {train_loader.worker_backend}")
+    # fixed train + val batches for the sample grids (train.py:85-87)
+    vis_batches = {}
+    if hasattr(engine, "save_samples"):
+        vis_batches = {"train": next(iter(train_loader)),
+                       "test": next(iter(val_loader))}
+    start_epoch = cfg.epoch
+    if cfg.resume_from:
+        start_epoch = resume_from(engine, cfg.resume_from)
+        logger.log(f"resumed from {cfg.resume_from} at epoch {start_epoch}")
+    elif cfg.load_from:
         meta = load_checkpoint(engine.modules, cfg.load_from)
         logger.log(f"loaded {cfg.load_from} (epoch {meta.get('epoch')})")
     os.makedirs(cfg.work_dir, exist_ok=True)
@@ -119,43 +149,60 @@ def run(cfg) -> dict:
     minimize = cfg.criterion_to_get_best_ckpt in _MINIMIZE
     best = float("inf") if minimize else float("-inf")
     metrics = None
-    step_seconds = []
-    it = start = cfg.epoch * len(train_loader)
-    for epoch in range(cfg.epoch, cfg.n_epochs):
+    step_seconds, wait_seconds, samples = [], [], []
+    timer = StepTimer()
+    profile_dir = cfg.get("profile_dir")
+
+    def checkpoint(name, **meta):
+        save_checkpoint(engine.modules, os.path.join(cfg.work_dir, name),
+                        meta=dict(batch_size=cfg.batch_size, **meta),
+                        train_state=engine.train_state())
+
+    # the global step continues across --resume_from: the per-step draws
+    # are seeded by it, so a resumed run replays the straight run's
+    it = start = start_epoch * len(train_loader)
+    for epoch in range(start_epoch, cfg.n_epochs):
         train_loader.set_epoch(epoch)
+        if hasattr(train_loader.dataset, "set_epoch"):
+            train_loader.dataset.set_epoch(epoch)
         t_prev = time.perf_counter()
         i = -1
         for i, batch in enumerate(train_loader):
-            losses.add(engine.train_step(batch))
+            with trace(profile_dir if it == _PROFILE_STEP else None):
+                losses.add(engine.train_step(batch))
+            timer.tick()
             it += 1
             if it % cfg.log_interval == 0:
                 losses.flush(epoch, i, cfg.batch_size)
+            if it % cfg.sample_interval == 0:
+                for split, vb in vis_batches.items():
+                    samples.append(engine.save_samples(
+                        vb, os.path.join(cfg.work_dir, "samples"), it,
+                        prefix=f"sample-{split}"))
             t = time.perf_counter()
             step_seconds.append(t - t_prev)
             t_prev = t
+        wait_seconds += train_loader.wait_seconds
         # the trailing partial window is logged too
         losses.flush(epoch, i, cfg.batch_size)
+        logger.log(f"epoch {epoch}: step mean {timer.mean_ms:.1f} ms, max "
+                   f"{timer.max_ms:.1f} ms (last {len(timer.times)})")
 
         if (epoch + 1) % cfg.save_interval == 0:
-            save_checkpoint(engine.modules,
-                            os.path.join(cfg.work_dir,
-                                         f"epoch_{epoch + 1}.pth"),
-                            meta=dict(epoch=epoch + 1))
+            checkpoint(f"epoch_{epoch + 1}.pth", epoch=epoch + 1)
         if ((epoch + 1) % cfg.val_interval == 0
                 and epoch + 1 >= cfg.start_eval_epoch):
             metrics = evaluator.evaluate(engine, logger)
             crit = metrics[cfg.criterion_to_get_best_ckpt]
             if crit < best if minimize else crit > best:
                 best = crit
-                save_checkpoint(engine.modules,
-                                os.path.join(cfg.work_dir, "best.pth"),
-                                meta=dict(epoch=epoch + 1, best=best))
+                checkpoint("best.pth", epoch=epoch + 1, best=best)
                 logger.log(f"new best {cfg.criterion_to_get_best_ckpt}: "
                            f"{best}")
-    logger.close()
     return dict(engine=engine, metrics=metrics, best=best,
                 losses=losses.avg.mean(), step_seconds=step_seconds,
-                steps=it - start)
+                wait_seconds=wait_seconds, steps=it - start,
+                start_epoch=start_epoch, samples=samples)
 
 
 def main(argv=None) -> int:

@@ -7,6 +7,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -20,7 +21,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_imports_no_jax():
-    """Every module of the package, walked, and chip_smoke."""
+    """Every module of the package, walked, and chip_smoke: none imports
+    JAX, the JAX package, its tools, or an image library the card's
+    machine lacks (OpenCV, PIL, imageio, h5py, scikit-image)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import chip_smoke, rdfc_gan_torch\n"
@@ -37,10 +40,13 @@ def test_port_imports_no_jax():
         "        'rdfc_gan_torch.ops.fused_block',\n"
         "        'rdfc_gan_torch.ops.kernels.conv_block_kernel',\n"
         "        'rdfc_gan_torch.utils.image_ops',\n"
-        "        'rdfc_gan_torch.engines.rdfc_gan'} <= set(names)\n"
+        "        'rdfc_gan_torch.engines.rdfc_gan',\n"
+        "        'rdfc_gan_torch.data.nyuv2', 'rdfc_gan_torch.inference',\n"
+        "        'rdfc_gan_torch.utils.checkpoint'} <= set(names)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'rdfc_gan_tpu',\n"
-        "              'tools', 'attic'))\n"
+        "              'tools', 'attic', 'cv2', 'PIL', 'imageio', 'h5py',\n"
+        "              'skimage'))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -87,6 +93,22 @@ def test_flagship_train_without_card_raises(monkeypatch, tmp_path):
         main(["--dataset", "synthetic", "--model_cfg_path",
               os.path.join(ROOT, "configs", "rdf_cycle_patchgan_config.yaml"),
               "--work_dir", str(tmp_path)])
+
+
+def test_inference_without_card_raises(monkeypatch, tmp_path):
+    """``python -m rdfc_gan_torch.inference`` defaults to the card too."""
+    from rdfc_gan_torch.data import image_io
+    from rdfc_gan_torch.inference import main
+
+    rgb, depth = str(tmp_path / "rgb.png"), str(tmp_path / "d.png")
+    image_io.imwrite(rgb, np.zeros((8, 8, 3), np.uint8))
+    image_io.imwrite(depth, np.zeros((8, 8), np.uint16))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--model_cfg_path", os.path.join(
+                  ROOT, "configs", "rdf_cycle_patchgan_config.yaml"),
+              "--rgb", rgb, "--depth", depth,
+              "--out", str(tmp_path / "o.png")])
 
 
 class _OnCard:

@@ -381,7 +381,11 @@ def test_train_cli_flagship_then_serve(tmp_path):
     for k in G_KEYS + D_KEYS:
         assert f" {k}=" in text, k
     ckpt = torch.load(tmp_path / "tr" / "best.pth", weights_only=True)
-    assert set(ckpt) == {f"{k}_state_dict" for k in NETS} | {"meta"}
+    # the reference schema: the six nets, the four optimizers' and
+    # schedulers' state (what --resume_from reads), meta
+    assert set(ckpt) == {f"{k}_state_dict" for k in NETS} | {
+        f"{k}_{e}_state_dict" for k in ("G", "D", "Nor", "label")
+        for e in ("optimizer", "lr_scheduler")} | {"meta"}
     assert port_test.main(common + ["--work_dir", str(tmp_path / "te"),
                                     "--load_from",
                                     str(tmp_path / "tr" / "best.pth")]) == 0

@@ -458,7 +458,11 @@ def test_train_cli_one_epoch_then_serve(tmp_path):
     assert len(re.findall(r"epoch 0 iter \d+ ", text)) == 3
     assert (tmp_path / "tr" / "epoch_1.pth").exists()
     ckpt = torch.load(tmp_path / "tr" / "best.pth", weights_only=True)
-    assert set(ckpt) == {"G_state_dict", "D_state_dict", "meta"}
+    # the reference schema: each net, each optimizer's and scheduler's
+    # state (what --resume_from reads), meta
+    assert set(ckpt) == {f"{k}_{e}state_dict" for k in ("G", "D")
+                         for e in ("", "optimizer_", "lr_scheduler_")} \
+        | {"meta"}
     assert ckpt["meta"]["epoch"] == 1
     assert port_test.main(common + ["--work_dir", str(tmp_path / "te"),
                                     "--load_from",
