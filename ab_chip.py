@@ -11,8 +11,10 @@ the X-storing NLSPN forward chains and of the reverse chain (a T=18 chain
 and a one-step chain at 4x224x304, S=8, bf16 masks, through the tree's own
 wrappers), the shift correlation's device and events times at the train
 step's shapes (bf16 stacks, dM in f32 and in bf16: a tree whose kernel
-writes only f32 casts after it, as its train step did), and the RDF-GAN
-serve and train phases (latency, step times, launch counts). Each
+writes only f32 casts after it, as its train step did), the RDF-GAN
+serve and train phases (latency, step times, launch counts), and the
+flagship train phase (16 bf16 steps at batch 4: step times, with each
+tree's own G_B2A reflect pad). Each
 run's whole output goes to LOG_DIR/ab_<label>.log; the lines that compare
 the two trees are printed. Needs one CUDA card, as ``chip_smoke.py``.
 """
@@ -87,7 +89,9 @@ def run_tree(label: str):
         counts, engine, _ = c.serve_phase(wd)
         del engine
         train_counts = c.train_phase(wd)[0]
-    print(f"[{label}] launches: serve {counts}; train {train_counts}")
+        flagship_counts = c.flagship_train_phase(wd)[0]
+    print(f"[{label}] launches: serve {counts}; train {train_counts}; "
+          f"flagship train {flagship_counts}")
     print(c.gpu_line())
 
 

@@ -60,12 +60,28 @@ and PyTorch built for CUDA. It
    flagship on it (bf16, batch 4) 2 epochs straight, and 1 epoch, then
    ``--resume_from epoch_1.pth`` and a second with the process loader,
    and compares the two ``epoch_2.pth`` entry by entry, bit for bit (the
-   reflect pads of G_B2A by concatenation in these runs: the CUDA
-   reflection-pad backward adds with atomics); checks the sample
-   grids; serves the test split from ``epoch_2.pth`` and with the NLSPN
-   config (launch counts); runs ``rdfc_gan_torch.inference`` on one
-   image; prints step times, the loader's wait, decode time, peak memory;
-11. prints the card's name and power limit, one ``{"kernels": [...]}``
+   package as shipped, deterministic cuDNN: G_B2A's reflect pads add
+   their border gradients in a fixed order); checks the sample grids;
+   serves the test split from ``epoch_2.pth`` and with the NLSPN config
+   (launch counts); runs ``rdfc_gan_torch.inference`` on one image;
+   prints step times, the loader's wait, decode time, peak memory; before
+   the fixture, times a bf16 G_B2A forward + backward with the package's
+   fixed-order reflect pad beside ``F.pad`` and checks that two backward
+   passes with it are bit-equal;
+11. writes an ``nyuv2_s2d`` fixture (16 train, 8 val HDF5 frames at
+   480x640, the port's writer) and reads it back with the port's reader;
+   holds the scatter, the three chains and the IN kernels against their
+   plain versions at 228x304; trains the NLSPN config one epoch (4 bf16
+   steps at batch 4) with its evaluation through ``python -m
+   rdfc_gan_torch.train --dataset nyuv2_s2d`` and serves best.pth, the
+   launches counted from 0 before each; then loads ``ddrnet_human``,
+   ``nyuv2_r2r`` and ``cleargrasp`` batches through the loader, serves a
+   ``ddrnet_human`` batch at 4x480x640 (the scatter, the served chain and
+   the IN forward held there too), trains ``cleargrasp`` 4 steps at
+   256x256 and serves it, and serves G_A2B built with the ``IN`` and
+   ``AdaIN`` fuse layers and with ``add`` skips (IN launches counted; the
+   IN build also one train step);
+12. prints the card's name and power limit, one ``{"kernels": [...]}``
    line, and ``{"ok": true, "device": {...}}`` as the last line.
 
 It exits non-zero, printing no result, when there is no card or no
@@ -163,7 +179,9 @@ def bound_ms(n_bytes: float, n_flops: float, peak_flops: float = None):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(name, got, want, rtol, atol):
+def compare(name, got, want, rtol, atol, quiet=False):
+    """Max |got - want|; fails past atol + rtol |want|. ``quiet`` prints
+    only a failure."""
     import torch
 
     got, want = got.float(), want.float()
@@ -174,6 +192,8 @@ def compare(name, got, want, rtol, atol):
     max_abs = float(err.max())
     max_rel = float((err / want.abs().clamp_min(1e-30)).max())
     ok = bool((err <= atol + rtol * want.abs()).all())
+    if quiet and ok:
+        return max_abs
     print(f"  {name}: max|ref|={float(want.abs().max()):.3e} "
           f"max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} "
           f"(tolerance atol={atol:g} rtol={rtol:g}) {'ok' if ok else 'FAIL'}")
@@ -182,10 +202,10 @@ def compare(name, got, want, rtol, atol):
     return max_abs
 
 
-def mask_inputs(gen, R: int):
-    """(offsets, aff, feat, fix) as the serving path makes them: offsets
-    within +-R/1.25, TGASS affinities over a confidence map, a sparse depth
-    map kept where > 0."""
+def mask_inputs(gen, R: int, shape=(B, H, W)):
+    """(offsets, aff, feat, fix) as the serving path makes them at a
+    (batch, height, width) plane: offsets within +-R/1.25, TGASS affinities
+    over a confidence map, a sparse depth map kept where > 0."""
     import torch
 
     from rdfc_gan_torch.ops.nlspn import NLSPNParamsSpec, nlspn_offset_affinity
@@ -193,17 +213,18 @@ def mask_inputs(gen, R: int):
     spec = NLSPNParamsSpec(prop_time=T)
     num = spec.num_neighbors
     dev = "cuda"
-    raw = torch.empty((B, 3 * num, H, W), device=dev)
+    b, h, w = shape
+    raw = torch.empty((b, 3 * num, h, w), device=dev)
     raw[:, :2 * num].uniform_(-R / 1.25, R / 1.25, generator=gen)
     raw[:, 2 * num:].normal_(generator=gen)
-    conf = torch.empty((B, 1, H, W), device=dev).uniform_(0.2, 1.0,
+    conf = torch.empty((b, 1, h, w), device=dev).uniform_(0.2, 1.0,
                                                           generator=gen)
     offsets, aff = nlspn_offset_affinity(
         raw, conf, torch.tensor(spec.affinity_gamma * num, device=dev), spec,
         conf_sample_radius=R)
-    feat = torch.empty((B, 1, H, W), device=dev).uniform_(-1, 1,
+    feat = torch.empty((b, 1, h, w), device=dev).uniform_(-1, 1,
                                                           generator=gen)
-    keep = torch.empty((B, 1, H, W), device=dev).uniform_(
+    keep = torch.empty((b, 1, h, w), device=dev).uniform_(
         generator=gen) > 0.6
     fix = torch.where(keep, feat.abs(), torch.zeros_like(feat))
     return offsets, aff, feat, fix
@@ -1986,26 +2007,6 @@ def flagship_breakdown_phase(engine, batch):
 FILE_TRAIN, FILE_TEST = 16, 8
 
 
-def _reflect_pad_cat(x, pad: int):
-    """``F.pad(x, (pad,) * 4, mode="reflect")`` from slices, flips and
-    concatenations: the same values, and a backward that adds the
-    reflected gradients in a fixed order. The CUDA reflection-pad backward
-    adds them with atomics, the one run-to-run nondeterminism of the
-    flagship step under deterministic cuDNN (with it, two straight
-    8-step runs on an H100 differed in 3412 of 4637 checkpoint
-    tensors)."""
-    import torch
-
-    x = torch.cat([x[:, :, 1:pad + 1].flip(2), x,
-                   x[:, :, -pad - 1:-1].flip(2)], 2)
-    x = torch.cat([x[:, :, :, 1:pad + 1].flip(3), x,
-                   x[:, :, :, -pad - 1:-1].flip(3)], 3)
-    # F.pad's layout on the card: 1-channel planes may carry channels-last
-    # strides (and count as contiguous), which a convolution passes on to
-    # its output, which the instance-norm kernels refuse
-    return x.clone(memory_format=torch.contiguous_format)
-
-
 def _plain_png_check(path):
     """(path, the plain unfilter's decode equals the native one's); run in
     a worker process."""
@@ -2104,8 +2105,8 @@ def _check_grids(samples, steps):
 def file_dataset_phase(workdir):
     """The flagship's data-to-checkpoint loop on NYUv2-layout files: the
     fixture (``_file_fixture``); the flagship trained (bf16, batch 4,
-    deterministic cuDNN algorithms, G_B2A's reflect pads by concatenation,
-    so that the step is deterministic) 2 epochs straight, and 1 epoch, then
+    deterministic cuDNN algorithms, so that the step is deterministic) 2
+    epochs straight, and 1 epoch, then
     --resume_from epoch_1.pth and the second epoch with the process loader,
     the two epoch_2.pth bit-equal entry by entry; the sample grids; the
     test split served from epoch_2.pth (the flagship) and with a seeded
@@ -2119,11 +2120,11 @@ def file_dataset_phase(workdir):
     from rdfc_gan_torch import train as port_train
     from rdfc_gan_torch.cli import parse_config
     from rdfc_gan_torch.data import image_io
-    from rdfc_gan_torch.models import resnet_generator
     from rdfc_gan_torch.ops.kernels import build
 
     t_phase = time.perf_counter()
     print(gpu_line())
+    reflect_pad_cost(workdir)
     root = _file_fixture(workdir)
     flagship = os.path.join(ROOT, "configs", "rdf_cycle_patchgan_config.yaml")
 
@@ -2138,9 +2139,7 @@ def file_dataset_phase(workdir):
                   "--sample_interval", "4", "--log_interval", "4",
                   "--val_interval", "1000"]
         with torch.backends.cudnn.flags(enabled=True, benchmark=False,
-                                        deterministic=True, allow_tf32=False), \
-                mock.patch.object(resnet_generator, "reflect_pad",
-                                  _reflect_pad_cat):
+                                        deterministic=True, allow_tf32=False):
             return port_train.run(parse_config(args(work, extra=common
                                                     + list(extra))))
 
@@ -2168,9 +2167,8 @@ def file_dataset_phase(workdir):
     sec = np.asarray(res["step_seconds"][1:]) * 1e3
     wait = np.asarray(res["wait_seconds"]) * 1e3
     print(f"  flagship train on the files: {steps} steps (2 epochs) at "
-          f"{H}x{W}, batch {B}, bf16, deterministic cuDNN, G_B2A's reflect "
-          f"pads by concatenation, thread loader, {dumps} sample dumps, "
-          f"wall {wall:.2f} s incl. build")
+          f"{H}x{W}, batch {B}, bf16, deterministic cuDNN, thread loader, "
+          f"{dumps} sample dumps, wall {wall:.2f} s incl. build")
     print(f"  step ms (host clock, first step left out, dumps included): "
           f"median {np.median(sec):.3f}, p90 {np.percentile(sec, 90):.3f}, "
           f"max {sec.max():.3f}; loader wait ms a step: mean "
@@ -2243,8 +2241,12 @@ def file_dataset_phase(workdir):
         f"{k}={v:.6g}" for k, v in served["metrics"].items())
         + f"; max offset {served['max_offset']:.4f}, forwards {fwd}, "
         f"launches {counts}")
-    want = {"shift_mask_scatter": fwd, "nlspn_propagate": fwd,
-            "instance_norm_fwd": 4 * fwd}
+    want, impl = _served_nlspn_counts(cfg.model.G.to_dict(),
+                                      served["max_offset"], fwd)
+    if impl == "gather":
+        print(f"    the offset guard fell back to the gather path after the "
+              f"probe: {fwd - 1} forwards served without the scatter and "
+              f"the chain")
     if counts != want or not all(np.isfinite(v) for v in
                                  served["metrics"].values()):
         fail(f"NLSPN serve on files: launches {counts}, expected {want}")
@@ -2265,6 +2267,564 @@ def file_dataset_phase(workdir):
           f"range [{int(pred.min())}, {int(pred.max())}] mm; "
           f"{os.path.basename(inf['vis'])} {vis.shape}")
     print(f"  file-dataset phase wall {time.perf_counter() - t_phase:.2f} s")
+
+
+def reflect_pad_cost(workdir):
+    """The cost of the package's reflect pad, whose backward folds the
+    border gradients in a fixed order: a bf16 G_B2A (the flagship's)
+    forward + backward at the flagship step's shape (2B x 1 x H x W),
+    timed with CUDA events beside a copy of the net whose pads call
+    ``F.pad(mode="reflect")`` (its CUDA backward adds with atomics); and
+    whether two passes of each give bit-equal gradients under
+    deterministic cuDNN."""
+    import copy
+
+    import torch
+    import torch.nn as nn
+    import torch.nn.functional as F
+
+    from rdfc_gan_torch import models  # noqa: F401
+    from rdfc_gan_torch.cli import parse_config
+    from rdfc_gan_torch.models.resnet_generator import ReflectionPad
+    from rdfc_gan_torch.registry import build_generator
+
+    class FPad(nn.Module):
+        def __init__(self, pad):
+            super().__init__()
+            self.pad = pad
+
+        def forward(self, x):
+            return F.pad(x, (self.pad,) * 4, mode="reflect")
+
+    cfg = parse_config(_flagship_args(workdir))
+    torch.manual_seed(0)
+    net = build_generator(cfg.model.G_B2A.to_dict()).cuda().train()
+    fpad = copy.deepcopy(net)
+    n_pads = 0
+    for mod in list(fpad.modules()):
+        for name, child in list(mod.named_children()):
+            if isinstance(child, ReflectionPad):
+                setattr(mod, name, FPad(child.pad))
+                n_pads += 1
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((2 * B, 1, H, W), device="cuda", generator=gen)
+    w = torch.randn((2 * B, 3, H, W), device="cuda", generator=gen)
+
+    def step(g):
+        g.zero_grad(set_to_none=True)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            out = g(x)
+        (out.float() * w).sum().backward()
+
+    def grads(g):
+        step(g)
+        return [p.grad.clone() for p in g.parameters()]
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        same = {}
+        for name, g in (("package pad", net), ("F.pad", fpad)):
+            a, b = grads(g), grads(g)
+            same[name] = sum(int(not torch.equal(u, v))
+                             for u, v in zip(a, b))
+        # in turns, so that drift of the card's clock falls on both
+        t = collections.defaultdict(list)
+        for name, g in (("package pad", net), ("F.pad", fpad)) * 2:
+            t[name].append(time_ms(lambda g=g: step(g), reps=20))
+    n = len(list(net.parameters()))
+    print(f"reflect pad: a bf16 G_B2A forward + backward at {2 * B}x1x{H}x"
+          f"{W} ({n_pads} pads), CUDA events, 20 passes each, in turns: "
+          f"the package's fixed-order pad " + ", ".join(
+              f"{v:.3f}" for v in t["package pad"]) + " ms, F.pad "
+          + ", ".join(f"{v:.3f}" for v in t["F.pad"]) + " ms; gradients "
+          f"differing between two passes (deterministic cuDNN): package pad "
+          f"{same['package pad']} of {n}, F.pad {same['F.pad']} of {n}")
+    if same["package pad"]:
+        fail("two G_B2A backward passes with the package's reflect pad "
+             "differ")
+    del net, fpad
+
+
+# the v1 pipelines' planes: nyuv2_s2d's crop and ddrnet_human's frames
+S2D_H, S2D_W = 228, 304
+DDR_H, DDR_W = 480, 640
+S2D_TRAIN, S2D_VAL = 16, 8
+# the channels entering G_A2B's four fuse layers (concat skips): W-AdaIN
+# normalises the content's, INFuse the content's and the style's
+WADAIN_CHANNELS = (512, 768, 384, 192)
+INFUSE_CHANNELS = tuple(2 * c for c in WADAIN_CHANNELS)
+
+
+def _halve(n: int, k: int) -> int:
+    """n after k stride-2 convolutions with padding 1 and kernel 3."""
+    for _ in range(k):
+        n = (n + 1) // 2
+    return n
+
+
+def fuse_in_shapes(h: int, w: int, channels=WADAIN_CHANNELS):
+    """The IN planes of G_A2B's four fuse layers at an h x w input, batch
+    B: the 1/16 plane, then each decoder's output trimmed to its skip."""
+    return tuple((B, c, _halve(h, 4 - i), _halve(w, 4 - i))
+                 for i, c in enumerate(channels))
+
+
+def hold_in_kernels(shapes, title: str):
+    """The IN forward and backward kernels against their plain versions
+    at ``shapes``, f32 and bf16, bit for bit."""
+    import torch
+
+    from rdfc_gan_torch.ops.kernels import norm_kernel as nk
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    errs = []
+    for shape in shapes:
+        xf = torch.randn(shape, device="cuda", generator=gen) * 3 + 1.5
+        gf = torch.randn(shape, device="cuda", generator=gen)
+        for dt in (torch.float32, torch.bfloat16):
+            x, dy = xf.to(dt), gf.to(dt)
+            tag = f"{title} {tuple(shape)} {dt}"
+            y, a = nk.instance_norm_fwd(x, 1e-5)
+            dx = nk.instance_norm_bwd(dy, y, a)
+            torch.cuda.synchronize()
+            py, pa = nk.instance_norm_fwd_plain(x, 1e-5)
+            errs += [
+                compare(f"instance_norm_fwd y {tag}", y, py, IN_RTOL,
+                        IN_ATOL, quiet=True),
+                compare(f"instance_norm_fwd a {tag}", a, pa, IN_RTOL,
+                        IN_ATOL, quiet=True),
+                compare(f"instance_norm_bwd dx {tag}", dx,
+                        nk.instance_norm_bwd_plain(dy, y, a), IN_RTOL,
+                        IN_ATOL, quiet=True)]
+    print(f"  instance norm kernels vs plain, {title}, "
+          f"{', '.join('x'.join(map(str, sh)) for sh in shapes)}, f32 and "
+          f"bf16: y, a and dx bit for bit ({len(errs)} comparisons, "
+          f"max_abs_err {max(errs):.3e})")
+
+
+def hold_chain_kernels(shape, title: str, train: bool):
+    """At a (batch, height, width) plane, R=2 (S=8), T=18: the scatter (#1)
+    and the served chain (#3) against their plain versions; with
+    ``train`` also the X-storing chain (#4) and the reverse chain (#5),
+    f32 and bf16; bit for bit (the scatter to SCATTER_RTOL)."""
+    import torch
+
+    from rdfc_gan_torch.ops import nlspn_stencil as st
+    from rdfc_gan_torch.ops.kernels import mask_kernel, nlspn_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    R = 2
+    b, h, w = shape
+    offsets, aff, feat, fix = mask_inputs(gen, R, shape)
+    a, M = scatter_args(offsets, aff, R)
+    S = a["S"]
+    got = mask_kernel.scatter_shift_masks(a["w"], a["sy"], a["sx"], S)
+    torch.cuda.synchronize()
+    tag = f"{title} {b}x{h}x{w}"
+    compare(f"shift_mask_scatter {tag} S={S}", got, M.reshape(got.shape),
+            SCATTER_RTOL, SCATTER_ATOL)
+    M16 = M.reshape(b, S, S, h, w).to(torch.bfloat16)
+    got = nlspn_kernel.nlspn_stencil_propagate(feat, M16, fix, T, R, False)
+    torch.cuda.synchronize()
+    compare(f"nlspn_propagate {tag} T={T}", got, st.stencil_propagate(
+        feat, M16, T, R, fix, False), CHAIN_RTOL, CHAIN_ATOL)
+    if not train:
+        return
+    feat0 = feat[:, 0].contiguous()
+    g0 = torch.randn((b, h, w), device="cuda", generator=gen)
+    for dt in (torch.float32, torch.bfloat16):
+        out, X = nlspn_kernel.propagate_x(feat0, M16, None, T, R, dt)
+        G, dfeat, dfix = nlspn_kernel.reverse_chain(g0, M16, None, T, R, dt)
+        torch.cuda.synchronize()
+        pout, pX = st.propagate_x_plain(feat0, M16, None, T, R, dt)
+        pG, pdfeat, pdfix = st.reverse_chain_plain(g0, M16, None, T, R, dt)
+        errs = [compare(f"nlspn_{what} {tag} {dt}", u, v, CHAIN_RTOL,
+                        CHAIN_ATOL, quiet=True)
+                for what, u, v in (("propagate_x out", out, pout),
+                                   ("propagate_x X", X, pX),
+                                   ("reverse_chain G", G, pG),
+                                   ("reverse_chain dfeat", dfeat, pdfeat))]
+        print(f"  nlspn_propagate_x (out, X) and nlspn_reverse_chain (G, "
+              f"dfeat) {tag} T={T} {dt}: bit for bit, max_abs_err "
+              f"{max(errs):.3e}")
+
+
+def _rdfgan_counts(engine, steps: int) -> dict:
+    """The kernel launches of ``steps`` RDFGAN train steps and
+    ``engine.n_forward`` evaluation forwards (as in ``train_phase``)."""
+    evals = engine.n_forward
+    blocks = fused_blocks(engine.modules["G"])
+    return {"shift_mask_scatter": steps + evals, "shift_mask_gather": steps,
+            "nlspn_propagate_x": steps, "nlspn_reverse_chain": steps,
+            "shift_correlation": steps, "nlspn_propagate": evals,
+            "instance_norm_fwd": 4 * (steps + evals),
+            "instance_norm_bwd": 4 * steps,
+            "conv3x3_fwd": 2 * blocks * steps,
+            "conv3x3_bwd": 2 * blocks * steps}
+
+
+def _served_nlspn_counts(g_cfg: dict, max_offset: float, forwards: int):
+    """The launches ``rdfc_gan_torch.test`` must make serving the NLSPN
+    RDF-GAN from a checkpoint: it probes one batch on the loaded G and hands
+    the probe's max|offset| to the offset guard. While the guard keeps the
+    stencil (its radius raised or not) every forward builds the masks and
+    runs the served chain; where the guard falls back to the gather, only
+    the probe did. Returns (the counts, the impl the guard chose)."""
+    from rdfc_gan_torch.ops.nlspn_guard import escalate_nlspn_cfg
+
+    chosen, _ = escalate_nlspn_cfg(g_cfg, max_offset)
+    impl = chosen.get("nlspn_impl", "auto")
+    if g_cfg.get("nlspn_impl", "auto") == "gather":
+        stencil = 0
+    elif impl == "gather":
+        stencil = 1
+    else:
+        stencil = forwards
+    want = {"instance_norm_fwd": 4 * forwards}
+    if stencil:
+        want.update(shift_mask_scatter=stencil, nlspn_propagate=stencil)
+    return want, impl
+
+
+def _train_and_serve(workdir, name, data_args, steps_expected):
+    """Train the NLSPN RDF-GAN one epoch with its evaluation through
+    ``rdfc_gan_torch.train`` on a file dataset, counting launches from 0,
+    then serve its best.pth through ``rdfc_gan_torch.test``, counting
+    again. Returns the train result."""
+    import numpy as np
+    import torch
+
+    from rdfc_gan_torch import test as port_test
+    from rdfc_gan_torch import train as port_train
+    from rdfc_gan_torch.cli import parse_config
+    from rdfc_gan_torch.ops.kernels import build
+    from rdfc_gan_torch.ops.nlspn_guard import escalate_nlspn_cfg
+
+    nlspn = os.path.join(ROOT, "configs", "rdf_gan_nlspn_config.yaml")
+
+    def args(work, extra):
+        return [*data_args, "--model_cfg_path", nlspn, "--work_dir",
+                os.path.join(workdir, work), "--batch_size", str(B),
+                "--num_workers", "4", "--device", "cuda", *extra]
+
+    cfg = parse_config(args(f"{name}_train", [
+        "--n_epochs", "1", "--log_interval", "1", "--save_interval", "1",
+        "--val_interval", "1", "--start_eval_epoch", "0"]))
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    res = port_train.run(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(build.LAUNCHES)
+    engine, steps = res["engine"], res["steps"]
+    want = _rdfgan_counts(engine, steps)
+    sec = np.asarray(res["step_seconds"]) * 1e3
+    wait = np.asarray(res["wait_seconds"]) * 1e3
+    print(f"  {name} train: {steps} steps + {engine.n_forward} eval "
+          f"forwards, batch {B}, {engine.compute_dtype}, wall {wall:.2f} s; "
+          f"step ms (host clock) {', '.join(f'{v:.1f}' for v in sec)}, "
+          f"median after the first {np.median(sec[1:]):.3f}; "
+          f"loader wait ms a step: mean {wait.mean():.3f}, max "
+          f"{wait.max():.3f}")
+    print("    last losses: " + ", ".join(
+        f"{k}={v:.6g}" for k, v in sorted(res["losses"].items())))
+    print("    metrics: " + ", ".join(
+        f"{k}={v:.6g}" for k, v in res["metrics"].items()))
+    print(f"    kernel launches {counts}; expected {want}")
+    if steps != steps_expected:
+        fail(f"{name}: {steps} steps, expected {steps_expected}")
+    if not all(np.isfinite(v) for v in list(res["losses"].values())
+               + list(res["metrics"].values())):
+        fail(f"{name}: non-finite losses or metrics")
+    _no_f32_conv(counts, f"the {name} bf16 epoch")
+    if counts != want:
+        fail(f"{name} train launch counts {counts} are not {want}")
+    del engine
+
+    build.reset_launches()
+    served = port_test.run(parse_config(args(f"{name}_serve", [
+        "--load_from", os.path.join(workdir, f"{name}_train", "best.pth")])))
+    counts = dict(build.LAUNCHES)
+    fwd = served["forwards"]
+    want, impl = _served_nlspn_counts(cfg.model.G.to_dict(),
+                                      served["max_offset"], fwd)
+    print(f"  {name} served from best.pth: " + ", ".join(
+        f"{k}={v:.6g}" for k, v in served["metrics"].items())
+        + f"; max offset {served['max_offset']:.4f}, forwards {fwd}, "
+        f"impl after the guard {impl!r}, launches {counts}")
+    _, escalated = escalate_nlspn_cfg(cfg.model.G.to_dict(),
+                                      served["max_offset"])
+    if impl == "gather":
+        print(f"    the offset guard fell back to the gather path after the "
+              f"probe (max|offset| {served['max_offset']:.3f} needs a "
+              f"radius beyond the stencil's): {fwd - 1} forwards served "
+              f"without the scatter and the chain")
+    if counts != want:
+        fail(f"{name} serve: launches {counts}, expected {want}")
+    if escalated:
+        # the guard rebuilt G (a larger stencil radius or the gather), so
+        # the metrics differ from the epoch's by design
+        print(f"    the offset guard rebuilt G (max|offset| "
+              f"{served['max_offset']:.3f}): metrics not compared")
+        return res
+    for k, v in served["metrics"].items():
+        if not np.isclose(v, res["metrics"][k], rtol=SERVE_RTOL,
+                          atol=SERVE_ATOL):
+            fail(f"{name} serve: {k}={v}, the epoch's evaluation "
+                 f"{res['metrics'][k]}")
+    print(f"    the same metrics as the epoch's evaluation (rtol "
+          f"{SERVE_RTOL:g})")
+    return res
+
+
+def s2d_phase(workdir):
+    """nyuv2_s2d, v1's default corpus, end to end: the fixture (16 train
+    and 8 val HDF5 frames written by the port's writer: seeded scenes,
+    480x640) read back through the port's reader; the chain kernels, the
+    scatter and the IN kernels held against their plain versions at
+    228x304 (planes 114, 57, 29 and 15 rows in the nets); the NLSPN RDF-GAN
+    trained one epoch (4 bf16 steps at batch 4) with its evaluation
+    through ``python -m rdfc_gan_torch.train --dataset nyuv2_s2d``, and its
+    best.pth served through ``rdfc_gan_torch.test``, launches counted from
+    0 before each. Returns the data root."""
+    import numpy as np
+
+    from rdfc_gan_torch.data import hdf5
+    from rdfc_gan_torch.data.nyuv2_s2d import NYUV2S2DDataset
+    from rdfc_gan_torch.tools.make_s2d_fixture import write_fixture
+
+    t_phase = time.perf_counter()
+    root = os.path.join(workdir, "s2d")
+    t0 = time.perf_counter()
+    written = write_fixture(root, n_train=S2D_TRAIN, n_val=S2D_VAL, seed=0)
+    t_write = time.perf_counter() - t0
+    n_bytes = sum(os.path.getsize(os.path.join(root, fn)) for fn in written)
+    for fn, arrays in written.items():
+        with hdf5.File(os.path.join(root, fn)) as f:
+            for k, a in arrays.items():
+                got = f[k][:]
+                if got.dtype != a.dtype or not np.array_equal(got, a):
+                    fail(f"{fn}/{k} does not read back as written")
+    ds = NYUV2S2DDataset(root, mode="train")
+    t0 = time.perf_counter()
+    for i in range(len(ds)):
+        ds._load(i)
+    decode_ms = (time.perf_counter() - t0) / len(ds) * 1e3
+    t0 = time.perf_counter()
+    for i in range(len(ds)):
+        ds[i]
+    sample_ms = (time.perf_counter() - t0) / len(ds) * 1e3
+    print(f"nyuv2_s2d: {S2D_TRAIN} train + {S2D_VAL} val HDF5 frames "
+          f"(3x480x640 uint8 rgb, 480x640 f32 depth), "
+          f"{n_bytes / 1e6:.1f} MB, written in {t_write:.2f} s, every "
+          f"dataset read back equal")
+    print(f"  host decode per frame (the port's HDF5 reader, one thread): "
+          f"{decode_ms:.3f} ms; whole train sample (decode, flip, rotate, "
+          f"rescale, jitter, crop, 500-point sampler): {sample_ms:.3f} ms")
+    hold_chain_kernels((B, S2D_H, S2D_W), "s2d", train=True)
+    hold_in_kernels(fuse_in_shapes(S2D_H, S2D_W), "W-AdaIN s2d")
+    _train_and_serve(workdir, "s2d", ["--dataset", "nyuv2_s2d",
+                                      "--data_root", root],
+                     S2D_TRAIN // B)
+    print(f"  nyuv2_s2d phase wall {time.perf_counter() - t_phase:.2f} s")
+    return root
+
+
+def _ddrnet_fixture(root: str, n: int):
+    """n DDRNet-layout frames (480x640 seeded scenes: rgb, raw and gt
+    depth in mm, a human mask) under root/frames, indexed by the port's
+    create_ddrnet_csv into train.csv and val.csv."""
+    import numpy as np
+
+    from rdfc_gan_torch.data import image_io
+    from rdfc_gan_torch.tools.create_ddrnet_csv import write_index
+    from rdfc_gan_torch.tools.make_nyuv2_fixture import _scene
+
+    rng = np.random.RandomState(5)
+    frames = os.path.join(root, "frames")
+    for i in range(n):
+        rgb, depth_mm, raw_mm, _, labels = _scene(rng)
+        mask = np.where(labels % 3 == 0, 255, 0).astype(np.uint8)
+        for sub, arr in (("color_map", rgb[..., ::-1]),
+                         ("depth_map", raw_mm), ("high_quality_depth",
+                                                 depth_mm),
+                         ("mask", mask)):
+            os.makedirs(os.path.join(frames, sub), exist_ok=True)
+            image_io.imwrite(os.path.join(frames, sub, f"{i:04d}.png"), arr)
+    for split in ("train", "val"):
+        write_index(frames, os.path.join(root, f"{split}.csv"))
+    return root
+
+
+def _folder_fixture(root: str, n_train: int, n_val: int):
+    """cleargrasp-layout PNGs (tests/test_real_datasets.py:261-270's
+    shapes: 100x120 8-bit rgb, mm depth), no depth_raw: the train split's
+    raw depth is the ellipse dropout's."""
+    import numpy as np
+
+    from rdfc_gan_torch.data import image_io
+
+    rng = np.random.RandomState(4)
+    for split, n in (("train", n_train), ("val", n_val)):
+        for sub in ("rgb", "depth"):
+            os.makedirs(os.path.join(root, split, sub), exist_ok=True)
+        for i in range(n):
+            image_io.imwrite(os.path.join(root, split, "rgb", f"{i}.png"),
+                             rng.randint(0, 255, (100, 120, 3)).astype(
+                                 np.uint8))
+            image_io.imwrite(os.path.join(root, split, "depth", f"{i}.png"),
+                             rng.randint(500, 9000, (100, 120)).astype(
+                                 np.uint16))
+    return root
+
+
+def v1_variants_phase(workdir, s2d_root):
+    """The other v1 datasets and the G_A2B variants: ddrnet_human,
+    nyuv2_r2r (on the s2d frames) and cleargrasp fixtures written with the
+    port's PNG and HDF5 writers, a batch of each through the port's
+    loader; the NLSPN RDF-GAN serving one ddrnet_human batch at 4x480x640
+    (launches counted), with the scatter, the served chain and the IN
+    forward held against their plain versions at that plane; cleargrasp
+    trained 4 steps at 256x256 and served; then the flagship's G_A2B built
+    with ``fuse_depth_in_rgb_decoder: IN``, ``AdaIN`` and with ``add``
+    skips, each serving one bf16 batch at 224x304 with its IN launches
+    counted from 0 and held to what the build should launch, INFuse's IN
+    planes (2C channels) held against the plain versions, and the IN build
+    taking one train step."""
+    import numpy as np
+    import torch
+
+    from rdfc_gan_torch import models  # noqa: F401
+    from rdfc_gan_torch.cli import parse_config
+    from rdfc_gan_torch.data import DataLoader
+    from rdfc_gan_torch.data.ddrnet_human import DDRNetHumanDataset
+    from rdfc_gan_torch.data.folder_dataset import FolderDepthDataset
+    from rdfc_gan_torch.data.nyuv2_r2r import NYUV2R2RDataset
+    from rdfc_gan_torch.engines import build_engine
+    from rdfc_gan_torch.metrics import compute_depth_metrics
+    from rdfc_gan_torch.ops.kernels import build
+    from rdfc_gan_torch.registry import build_generator
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    ddr = _ddrnet_fixture(os.path.join(workdir, "ddrnet"), B)
+    cg = _folder_fixture(os.path.join(workdir, "cleargrasp"), 4 * B, B)
+    batches = {}
+    for name, ds, shape in (
+            ("ddrnet_human train", DDRNetHumanDataset(ddr, mode="train",
+                                                      times=2),
+             (DDR_H, DDR_W)),
+            ("ddrnet_human val", DDRNetHumanDataset(ddr, mode="val"),
+             (DDR_H, DDR_W)),
+            ("nyuv2_r2r train", NYUV2R2RDataset(s2d_root, mode="train"),
+             (256, 320)),
+            ("cleargrasp train", FolderDepthDataset(cg, mode="train"),
+             (256, 256))):
+        loader = DataLoader(ds, B, device=dev, num_workers=4, shuffle=True)
+        t0 = time.perf_counter()
+        batch = next(iter(loader))
+        ms = (time.perf_counter() - t0) * 1e3
+        keys = {k: tuple(v.shape) for k, v in batch.items()}
+        print(f"{name}: a batch of {B} through the loader in {ms:.1f} ms: "
+              f"{keys}")
+        if keys["rgb"] != (B, 3) + shape or not all(
+                torch.isfinite(v.float()).all() for v in batch.values()):
+            fail(f"{name}: batch {keys}")
+        batches[name] = batch
+
+    hold_chain_kernels((B, DDR_H, DDR_W), "ddrnet", train=False)
+    hold_in_kernels(fuse_in_shapes(DDR_H, DDR_W), "W-AdaIN ddrnet")
+    nlspn = os.path.join(ROOT, "configs", "rdf_gan_nlspn_config.yaml")
+    cfg = parse_config(["--dataset", "synthetic", "--model_cfg_path", nlspn,
+                        "--work_dir", os.path.join(workdir, "ddr_serve"),
+                        "--out_height", str(DDR_H), "--out_width",
+                        str(DDR_W), "--device", "cuda"])
+    batch = batches["ddrnet_human val"]
+    engine = build_engine(cfg, is_train=False)
+    engine.modules["G"].load_state_dict(
+        _seeded_generator(cfg, "cuda", batch).state_dict())
+    torch.cuda.synchronize()
+    build.reset_launches()
+    with torch.no_grad():
+        pred = engine.forward_test(rgb=batch["rgb"],
+                                   raw_depth=batch["raw_depth"])["pred_depth"]
+    torch.cuda.synchronize()
+    counts = dict(build.LAUNCHES)
+    m = compute_depth_metrics(batch["gt_depth"][:, 0] * 1.5 + 1.5,
+                              pred[:, 0].float() * 1.5 + 1.5,
+                              batch["evaluate_mask"]).mean(0)
+    want = {"shift_mask_scatter": 1, "nlspn_propagate": 1,
+            "instance_norm_fwd": 4}
+    print(f"ddrnet_human served by the NLSPN RDF-GAN at {B}x{DDR_H}x{DDR_W}:"
+          f" RMSE {float(m[0]):.4f} m over the human mask, launches "
+          f"{counts}; expected {want}")
+    if counts != want or tuple(pred.shape) != (B, 1, DDR_H, DDR_W) \
+            or not torch.isfinite(m).all():
+        fail(f"ddrnet serve: launches {counts}, pred {tuple(pred.shape)}")
+    del engine
+
+    _train_and_serve(workdir, "cleargrasp", ["--dataset", "cleargrasp",
+                                             "--data_root", cg], 4)
+
+    hold_in_kernels(fuse_in_shapes(H, W, INFUSE_CHANNELS), "INFuse")
+    node = parse_config(_flagship_args(workdir)).model.G_A2B.to_dict()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rgb, normal = (torch.randn((B, 3, H, W), device="cuda", generator=gen)
+                   for _ in range(2))
+    depth = torch.rand((B, 1, H, W), device="cuda", generator=gen)
+    variants = (("IN", {"fuse_depth_in_rgb_decoder": "IN"}, 4),
+                ("AdaIN", {"fuse_depth_in_rgb_decoder": "AdaIN"}, 0),
+                ("add skips", {"rgb_skip_connection_type": "add",
+                               "depth_skip_connection_type": "add",
+                               "rgb_channels_decoder": [512, 256, 128, 64],
+                               "depth_channels_decoder": [512, 256, 128,
+                                                          64]}, 4))
+    for name, change, n_in in variants:
+        torch.manual_seed(0)
+        g = build_generator({**node, **change}).cuda().eval()
+        build.reset_launches()
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            out = g(rgb, depth, normal)["pred_depth"]
+        torch.cuda.synchronize()
+        counts = dict(build.LAUNCHES)
+        want = {"instance_norm_fwd": n_in} if n_in else {}
+        print(f"G_A2B with {name} served at {B}x{H}x{W} (bf16): pred_depth "
+              f"{tuple(out.shape)} in [{float(out.min()):.4f}, "
+              f"{float(out.max()):.4f}], launches {counts}; expected {want}")
+        if counts != want or tuple(out.shape) != (B, 1, H, W) \
+                or not torch.isfinite(out).all():
+            fail(f"G_A2B {name}: launches {counts}, expected {want}")
+        if name != "IN":
+            continue
+        g.train()
+        opt = torch.optim.Adam(g.parameters(), lr=1e-4)
+        before = {k: v.detach().clone() for k, v in g.named_parameters()}
+        build.reset_launches()
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            ret = g(rgb, depth, normal)
+        loss = sum(ret[k].float().abs().mean() for k in (
+            "depth_map_1", "depth_map_2", "pred_depth"))
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        counts = dict(build.LAUNCHES)
+        blocks = fused_blocks(g)
+        want = {"instance_norm_fwd": 4, "instance_norm_bwd": 4,
+                "conv3x3_fwd": 2 * blocks, "conv3x3_bwd": 2 * blocks}
+        moved = sum(int(not torch.equal(before[k], v))
+                    for k, v in g.named_parameters())
+        print(f"  one train step of the IN build: loss "
+              f"{float(loss.detach()):.6g}, "
+              f"{moved} of {len(before)} parameter tensors moved, launches "
+              f"{counts}; expected {want}")
+        _no_f32_conv(counts, "the IN build's bf16 step")
+        if counts != want or not np.isfinite(float(loss.detach())) \
+                or moved == 0:
+            fail(f"the IN build's train step: launches {counts}")
+        del g, opt
+    print(f"  v1 datasets and variants phase wall "
+          f"{time.perf_counter() - t_phase:.2f} s")
 
 
 def main():
@@ -2312,6 +2872,8 @@ def main():
         del engine
         flagship_step_compare_phase(workdir, fpth)
         file_dataset_phase(workdir)
+        s2d_root = s2d_phase(workdir)
+        v1_variants_phase(workdir, s2d_root)
     # launches: the scatter and the served chain from the serve run, the
     # NLSPN backward kernels from the RDFGAN train run, the IN and conv
     # kernels from the flagship train run

@@ -1,5 +1,6 @@
 from .loader import DataLoader
 from .synthetic import SyntheticDataset
-from . import nyuv2, sunrgbd  # noqa: F401  (register the file datasets)
+from . import (ddrnet_human, folder_dataset, nyuv2, nyuv2_r2r,  # noqa: F401
+               nyuv2_s2d, sunrgbd)  # (register the file datasets)
 
 __all__ = ["DataLoader", "SyntheticDataset"]

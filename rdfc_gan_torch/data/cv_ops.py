@@ -15,9 +15,8 @@ one or three channels).
   weights come from OpenCV's 32 x 32 bilinear table.
 - ``gaussian_blur``: f32, odd square kernel, ``BORDER_REFLECT_101``: rows
   then columns, each a chain of fused multiply-adds in f32 as OpenCV's
-  vector loops run it. Bit-equal where the width is a multiple of 16 (all
-  the pipelines' widths); in the last ``w % 16`` columns OpenCV's scalar
-  tail sums in an order not reproduced here (within 2 f32 ulps).
+  vector loops run it, and of separately rounded ones in their scalar
+  tails; bit-equal at every width.
 - ``apply_colormap``: ``cv2.applyColorMap`` for PLASMA, VIRIDIS and JET
   (BGR out), from OpenCV's tables (``colormaps.py``).
 - ``dilate``: ``cv2.dilate`` with a rectangle of ones (a max filter).
@@ -41,6 +40,8 @@ COLORMAP_PLASMA = 15
 _COEF_BITS = 11  # INTER_RESIZE_COEF_BITS
 _COEF_SCALE = 1 << _COEF_BITS
 _WARP_LANES = 16  # pixels a vector step of OpenCV's warp kernels takes
+# columns a vector step of OpenCV's f32 row and column filters takes
+_ROW_LANES, _COL_LANES = 4, 8
 
 
 def _round_even(x):
@@ -228,11 +229,19 @@ def gaussian_kernel(ksize: int, sigma: float) -> np.ndarray:
     return (t * (1.0 / t.sum())).astype(np.float32)
 
 
+def _mul_add32(a, b, c):
+    """f32 c + a * b with the product and the sum each rounded."""
+    return (c + (a * b).astype(np.float32)).astype(np.float32)
+
+
 def gaussian_blur(img: np.ndarray, ksize, sigma: float) -> np.ndarray:
     """``cv2.GaussianBlur(img, (k, k), sigma)`` for an f32 (H, W) image with
     ``BORDER_REFLECT_101``: the row pass sums its taps left to right, the
     column pass the centre tap then each mirrored pair, each term one f32
-    fused multiply-add."""
+    fused multiply-add in OpenCV's vector loops (4 columns a step in the
+    row pass, 8 in the column pass) and a separately rounded multiply and
+    add in their scalar tails (the last ``w % 4`` and ``w % 8``
+    columns)."""
     k = int(ksize[0]) if isinstance(ksize, (tuple, list)) else int(ksize)
     if img.dtype != np.float32 or img.ndim != 2 or k % 2 == 0:
         raise ValueError("gaussian_blur takes an f32 (H, W) image and an "
@@ -240,15 +249,22 @@ def gaussian_blur(img: np.ndarray, ksize, sigma: float) -> np.ndarray:
     kern = gaussian_kernel(k, sigma)
     r = k // 2
     h, w = img.shape
+    row_body, col_body = w - w % _ROW_LANES, w - w % _COL_LANES
+
+    def step(x, f, acc, body):
+        out = _fma32(x, f, acc)
+        out[:, body:] = _mul_add32(x[:, body:], f, acc[:, body:])
+        return out
+
     pad = np.pad(img, ((0, 0), (r, r)), mode="reflect")  # reflect 101
     acc = np.zeros_like(img)
     for j in range(k):
-        acc = _fma32(pad[:, j:j + w], kern[j], acc)
+        acc = step(pad[:, j:j + w], kern[j], acc, row_body)
     pad = np.pad(acc, ((r, r), (0, 0)), mode="reflect")
     out = pad[r:r + h] * kern[r]
     for j in range(1, r + 1):
-        out = _fma32(pad[r + j:r + j + h] + pad[r - j:r - j + h],
-                     kern[r + j], out)
+        out = step(pad[r + j:r + j + h] + pad[r - j:r - j + h], kern[r + j],
+                   out, col_body)
     return out
 
 

@@ -2,11 +2,13 @@
 PatchGANDiscriminator; reference patch_gan_discriminator.py:6-40), NCHW.
 
 Convs 64-128-256-512-1, kernel 4, strides 2,2,2,1,1, padding 1, each with a
-bias; BatchNorm on the middle layers only, LeakyReLU(0.2) on all but the
-last. The module names are the reference's mmcv ConvModule stack,
-``model.{i}.conv`` / ``model.{i}.bn``, so a reference ``.pth`` loads
-strictly. Conv weights start N(0, 0.02) (layers.py:gan_kernel_init), biases
-at zero. ``packed_width`` is a TPU layout and is read and ignored.
+bias; BatchNorm on the middle layers only, the activation (``LeakyReLU``
+0.2, ``relu`` or ``None``, discriminators.py:23-31) on all but the last.
+``norm_cfg`` is read and ignored: the JAX module builds BatchNorm whatever
+it says (discriminators.py:84-86). The module names are the reference's
+mmcv ConvModule stack, ``model.{i}.conv`` / ``model.{i}.bn``, so a
+reference ``.pth`` loads strictly. Conv weights start N(0, 0.02)
+(layers.py:gan_kernel_init), biases at zero. ``packed_width`` is a TPU layout and is read and ignored.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from .layers import BatchNorm2d
 
 class _ConvModule(nn.Module):
     def __init__(self, cin: int, cout: int, kernel: int, stride: int,
-                 padding: int, bn: bool, act: bool):
+                 padding: int, bn: bool, act: Optional[str]):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, stride, padding)
         nn.init.normal_(self.conv.weight, 0.0, 0.02)
@@ -35,7 +37,9 @@ class _ConvModule(nn.Module):
         x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x)
-        return F.leaky_relu(x, 0.2) if self.act else x
+        if self.act == "leakyrelu":
+            return F.leaky_relu(x, 0.2)
+        return F.relu(x) if self.act == "relu" else x
 
 
 class PatchGANDiscriminator(nn.Module):
@@ -45,23 +49,20 @@ class PatchGANDiscriminator(nn.Module):
                  stride: Sequence[int] = (2, 2, 2, 1, 1),
                  padding: Sequence[int] = (1, 1, 1, 1, 1),
                  norm_cfg: Optional[dict] = None,
-                 activation: str = "LeakyReLU", axis_name=None,
+                 activation: Optional[str] = "LeakyReLU", axis_name=None,
                  packed_width: bool = False):
         super().__init__()
         if out_channels[-1] != 1:
             raise ValueError("the PatchGAN's last conv has one channel")
-        if activation.lower() != "leakyrelu":
-            raise NotImplementedError(f"activation {activation!r}: this port "
-                                      f"builds LeakyReLU only")
-        if norm_cfg not in (None, {"type": "BN2d"}):
-            raise NotImplementedError(f"norm_cfg {norm_cfg!r}: this port "
-                                      f"builds BN2d only")
+        act = None if activation is None else activation.lower()
+        if act not in (None, "leakyrelu", "relu"):
+            raise NotImplementedError(activation)
         n = len(out_channels)
         cin, mods = in_channels, []
         for i in range(n):
             mods.append(_ConvModule(cin, out_channels[i], kernel_size[i],
                                     stride[i], padding[i], bn=0 < i < n - 1,
-                                    act=i < n - 1))
+                                    act=act if i < n - 1 else None))
             cin = out_channels[i]
         self.model = nn.Sequential(*mods)
 

@@ -7,8 +7,9 @@ reference PyTorch state-dict names:
     for the running update (torch momentum 0.1 = flax 0.9), and the JAX
     rounding for a bf16 input; eval mode is torch's. The state dict is
     ``nn.BatchNorm2d``'s.
-  * ``reflect_pad`` and ``PReLU`` — layers.py:734-750 and
-    resnet_generator.py:20-26, for the ResnetGenerator.
+  * ``reflect_pad`` and ``PReLU`` — layers.py:716-751 and
+    resnet_generator.py:20-26, for the ResnetGenerator. The pad's backward
+    folds the border gradients back in a fixed order, as the JAX VJP does.
   * ``ConvBNAct`` / ``ConvTBNAct`` — encoder_decoder/common.py:29-63:
     Sequential(conv[, BatchNorm2d(eps 1e-5)][, LeakyReLU(0.2)]), conv bias
     iff no BN; the transposed conv has torch ConvTranspose2d(3, 2, 1, 1)
@@ -18,6 +19,8 @@ reference PyTorch state-dict names:
   * ``AdaptiveInstanceNorm`` (W-AdaIN) — model_utils.py:53-99: per-pixel
     (gamma, beta) from the style feature through an EqualLinear, applied to
     the instance-normalized content (eps 1e-5, no affine).
+  * ``AdaIN`` and ``INFuse`` — layers.py:607-630, the other two
+    ``fuse_depth_in_rgb_decoder`` choices.
   * ``instance_norm`` — layers.py:219-281, the hand-written kernels of
     ``ops/kernels/norm_kernel`` on the card.
   * ``bilinear_resize`` — layers.py:675-714 with align_corners=True, in the
@@ -94,10 +97,51 @@ class BatchNorm2d(nn.BatchNorm2d):
         self.num_batches_tracked.data.add_(1)
 
 
+def _reflect_fold(g: torch.Tensor, pad: int, dim: int) -> torch.Tensor:
+    """Transpose of reflect padding along ``dim`` (layers.py:716-730): the
+    core of ``g`` with the mirrored border strips added back, the low
+    strip first, then the high one, each a slice add (no atomics)."""
+    n = g.shape[dim] - 2 * pad
+    core = g.narrow(dim, pad, n).clone(memory_format=torch.contiguous_format)
+    core.narrow(dim, 1, pad).add_(g.narrow(dim, 0, pad).flip(dim))
+    core.narrow(dim, n - pad - 1, pad).add_(
+        g.narrow(dim, pad + n, pad).flip(dim))
+    return core
+
+
+class _ReflectPad(torch.autograd.Function):
+    """Reflect padding of H and W whose backward is the JAX custom VJP's
+    fold (layers.py:733-751): H first, then W, in a fixed order, so a
+    step repeats bit for bit on the card (the CUDA backward of
+    ``F.pad(mode="reflect")`` adds the mirrored gradients with atomics)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, pad: int) -> torch.Tensor:
+        ctx.pad = pad
+        B, C, H, W = x.shape
+        # a fresh tensor in the standard layout: F.pad may hand 1-channel
+        # planes channels-last strides, which a convolution passes on to
+        # the instance-norm kernels, which refuse them
+        out = x.new_empty((B, C, H + 2 * pad, W + 2 * pad))
+        mid = out[:, :, pad:pad + H]
+        mid[..., pad:pad + W] = x
+        mid[..., :pad] = x[..., 1:pad + 1].flip(3)
+        mid[..., pad + W:] = x[..., W - pad - 1:W - 1].flip(3)
+        out[:, :, :pad] = out[:, :, pad + 1:2 * pad + 1].flip(2)
+        out[:, :, pad + H:] = out[:, :, H - 1:H + pad - 1].flip(2)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        pad = ctx.pad
+        return _reflect_fold(_reflect_fold(g, pad, 2), pad, 3), None
+
+
 def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
-    """Reflect-pad H and W by ``pad`` (layers.py:734-750; the JAX custom
-    VJP only saves bytes on the TPU, so autograd's gradient is used)."""
-    return F.pad(x, (pad, pad, pad, pad), mode="reflect")
+    """Reflect-pad H and W by ``pad`` (layers.py:734-750): the values of
+    ``F.pad(x, (pad,) * 4, mode="reflect")`` in a contiguous tensor, and
+    the JAX VJP's fixed-order backward."""
+    return _ReflectPad.apply(x, pad)
 
 
 class PReLU(nn.Module):
@@ -218,3 +262,41 @@ class AdaptiveInstanceNorm(nn.Module):
             return (self.gamma_weight_layer(content) * gamma * out
                     + self.beta_weight_layer(content) * beta)
         return gamma * out + beta
+
+
+class AdaIN(nn.Module):
+    """Parameter-free AdaIN (layers.py:607-618; model_utils.py:102-116):
+    the content's per-channel mean and std replaced by the style's, each
+    std the square root of the unbiased (ddof=1) variance plus eps. Plain
+    torch: the JAX package has no kernel for it."""
+
+    def __init__(self, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, content: torch.Tensor,
+                style: torch.Tensor) -> torch.Tensor:
+        dims = (2, 3)
+        sm = style.mean(dim=dims, keepdim=True)
+        ss = torch.sqrt(style.var(dim=dims, keepdim=True, correction=1)
+                        + self.eps)
+        cm = content.mean(dim=dims, keepdim=True)
+        cs = torch.sqrt(content.var(dim=dims, keepdim=True, correction=1)
+                        + self.eps)
+        return (content - cm) / cs * ss + sm
+
+
+class INFuse(nn.Module):
+    """concat -> instance norm over the content's and the style's channels
+    -> 1x1 conv back to the content's C (layers.py:621-630;
+    model_utils.py:119-129). The norm is ``instance_norm``: the IN kernels
+    on the card. ``style_channel`` defaults to ``in_channel``."""
+
+    def __init__(self, in_channel: int, style_channel: int = None):
+        super().__init__()
+        cin = in_channel + (style_channel or in_channel)
+        self.conv = nn.Conv2d(cin, in_channel, 1)
+
+    def forward(self, content: torch.Tensor,
+                style: torch.Tensor) -> torch.Tensor:
+        return self.conv(instance_norm(torch.cat([content, style], dim=1)))

@@ -7,6 +7,14 @@ depth_branch_en1_{rgb,depth}, depth_branch_encoder_decoder, {id,gd,cf}_dec*,
 nlspn_refine_module.prop_layer.*, fuse_layer1..5 (fuse_layer5 is built but,
 as in the reference, never used). Layout is NCHW.
 
+``fuse_depth_in_rgb_decoder`` picks the fuse layers as JAX does
+(rdf_generator.py:147-162): ``WAdaIN`` (``AdaptiveInstanceNorm``),
+``AdaIN`` (no parameters) or ``IN`` (``INFuse``, its 1x1 conv named
+``fuse_layer{i}.conv``: the reference's name is not in the repository).
+Each branch's skips are ``concat`` or ``add``; ``add`` skips have identity
+projections (rdf_generator.py:143-145), so the decoders and heads take no
+skip channels and each decoder width must equal its skip's.
+
 The JAX package's TPU-only devices change neither parameters nor math and
 are read from the config and ignored: ``packed_width``, the fused stem and
 head convolutions, remat (``nlspn_local_remat``) and ``axis_name``.
@@ -26,10 +34,11 @@ from ..ops.kernels.nlspn_kernel import propagate_auto
 from ..ops.nlspn import NLSPNParamsSpec, nlspn_offset_affinity, nlspn_propagate
 from ..ops.nlspn_stencil import build_shift_masks, stencil_propagate
 from ..registry import GENERATORS
-from .encoder_decoder import EncoderDecoder, concat_skip
-from .layers import AdaptiveInstanceNorm, ConvBNAct
+from .encoder_decoder import SKIPS, EncoderDecoder, concat_skip
+from .layers import AdaIN, AdaptiveInstanceNorm, ConvBNAct, INFuse
 
 NLSPN_IMPLS = ("auto", "stencil", "gather")
+FUSES = ("WAdaIN", "AdaIN", "IN")
 
 
 class NLSPN(nn.Module):
@@ -85,13 +94,8 @@ class RDFGenerator(nn.Module):
                  nlspn_local_remat: bool = True, axis_name=None,
                  packed_width: bool = False):
         super().__init__()
-        if fuse_depth_in_rgb_decoder != "WAdaIN":
-            raise NotImplementedError(
-                f"fuse_depth_in_rgb_decoder={fuse_depth_in_rgb_decoder!r}: "
-                f"this port serves WAdaIN only")
-        if (rgb_skip_connection_type, depth_skip_connection_type) != (
-                "concat", "concat"):
-            raise NotImplementedError("this port serves concat skips only")
+        if fuse_depth_in_rgb_decoder not in FUSES:
+            raise NotImplementedError(fuse_depth_in_rgb_decoder)
         if nlspn_impl not in NLSPN_IMPLS:
             raise ValueError(f"nlspn_impl {nlspn_impl!r} not in {NLSPN_IMPLS}")
         rce, dce = list(rgb_channels_encoder), list(depth_channels_encoder)
@@ -102,8 +106,13 @@ class RDFGenerator(nn.Module):
 
         self.rgb_branch_en1 = ConvBNAct(semantic_channels_in, rce[0], bn=False)
         self.rgb_branch_encoder_decoder = EncoderDecoder(
-            encoder_rgb, rce[1:], rcd, in_channels=rce[0])
-        hd = rcd[-1] + rce[1]
+            encoder_rgb, rce[1:], rcd, in_channels=rce[0],
+            skip_type=rgb_skip_connection_type)
+        self.rgb_skip = SKIPS[rgb_skip_connection_type]
+        self.depth_skip = SKIPS[depth_skip_connection_type]
+        rgb_cat = rgb_skip_connection_type == "concat"
+        depth_cat = depth_skip_connection_type == "concat"
+        hd = rcd[-1] + rgb_cat * rce[1]
         self.rgb_pred_dec1 = ConvBNAct(hd, 64)
         self.rgb_pred_dec0 = ConvBNAct(64 + rce[0], 1, bn=False, relu=False)
         self.rgb_conf_dec1 = ConvBNAct(hd, 32)
@@ -114,8 +123,9 @@ class RDFGenerator(nn.Module):
                                               bn=False)
         self.depth_branch_en1_depth = ConvBNAct(1, 16, bn=False)
         self.depth_branch_encoder_decoder = EncoderDecoder(
-            encoder_depth, dce[1:], dcd, in_channels=64)
-        hdd = dcd[-1] + dce[1]
+            encoder_depth, dce[1:], dcd, in_channels=64,
+            skip_type=depth_skip_connection_type)
+        hdd = dcd[-1] + depth_cat * dce[1]
         self.id_dec1 = ConvBNAct(hdd, 64)
         self.id_dec0 = ConvBNAct(64 + 64, 1, bn=False, relu=False)
         if use_nlspn_refine:
@@ -136,12 +146,20 @@ class RDFGenerator(nn.Module):
         if use_nlspn_refine:
             self.nlspn_refine_module = NLSPNRefineModule(self.nlspn_spec)
 
-        def fuse_channels(i):  # channels entering fuse layer i (1-indexed)
-            return rce[-1] if i == 1 else rcd[i - 2] + rce[-i]
+        def fuse_channels(i, enc, dec, cat):  # entering fuse layer i
+            return enc[-1] if i == 1 else dec[i - 2] + cat * enc[-i]
+
+        def fuse_layer(c, cs):  # content and style channels
+            if fuse_depth_in_rgb_decoder == "WAdaIN":
+                return AdaptiveInstanceNorm(c, cs, adain_weighting)
+            if fuse_depth_in_rgb_decoder == "AdaIN":
+                return AdaIN()
+            return INFuse(c, cs)
 
         for i in range(1, 6):
-            setattr(self, f"fuse_layer{i}", AdaptiveInstanceNorm(
-                fuse_channels(i), fuse_channels(i), adain_weighting))
+            setattr(self, f"fuse_layer{i}", fuse_layer(
+                fuse_channels(i, rce, rcd, rgb_cat),
+                fuse_channels(i, dce, dcd, depth_cat)))
 
     def _nlspn_block(self, guide, confidence, pred_init, origin_depth):
         """Offset/affinity conv -> shift-mask fold -> propagation. Returns
@@ -188,9 +206,10 @@ class RDFGenerator(nn.Module):
         rgb_fd, d_fd = rgb_fe[5], d_fe[5]
         for li, dec_idx in enumerate(range(5, 1, -1)):
             fuse = getattr(self, f"fuse_layer{li + 1}")(rgb_fd, d_fd)
-            rgb_fd = concat_skip(rgb_ed.decode(fuse, dec_idx),
-                                 rgb_fe[dec_idx - 1])
-            d_fd = concat_skip(d_ed.decode(d_fd, dec_idx), d_fe[dec_idx - 1])
+            rgb_fd = self.rgb_skip(rgb_ed.decode(fuse, dec_idx),
+                                   rgb_fe[dec_idx - 1])
+            d_fd = self.depth_skip(d_ed.decode(d_fd, dec_idx),
+                                   d_fe[dec_idx - 1])
 
         # heads conv the untrimmed decoder output and trim at the concat
         # (rdf_generator.py:374-379)

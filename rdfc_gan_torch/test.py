@@ -55,8 +55,10 @@ def cal_fps(engine, loader, n_images: int = 300, warmup: int = 5,
 def build_split(cfg, mode: str):
     """The ``mode`` ("train" or "val") split of ``cfg.dataset``: the
     synthetic set at (out_height, out_width), or a file dataset (``nyuv2``,
-    ``nyuv2_sparse``, ``nyuv2_pseudo``, ``nyuv2_raw``, ``sunrgbd``) under
-    ``data_root`` (train.py:36-43), which raises without one."""
+    ``nyuv2_sparse``, ``nyuv2_pseudo``, ``nyuv2_raw``, ``sunrgbd``,
+    ``nyuv2_s2d``, ``nyuv2_r2r``, ``ddrnet_human``, ``cleargrasp``,
+    ``thuman``) under ``data_root`` (train.py:36-43), which raises without
+    one."""
     from . import data  # noqa: F401  (registers the datasets)
 
     common = dict(num_classes=cfg.num_classes, seed=cfg.seed)

@@ -123,10 +123,14 @@ def _join_dec0(sd, p, heads):
 def rdf_generator_state_dict_from_jax(params: Dict[str, Any],
                                       batch_stats: Dict[str, Any],
                                       use_nlspn_refine: bool = True,
-                                      adain_weighting: bool = False
+                                      adain_weighting: bool = False,
+                                      fuse: str = "WAdaIN"
                                       ) -> Dict[str, torch.Tensor]:
     """Flax RDFGenerator (params, batch_stats) numpy trees -> state dict of
-    ``rdfc_gan_torch.models.RDFGenerator`` (fuse_layer5 left out)."""
+    ``rdfc_gan_torch.models.RDFGenerator`` (fuse_layer5 left out), for
+    either skip type and the ``fuse`` layers (``fuse_depth_in_rgb_decoder``):
+    W-AdaIN's EqualLinear (and weighting convs), INFuse's 1x1 ``Conv_0`` ->
+    ``fuse_layer{i}.conv``, AdaIN's nothing."""
     sd: Dict[str, torch.Tensor] = {}
     st = params["stem_fused"]
     for name, i, j in (("rgb_branch_en1", 0, 0),
@@ -170,9 +174,12 @@ def rdf_generator_state_dict_from_jax(params: Dict[str, Any],
         sd[f"{pre}.b"] = torch.zeros(1)
         sd[f"{pre}.w_conf"] = torch.ones(1, 1, 1, 1)
 
-    for i in range(4):
+    for i in range(4 if fuse != "AdaIN" else 0):
         fl = params[f"fuse_layers_{i}"]
         pre = f"fuse_layer{i + 1}"
+        if fuse == "IN":
+            _conv(sd, f"{pre}.conv", fl["Conv_0"])
+            continue
         sd[f"{pre}.style.linear.weight_orig"] = _t(
             np.asarray(fl["EqualLinear_0"]["weight"]).T)
         sd[f"{pre}.style.linear.bias"] = _t(fl["EqualLinear_0"]["bias"])

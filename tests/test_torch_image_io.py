@@ -148,7 +148,17 @@ RESIZES = [((480, 640), (420, 555)), ((420, 555), (240, 317)),
            ((420, 555), (224, 304)), ((420, 555), (256, 256)),
            ((480, 640), (256, 256)), ((120, 160), (256, 256)),
            ((240, 317), (224, 304)), ((480, 640), (240, 320)),
-           ((33, 47), (64, 80))]
+           ((33, 47), (64, 80)),
+           # the v1 pipelines: nyuv2_s2d's shorter side to int(240 s) for
+           # s in [1, 1.5), the exact 2x of its test path above included;
+           # ddrnet_human's round(480 s) x round(640 s), s in [1, 1.4]
+           # (widths not a multiple of 16); folder_dataset's 256x256;
+           # nyuv2_r2r's 420x555 border cut to 256x320
+           ((480, 640), (241, 321)), ((480, 640), (263, 351)),
+           ((480, 640), (300, 400)), ((480, 640), (359, 479)),
+           ((480, 640), (487, 649)), ((480, 640), (530, 707)),
+           ((480, 640), (583, 777)), ((480, 640), (672, 896)),
+           ((100, 120), (256, 256)), ((420, 555), (256, 320))]
 DTYPES = ["u8c3", "u8c1", "u16", "f32", "f32c3"]
 
 
@@ -179,6 +189,22 @@ def test_resize_matches_opencv(src, dst, kind):
         np.testing.assert_array_equal(got, want, err_msg=str(ours))
 
 
+@pytest.mark.parametrize("src,dst", [((480, 640), (480, 640)),
+                                     ((480, 640), (240, 320)),
+                                     ((480, 640), (583, 777)),
+                                     ((37, 51), (64, 80))])
+def test_f64_nearest_resize_matches_opencv(src, dst):
+    """ddrnet_human's test path resizes its f64 depth (uint16 / 1000.0)
+    nearest."""
+    import cv2
+
+    img = np.random.RandomState(dst[1]).uniform(0, 3, src)
+    got = cv_ops.resize(img, (dst[1], dst[0]), cv_ops.INTER_NEAREST)
+    want = cv2.resize(img, (dst[1], dst[0]), interpolation=cv2.INTER_NEAREST)
+    assert got.dtype == want.dtype == np.float64
+    np.testing.assert_array_equal(got, want)
+
+
 ANGLES = [-5.0, -3.7, -0.25, 0.0, 1.3, 4.61, 5.0]
 WARP_SHAPES = [(420, 555), (480, 640), (120, 160)]
 
@@ -206,23 +232,19 @@ def test_rotation_and_warp_match_opencv(angle, hw):
 
 
 @pytest.mark.parametrize("hw", [(480, 640), (224, 304), (256, 256),
-                                (37, 41), (64, 317)])
+                                (37, 41), (64, 317), (420, 555), (20, 13),
+                                (15, 70)])
 def test_gaussian_blur_matches_opencv(hw):
     """Spatter's blur: f32, 33x33, sigma 8, BORDER_REFLECT_101; bit for
-    bit but in the scalar tail of a width not a multiple of 16 (module
-    docstring)."""
+    bit, the scalar tails of widths not a multiple of 4 or 8 included."""
     import cv2
 
     r = np.random.RandomState(hw[0])
     f = r.uniform(size=hw).astype(np.float32)
     np.testing.assert_array_equal(cv_ops.gaussian_kernel(33, 8),
                                   cv2.getGaussianKernel(33, 8, cv2.CV_32F)[:, 0])
-    got = cv_ops.gaussian_blur(f, (33, 33), 8)
-    want = cv2.GaussianBlur(f, (33, 33), 8)
-    body = hw[1] - hw[1] % 16
-    np.testing.assert_array_equal(got[:, :body], want[:, :body])
-    np.testing.assert_allclose(got[:, body:], want[:, body:], rtol=0,
-                               atol=2 * float(np.spacing(np.float32(0.5))))
+    np.testing.assert_array_equal(cv_ops.gaussian_blur(f, (33, 33), 8),
+                                  cv2.GaussianBlur(f, (33, 33), 8))
 
 
 def test_dilate_matches_opencv():

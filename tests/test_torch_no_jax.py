@@ -42,7 +42,15 @@ def test_port_imports_no_jax():
         "        'rdfc_gan_torch.utils.image_ops',\n"
         "        'rdfc_gan_torch.engines.rdfc_gan',\n"
         "        'rdfc_gan_torch.data.nyuv2', 'rdfc_gan_torch.inference',\n"
-        "        'rdfc_gan_torch.utils.checkpoint'} <= set(names)\n"
+        "        'rdfc_gan_torch.utils.checkpoint',\n"
+        "        'rdfc_gan_torch.data.hdf5',\n"
+        "        'rdfc_gan_torch.data.nyuv2_s2d',\n"
+        "        'rdfc_gan_torch.data.nyuv2_r2r',\n"
+        "        'rdfc_gan_torch.data.ddrnet_human',\n"
+        "        'rdfc_gan_torch.data.folder_dataset',\n"
+        "        'rdfc_gan_torch.utils.data_augmentation',\n"
+        "        'rdfc_gan_torch.tools.make_s2d_fixture',\n"
+        "        'rdfc_gan_torch.tools.create_ddrnet_csv'} <= set(names)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'rdfc_gan_tpu',\n"
         "              'tools', 'attic', 'cv2', 'PIL', 'imageio', 'h5py',\n"

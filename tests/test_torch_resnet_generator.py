@@ -150,3 +150,4 @@ def test_reflect_pad_and_prelu():
     assert a(z).dtype == torch.bfloat16
     np.testing.assert_array_equal(a(z).float().detach().numpy(),
                                   [-0.5, 0.0, 3.0])
+
