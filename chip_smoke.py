@@ -81,7 +81,15 @@ and PyTorch built for CUDA. It
    256x256 and serves it, and serves G_A2B built with the ``IN`` and
    ``AdaIN`` fuse layers and with ``add`` skips (IN launches counted; the
    IN build also one train step);
-12. prints the card's name and power limit, one ``{"kernels": [...]}``
+12. trains the NLSPN config 4 bf16 steps twice under
+   ``set_random_seed(seed, deterministic=True)`` and holds the two
+   checkpoints bit-equal (``nlspn_repeat_check``); then data parallelism
+   (``data_parallel_phase``): world 1 through ``torch.distributed.run``
+   bit-equal to the plain run, and two ranks on the one card in a gloo
+   group (f32 flagship and RDF-GAN steps against world 1, 4 bf16 flagship
+   steps bit-equal across the ranks with their launch counts, an NLSPN
+   evaluation with pad rows against world 1's);
+13. prints the card's name and power limit, one ``{"kernels": [...]}``
    line, and ``{"ok": true, "device": {...}}`` as the last line.
 
 It exits non-zero, printing no result, when there is no card or no
@@ -831,7 +839,7 @@ def _train_args(workdir, pth):
             "--load_from", pth]
 
 
-def _seeded_nets(cfg, workdir):
+def _seeded_nets(cfg, workdir, device="cuda"):
     """The seeded generator of the serve phase and a PatchGAN from a seed,
     saved as one reference-schema checkpoint."""
     import torch
@@ -839,8 +847,8 @@ def _seeded_nets(cfg, workdir):
     from rdfc_gan_torch import test as port_test
     from rdfc_gan_torch.registry import build_discriminator
 
-    first = next(iter(port_test.build_val_loader(cfg, torch.device("cuda"))))
-    g = _seeded_generator(cfg, "cuda", first, train=True)
+    first = next(iter(port_test.build_val_loader(cfg, torch.device(device))))
+    g = _seeded_generator(cfg, device, first, train=True)
     torch.manual_seed(2)
     d = build_discriminator(cfg.model.D.to_dict())
     pth = os.path.join(workdir, "GD.pth")
@@ -2827,6 +2835,584 @@ def v1_variants_phase(workdir, s2d_root):
           f"{time.perf_counter() - t_phase:.2f} s")
 
 
+REPEAT_STEPS = 4
+
+
+def nlspn_repeat_check(workdir):
+    """Does one rank repeat itself? The RDF-GAN NLSPN config (bf16, batch 4,
+    224x304) from the seeded G and D, REPEAT_STEPS train steps, twice,
+    each under ``set_random_seed(seed, deterministic=True)`` in a fresh
+    engine; the two checkpoints (nets, optimizers, schedulers) must be
+    bit-equal entry by entry. Each step's losses and gradients are compared
+    too, so a difference is placed: the first step that differs and, in
+    forward order, the last parameters whose gradients differ (the
+    nondeterministic op sits behind them)."""
+    import torch
+
+    from rdfc_gan_torch.cli import parse_config
+    from rdfc_gan_torch.engines import build_engine
+    from rdfc_gan_torch.train import build_train_loader
+    from rdfc_gan_torch.utils import set_random_seed
+    from rdfc_gan_torch.utils.checkpoint import (load_checkpoint,
+                                                 save_checkpoint)
+
+    cfg = parse_config(_train_args(workdir, "")[:-2] + ["--deterministic"])
+    pth = _seeded_nets(cfg, workdir)
+    runs = []
+    for run in range(2):
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=False):
+            set_random_seed(cfg.seed, deterministic=True)
+            engine = build_engine(cfg, is_train=True, steps_per_epoch=16)
+            load_checkpoint(engine.modules, pth)
+            steps = []
+            for _, batch in zip(range(REPEAT_STEPS),
+                                build_train_loader(cfg, engine.device)):
+                losses = engine.train_step(batch)
+                grads = {f"{net}.{n}": p.grad.detach().clone()
+                         for net, m in engine.modules.items()
+                         for n, p in m.named_parameters()
+                         if p.grad is not None}
+                steps.append((losses, grads))
+            out = os.path.join(workdir, f"repeat_{run}.pth")
+            save_checkpoint(engine.modules, out, meta=dict(steps=len(steps)),
+                            train_state=engine.train_state())
+        runs.append((out, steps))
+        del engine
+    first = None
+    for i, ((la, ga), (lb, gb)) in enumerate(zip(runs[0][1], runs[1][1])):
+        diff_l = [k for k in la if not torch.equal(la[k], lb[k])]
+        diff_g = [k for k in ga if not torch.equal(ga[k], gb[k])]
+        print(f"  repeat step {i}: {len(la) - len(diff_l)} of {len(la)} "
+              f"losses and {len(ga) - len(diff_g)} of {len(ga)} gradients "
+              f"bit-equal")
+        if (diff_l or diff_g) and first is None:
+            first = i
+            print(f"    first differing step {i}: losses {diff_l}; the last "
+                  f"differing gradients in forward order {diff_g[-8:]}")
+    a, b = (_flat_leaves(torch.load(p, map_location="cpu", weights_only=True))
+            for p, _ in runs)
+    differ = [k for k, x in a.items() if not (
+        torch.equal(x, b[k]) if isinstance(x, torch.Tensor) else x == b[k])]
+    n_tensors = sum(isinstance(x, torch.Tensor) for x in a.values())
+    print(f"NLSPN RDF-GAN, {REPEAT_STEPS} bf16 steps at batch {B}, {H}x{W}, "
+          f"twice under set_random_seed(seed, deterministic=True): "
+          f"{len(a) - len(differ)} of {len(a)} checkpoint entries "
+          f"({n_tensors} tensors) bit-equal")
+    if differ or first is not None:
+        fail(f"the NLSPN RDF-GAN steps do not repeat: {len(differ)} "
+             f"checkpoint entries differ, e.g. {differ[:6]}")
+
+
+# the data-parallel phase: a NYUv2 fixture of 8 train scenes (2 flagship
+# steps at batch 4) and a val split of 6 (batch 2 a rank, so pad rows)
+DP_TRAIN, DP_TEST = 8, 6
+DP_BF16_STEPS = 4
+# world 2 against world 1, f32, world 1's BatchNorms in the world-2 form
+# (``_SyncBN``, whose collectives are no-ops at world 1): torch's kernel
+# rounds y otherwise, which on the card flipped 45 of 272384 of G_label's
+# classes of real_A. The losses rtol 1e-5. The gradients as the port's CPU
+# flagship test holds them against JAX (the same rule for the RDF-GAN
+# step): a tensor's relative L2 error below 0.2, a net's below 0.06; a
+# tensor below 1e-4 of its net's largest entry on both sides is noise; a
+# one-entry tensor (a PReLU slope: a sum of x dy over a layer's negative
+# inputs, which cancels; one read 0.22 on the card) is held by its net's
+# bound. The convolutions of batch 2 and batch 4 round otherwise, and the
+# BatchNorms and (Leaky)ReLUs turn that into percent-level gradient
+# differences where a value sits at a kink; a rank's own statistics or
+# denominators move them by tens of percent. The parameters after Adam
+# within 2e-5 + 1e-5 |p| where the two gradients agree to 10% and lie
+# above 10 times Adam's eps, else (and in a noise tensor) within 2 lr. The
+# running statistics rtol 1e-4 / atol 1e-5 (f64 sums at world 2, f32 at
+# world 1: rounding apart), the running means 2 lr x momentum more (a conv
+# bias ahead of a BatchNorm takes a gradient that is noise, so Adam moves
+# it by lr either way, and the batch means of the passes after the update
+# follow it).
+DP_LOSS_RTOL = 1e-5
+DP_STATS = dict(rtol=1e-4, atol=1e-5)
+# the f32 flagship comparison names no class as floor, wall or ceiling, so
+# the Manhattan terms' masks are empty: they take an argmax of G_label's
+# logits, and pixels whose top two classes lie within rounding swap
+# classes between the batch-4 and batch-2 convolutions (on the card they
+# moved a B->A term by 4e-4 and G_B2A's gradients by up to 29%); the CPU
+# tests hold those terms at world 2
+NO_MANHATTAN = ["--label_wall", "99", "--label_floor", "99",
+                "--label_ceiling", "99"]
+
+
+def _dp_net_check(title, net, got_grads, want_grads, got_state, want_state,
+                  lr):
+    """One net of a world-2 f32 step against world 1 (the rule above).
+    Returns the worst relative L2 error of a tensor."""
+    import torch
+
+    tens = {k: (got_grads[k].double(), w.double())
+            for k, w in want_grads.items()}
+    if set(got_grads) != set(want_grads):
+        fail(f"{title} {net}: the ranks' gradients name other tensors")
+    top = max(float(w.abs().max()) for _, w in tens.values())
+    num = den = worst = 0.0
+    noise = set()
+    for k, (g, w) in tens.items():
+        if max(float(g.abs().max()), float(w.abs().max())) < 1e-4 * top:
+            noise.add(k)
+            continue
+        rel = float((g - w).norm() / w.norm())
+        # a one-entry tensor (a PReLU slope: a sum of x dy over a layer's
+        # negative inputs, which cancels) is held by its net's bound
+        if w.numel() > 1:
+            worst = max(worst, rel)
+            if rel >= 0.2:
+                fail(f"{title} {net}.{k}: gradient relative L2 {rel:.3e}")
+        num += float(((g - w) ** 2).sum())
+        den += float((w ** 2).sum())
+    if den and (num / den) ** 0.5 >= 0.06:
+        fail(f"{title} {net}: whole-gradient relative L2 "
+             f"{(num / den) ** 0.5:.3e}")
+    for k, w in want_state.items():
+        g = got_state[k]
+        if k.endswith("num_batches_tracked"):
+            ok = torch.equal(g, w)
+        elif "running" in k:
+            extra = 2 * lr * 0.1 if k.endswith("running_mean") else 0.0
+            ok = bool(((g - w).abs() <= DP_STATS["atol"] + extra
+                       + DP_STATS["rtol"] * w.abs()).all())
+        elif k in tens:
+            gg, gw = tens[k]
+            # Adam's step follows the sign of a gradient far above its
+            # eps (1e-8); one within 10 eps, or noise, moves it anywhere
+            # within lr
+            loose = (((gg - gw).abs() >= 0.1 * gw.abs()) | (gw.abs() < 1e-7)
+                     | (k in noise))
+            atol = torch.where(loose, torch.full_like(gw, 2.01 * lr),
+                               2e-5 + 1e-5 * w.double().abs())
+            ok = bool(((g.double() - w.double()).abs() <= atol).all())
+        else:
+            ok = True
+        if not ok:
+            fail(f"{title} {net}.{k}: updated value past its tolerance")
+    return worst
+
+
+@contextlib.contextmanager
+def _sync_bn_form():
+    """Train-mode BatchNorm2d in its world-2 form (``_SyncBN``, whose
+    collectives are no-ops at world 1) at any world size."""
+    from rdfc_gan_torch.models import layers
+
+    def forward(self, x):
+        if not self.training:
+            return layers.nn.BatchNorm2d.forward(self, x)
+        y, mean, var = layers._SyncBN.apply(x, self.weight, self.bias,
+                                            self.eps)
+        self.update_running(mean, var)
+        return y
+
+    with mock.patch.object(layers.BatchNorm2d, "forward", forward):
+        yield
+
+
+def _dp_step(cfg_args, pth, batch, bn_form=False):
+    """One f32 train step of a fresh engine of ``cfg_args`` loaded from
+    ``pth`` on ``batch`` (this rank's rows at world 2), deterministic
+    cuDNN; ``bn_form``: the BatchNorms in their world-2 form. Returns
+    (losses, gradients, state dicts, seconds, G_label's classes of real_A
+    or None)."""
+    import torch
+
+    from rdfc_gan_torch.cli import parse_config
+    from rdfc_gan_torch.engines import build_engine
+    from rdfc_gan_torch.utils.checkpoint import load_checkpoint
+
+    cfg = parse_config(cfg_args)
+    cfg["compute_dtype"] = "float32"
+    engine = build_engine(cfg, is_train=True, steps_per_epoch=16)
+    load_checkpoint(engine.modules, pth)
+    seen = []
+    label = engine.modules.get("G_label")
+    hook = label and label.register_forward_hook(
+        lambda m, i, o: seen.append(o[0].detach().argmax(1).cpu()))
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(torch.backends.cudnn.flags(
+            enabled=True, benchmark=False, deterministic=True,
+            allow_tf32=False))
+        if bn_form:
+            stack.enter_context(_sync_bn_form())
+        t0 = time.perf_counter()
+        losses = engine.train_step(batch)
+        _sync(engine.device)
+        sec = time.perf_counter() - t0
+    if hook:
+        hook.remove()
+    out = ({k: float(v) for k, v in losses.items()},
+           {net: {n: p.grad.detach().cpu() for n, p in m.named_parameters()
+                  if p.grad is not None}
+            for net, m in engine.modules.items()},
+           {net: {n: v.detach().cpu() for n, v in m.state_dict().items()}
+            for net, m in engine.modules.items()}, sec,
+           seen[0] if seen else None)
+    del engine
+    return out
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _net_digests(engine):
+    """{net: sha1 of all its tensors' bytes} of an engine's nets."""
+    import hashlib
+
+    import torch
+
+    out = {}
+    for net, m in engine.modules.items():
+        h = hashlib.sha1()
+        for _, v in sorted(m.state_dict().items()):
+            h.update(v.detach().cpu().contiguous().view(-1).view(
+                torch.uint8).numpy().tobytes())
+        out[net] = h.hexdigest()
+    return out
+
+
+def dp_rank_main(rank: int, world: int, port: int, spec_path: str):
+    """One rank of ``data_parallel_phase``: a gloo group over
+    tcp://localhost:port on the spec's device (``cuda:0``: both ranks share
+    the card). Runs the spec's f32 flagship step, bf16 flagship steps
+    (digests of the six nets gathered after each), f32 RDF-GAN step and the
+    NLSPN evaluation, and writes its results beside the spec."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from rdfc_gan_torch import test as port_test
+    from rdfc_gan_torch.cli import parse_config
+    from rdfc_gan_torch.engines import build_engine
+    from rdfc_gan_torch.ops.kernels import build
+    from rdfc_gan_torch.parallel import all_gather_object, rank_rows
+    from rdfc_gan_torch.utils.checkpoint import load_checkpoint
+
+    spec = torch.load(spec_path, weights_only=False)
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=240))
+    out = {}
+    try:
+        rows = {k: rank_rows(v).to(dev) for k, v in spec["batch"].items()}
+        build.reset_launches()
+        out["flagship_f32"] = _dp_step(spec["flagship_f32"], spec["fpth"],
+                                       rows)
+        out["flagship_f32_launches"] = dict(build.LAUNCHES)
+        engine = build_engine(parse_config(spec["flagship_bf16"]),
+                              is_train=True, steps_per_epoch=16)
+        load_checkpoint(engine.modules, spec["fpth"])
+        out["bf16_seeded"] = _net_digests(engine)
+        out["blocks"] = fused_blocks(engine.modules["G_A2B"])
+        out["n_in"] = sum(1 for m in engine.modules["G_B2A"].modules()
+                          if type(m).__name__ == "InstanceNorm")
+        steps, digests = [], []
+        build.reset_launches()
+        for i in range(DP_BF16_STEPS):
+            b = {k: rank_rows(v).to(dev)
+                 for k, v in spec["bf16_batches"][i].items()}
+            t0 = time.perf_counter()
+            losses = engine.train_step(b)
+            _sync(dev)
+            steps.append(time.perf_counter() - t0)
+            if not all(bool(torch.isfinite(v)) for v in losses.values()):
+                raise RuntimeError(f"bf16 step {i}: non-finite losses")
+            digests.append(all_gather_object(_net_digests(engine)))
+        out["bf16_launches"] = dict(build.LAUNCHES)
+        out["bf16_digests"], out["bf16_seconds"] = digests, steps
+        out["bf16_moved"] = _net_digests(engine)
+        del engine
+        build.reset_launches()
+        out["rdfgan_f32"] = _dp_step(spec["rdfgan_f32"], spec["gpth"], rows)
+        out["rdfgan_f32_launches"] = dict(build.LAUNCHES)
+        build.reset_launches()
+        served = port_test.run(parse_config(spec["serve"]))
+        out["serve"] = dict(metrics=served["metrics"],
+                            max_offset=served["max_offset"],
+                            forwards=served["forwards"],
+                            launches=dict(build.LAUNCHES))
+        torch.save(out, os.path.join(os.path.dirname(spec_path),
+                                     f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_rank_counts(title, res, want):
+    for r, got in enumerate(res):
+        if got != want:
+            fail(f"{title}: rank {r} launched {got}, expected {want}")
+
+
+def data_parallel_phase(workdir, device="cuda:0", flagship=None, nlspn=None,
+                        size=(H, W)):
+    """Data parallelism on the one card. World 1 through the real launcher:
+    ``torch.distributed.run --nproc_per_node 1`` trains the flagship 2 bf16
+    steps on a NYUv2 fixture (deterministic), and its epoch_1.pth must be
+    bit-equal to the same run without the launcher. World 2: two ranks on
+    ``device`` in a gloo group (NCCL refuses two ranks on one card): one
+    f32 flagship step (``NO_MANHATTAN``) and one f32 RDF-GAN NLSPN step on
+    the ranks' halves of a 4-row batch against world 1 on the whole, its
+    BatchNorms in the world-2 form (``_dp_net_check``); 4 bf16 flagship
+    steps with the six nets bit-equal across the ranks after
+    each and the launch counts of world 1 at batch 2; the NLSPN config's
+    evaluation of a val split of 6 at batch 2 a rank against world 1's,
+    every rank taking the same radius from the probe. ``flagship``,
+    ``nlspn`` and ``size`` (the configs and the synthetic batch's plane)
+    default to the two published configs at 224x304."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    from rdfc_gan_torch import test as port_test
+    from rdfc_gan_torch import train as port_train
+    from rdfc_gan_torch.cli import parse_config
+    from rdfc_gan_torch.engines import build_engine
+    from rdfc_gan_torch.ops.nlspn_guard import escalate_nlspn_cfg
+    from rdfc_gan_torch.tools.make_nyuv2_fixture import write_fixture
+    from rdfc_gan_torch.utils import set_random_seed
+    from rdfc_gan_torch.utils.checkpoint import save_checkpoint
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        print(gpu_line())
+    flagship = flagship or os.path.join(ROOT, "configs",
+                                        "rdf_cycle_patchgan_config.yaml")
+    nlspn = nlspn or os.path.join(ROOT, "configs",
+                                  "rdf_gan_nlspn_config.yaml")
+    dp = os.path.join(workdir, "dp")
+    root = os.path.join(dp, "nyu")
+    write_fixture(root, n_train=DP_TRAIN, n_test=DP_TEST, seed=0)
+
+    def files(config, work, extra=(), dev=device):
+        return ["--dataset", "nyuv2", "--data_root", root, "--model_cfg_path",
+                config, "--work_dir", os.path.join(dp, work), "--num_workers",
+                "2", "--device", dev, *extra]
+
+    # seeded nets and the batches, written for the ranks
+    synth = ["--dataset", "synthetic", "--out_height", str(size[0]),
+             "--out_width", str(size[1]), "--batch_size", str(B),
+             "--device", device]
+    fl_cfg = ["--model_cfg_path", flagship, "--work_dir",
+              os.path.join(dp, "f")] + synth
+    cfg = parse_config(fl_cfg)
+    set_random_seed(cfg.seed)
+    fpth = os.path.join(dp, "flagship_seeded.pth")
+    seeded = build_engine(cfg, is_train=True, steps_per_epoch=16)
+    save_checkpoint(seeded.modules, fpth)
+    del seeded
+    rd_cfg = ["--model_cfg_path", nlspn, "--work_dir",
+              os.path.join(dp, "r")] + synth
+    gpth = _seeded_nets(parse_config(rd_cfg), dp, device)
+    loader = port_train.build_train_loader(parse_config(fl_cfg),
+                                           torch.device("cpu"))
+    it = iter(loader)
+    batches = [next(it) for _ in range(DP_BF16_STEPS)]
+    loader.close()
+    serve_args = files(nlspn, "serve2", ["--batch_size", str(B),
+                                         "--load_from", gpth])
+    spec = dict(device=device, batch=batches[0], bf16_batches=batches,
+                fpth=fpth, gpth=gpth, flagship_f32=fl_cfg + NO_MANHATTAN,
+                flagship_bf16=fl_cfg, rdfgan_f32=rd_cfg, serve=serve_args)
+    spec_path = os.path.join(dp, "spec.pt")
+    torch.save(spec, spec_path)
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # world 1 through the launcher, and the two ranks, at once
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2")
+    train_w1 = ["--n_epochs", "1", "--batch_size", str(B),
+                "--save_interval", "1", "--val_interval", "1000",
+                "--log_interval", "1", "--deterministic"]
+    launcher = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "rdfc_gan_torch.train",
+         *files(flagship, "launcher", train_w1,
+                "cuda" if on_card else "cpu")],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    ranks = [subprocess.Popen(
+        [sys.executable, "-c",
+         f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+         f"chip_smoke.dp_rank_main({r}, 2, {port}, {spec_path!r})"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(2)]
+    procs = [launcher] + ranks
+    try:
+        # meanwhile, world 1 without the launcher, then its NLSPN
+        # evaluation and RDF-GAN step (the flagship's f32 step, the
+        # largest, after the ranks)
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=False):
+            port_train.run(parse_config(files(flagship, "plain", train_w1)))
+        w1 = port_test.run(parse_config(files(nlspn, "serve1", [
+            "--batch_size", "2", "--load_from", gpth])))
+        whole = {k: v.to(device) for k, v in batches[0].items()}
+        refs = {"rdfgan_f32": _dp_step(spec["rdfgan_f32"], gpth, whole,
+                                       bn_form=True)}
+        outs = []
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=420))
+            except subprocess.TimeoutExpired:
+                fail("a data-parallel process did not end within 420 s")
+        for name, p, (_, err) in zip(("launcher", "rank 0", "rank 1"), procs,
+                                     outs):
+            if p.returncode != 0:
+                fail(f"data-parallel {name} exited {p.returncode}:\n"
+                     f"{err[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    a, b = (_flat_leaves(torch.load(os.path.join(dp, w, "epoch_1.pth"),
+                                    map_location="cpu", weights_only=True))
+            for w in ("launcher", "plain"))
+    differ = [k for k, x in a.items() if k not in b or not (
+        torch.equal(x, b[k]) if isinstance(x, torch.Tensor) else x == b[k])]
+    if differ or set(a) != set(b):
+        fail(f"world 1 through torch.distributed.run differs from the plain "
+             f"run at {len(differ)} of {len(a)} entries, e.g. {differ[:4]}")
+    print(f"  world 1 through torch.distributed.run (1 rank, "
+          f"{'NCCL' if on_card else 'gloo'}): the flagship's epoch_1.pth "
+          f"after {DP_TRAIN // B} bf16 steps is bit-equal to the plain "
+          f"run's, all {len(a)} entries")
+
+    res = [torch.load(os.path.join(dp, f"rank{r}.pt"), weights_only=False)
+           for r in range(2)]
+    blocks, n_in = res[0]["blocks"], res[0]["n_in"]
+    # world 1 references on the whole 4-row batch
+    refs["flagship_f32"] = _dp_step(spec["flagship_f32"], fpth, whole,
+                                    bn_form=True)
+    g_blocks = fused_blocks(build_engine(parse_config(rd_cfg)).modules["G"])
+    checks = (("flagship", "flagship_f32", fpth,
+               {"conv3x3_fwd_f32": 4 * blocks, "conv3x3_bwd_f32": 4 * blocks,
+                "instance_norm_fwd": 8 + n_in,
+                "instance_norm_bwd": 8 + n_in}),
+              ("RDF-GAN NLSPN", "rdfgan_f32", gpth,
+               {"shift_mask_scatter": 1, "shift_mask_gather": 1,
+                "nlspn_propagate_x": 1, "nlspn_reverse_chain": 1,
+                "shift_correlation": 1, "instance_norm_fwd": 4,
+                "instance_norm_bwd": 4, "conv3x3_fwd_f32": 2 * g_blocks,
+                "conv3x3_bwd_f32": 2 * g_blocks}))
+    problems = []
+    for title, key, pth, want in checks:
+        losses, grads, state, sec, cls = refs[key]
+        (l0, g0, s0, t0, c0), (l1, g1, s1, t1, c1) = res[0][key], \
+            res[1][key]
+        if cls is not None:
+            print(f"    {title}: G_label classes of real_A differing from "
+                  f"world 1 at {int((torch.cat([c0, c1]) != cls).sum())} of "
+                  f"{cls.numel()} pixels")
+        for net in g0:
+            for k in g0[net]:
+                if not torch.equal(g0[net][k], g1[net][k]):
+                    fail(f"{title}: the ranks' gradients of {net}.{k} differ")
+            for k in s0[net]:
+                if not torch.equal(s0[net][k], s1[net][k]):
+                    fail(f"{title}: the ranks' {net}.{k} differ after the "
+                         f"step")
+        worst_loss = 0.0
+        for k, v in losses.items():
+            got = (max(l0[k], l1[k]) if k == "nlspn_max_offset"
+                   else l0[k] + l1[k])
+            worst_loss = max(worst_loss, abs(got - v) / max(abs(v), 1e-30))
+            if abs(got - v) > DP_LOSS_RTOL * abs(v) + 1e-7:
+                problems.append(f"{title} f32 world 2: {k}={got}, world 1 "
+                                f"{v}")
+        per_net = {}
+        for net in grads:
+            # each net's failure is recorded and the phase fails at its end,
+            # so one run reports every net
+            try:
+                per_net[net] = _dp_net_check(
+                    f"{title} f32 world 2", net, g0[net], grads[net],
+                    s0[net], state[net], 2e-3)
+            except SystemExit:
+                problems.append(f"{title} {net} (above)")
+                per_net[net] = float("nan")
+        print(f"  {title} f32 step, world 2 (2 rows a rank) against world 1 "
+              f"(4 rows): losses within {worst_loss:.3e} (rtol "
+              f"{DP_LOSS_RTOL:g}); worst gradient relative L2 by net "
+              + ", ".join(f"{n} {v:.3e}" for n, v in per_net.items())
+              + f"; step s: world 1 {sec:.3f}, ranks {t0:.3f} / {t1:.3f}")
+        got = [r[key + "_launches"] for r in res]
+        print(f"    {title} launches a rank: {got[0]} / {got[1]}")
+        if on_card:
+            _dp_rank_counts(f"{title} f32 world 2", got, want)
+    want = {"conv3x3_fwd": 4 * blocks * DP_BF16_STEPS,
+            "conv3x3_bwd": 4 * blocks * DP_BF16_STEPS,
+            "instance_norm_fwd": (8 + n_in) * DP_BF16_STEPS,
+            "instance_norm_bwd": (8 + n_in) * DP_BF16_STEPS}
+    if on_card:
+        _dp_rank_counts("flagship bf16 world 2",
+                        [r["bf16_launches"] for r in res], want)
+    for i, gathered in enumerate(res[0]["bf16_digests"]):
+        if gathered[0] != gathered[1] or gathered != \
+                res[1]["bf16_digests"][i]:
+            fail(f"bf16 step {i}: the ranks' nets differ: "
+                 + str([n for n in gathered[0]
+                        if gathered[0][n] != gathered[1][n]]))
+    still = [n for n, d in res[0]["bf16_moved"].items()
+             if res[0]["bf16_seeded"][n] == d]
+    if still:
+        fail(f"bf16 world 2: {still} did not move")
+    print(f"  flagship bf16, world 2: {DP_BF16_STEPS} steps, the six nets "
+          f"bit-equal across the ranks after each (sha1 of every tensor), "
+          f"all six moved; launches a rank {res[0]['bf16_launches']} / "
+          f"{res[1]['bf16_launches']} (world 1 at batch 2: {want}); step s "
+          f"rank 0 " + ", ".join(f"{v:.3f}" for v in res[0]["bf16_seconds"])
+          + "; rank 1 " + ", ".join(f"{v:.3f}" for v in
+                                    res[1]["bf16_seconds"])
+          + " (two processes time-sliced on one card: not a scaling number)")
+    s0, s1 = res[0]["serve"], res[1]["serve"]
+    if s0["max_offset"] != s1["max_offset"] or s0["metrics"] != s1["metrics"]:
+        fail(f"world-2 evaluation: the ranks differ: {s0} / {s1}")
+    g_cfg = parse_config(serve_args).model.G.to_dict()
+    chosen = [escalate_nlspn_cfg(g_cfg, m)[0] for m in
+              (w1["max_offset"], s0["max_offset"])]
+    if chosen[0] != chosen[1]:
+        fail(f"world-2 probe chose {chosen[1]}, world 1 {chosen[0]}")
+    for k, v in w1["metrics"].items():
+        if not np.isclose(s0["metrics"][k], v, rtol=SERVE_RTOL,
+                          atol=SERVE_ATOL):
+            fail(f"world-2 evaluation {k}={s0['metrics'][k]}, world 1 {v}")
+    for r, sv in enumerate((s0, s1)):
+        want_sv, _ = _served_nlspn_counts(g_cfg, sv["max_offset"],
+                                          sv["forwards"])
+        if on_card and sv["launches"] != want_sv:
+            fail(f"world-2 evaluation, rank {r}: launches {sv['launches']}, "
+                 f"expected {want_sv}")
+    print(f"  NLSPN evaluation of the {DP_TEST} test scenes, world 2 (batch "
+          f"2 a rank, pad rows gathered and dropped) against world 1: "
+          + ", ".join(f"{k}={v:.6g}" for k, v in s0["metrics"].items())
+          + f" (rtol {SERVE_RTOL:g}); probe max|offset| "
+          f"{s0['max_offset']:.4f} on both ranks (world 1 "
+          f"{w1['max_offset']:.4f}), the same radius; forwards a rank "
+          f"{s0['forwards']}, launches {s0['launches']} / {s1['launches']}")
+    print(f"  data-parallel phase wall {time.perf_counter() - t_phase:.2f} s")
+    if problems:
+        fail("data-parallel f32 steps against world 1: "
+             + "; ".join(problems))
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "rdfc_gan_torch", "csrc")):
         fail(f"no rdfc_gan_torch package beside {__file__}")
@@ -2874,6 +3460,8 @@ def main():
         file_dataset_phase(workdir)
         s2d_root = s2d_phase(workdir)
         v1_variants_phase(workdir, s2d_root)
+        nlspn_repeat_check(workdir)
+        data_parallel_phase(workdir)
     # launches: the scatter and the served chain from the serve run, the
     # NLSPN backward kernels from the RDFGAN train run, the IN and conv
     # kernels from the flagship train run

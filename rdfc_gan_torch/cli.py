@@ -10,6 +10,15 @@ import argparse
 from .config import Config, default_config, load_config
 
 
+def _device(name: str) -> str:
+    """cuda, cuda:N or cpu."""
+    head, _, index = name.partition(":")
+    if name in ("cuda", "cpu") or (head == "cuda" and index.isdigit()):
+        return name
+    raise argparse.ArgumentTypeError(
+        f"device {name!r}: expected cuda, cuda:N or cpu")
+
+
 def build_parser() -> argparse.ArgumentParser:
     d = default_config()
     p = argparse.ArgumentParser("rdfc_gan_torch")
@@ -86,9 +95,13 @@ def build_parser() -> argparse.ArgumentParser:
     add("--seed", type=int, default=0)
     add("--gpus", type=str, default="0",
         help="accepted for CLI parity; the device is chosen by --device")
-    add("--device", type=str, default=d.device, choices=["cuda", "cpu"],
-        help="cuda (default) raises when no card is present; cpu only "
+    add("--device", type=_device, default=d.device,
+        help="cuda (default; cuda:LOCAL_RANK under torchrun) raises when "
+             "no card is present; cuda:N takes card N as given; cpu only "
              "when asked for")
+    add("--deterministic", action="store_true", default=False,
+        help="deterministic cuDNN algorithms, no benchmark mode "
+             "(set_random_seed's switch): a seeded run repeats bit for bit")
     add("--local_rank", type=int, default=0)
     add("--test_only", action="store_true", default=False)
     add("--init_disc", action="store_true", default=False)

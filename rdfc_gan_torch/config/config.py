@@ -144,8 +144,13 @@ def default_config() -> Config:
             test_only=False,
             init_disc=False,
             cal_fps=False,
-            # JAX-package knobs, read from shared YAMLs and ignored here
+            # the ranks' mesh: None puts every rank on 'data'; {'data': N}
+            # must name the world size; a 'model' axis is not ported
+            # (parallel.check_mesh_shape)
             mesh_shape=None,
+            # deterministic cuDNN algorithms (utils.seed.set_random_seed)
+            deterministic=False,
+            # JAX-package knobs, read from shared YAMLs and ignored here
             compute_dtype="bfloat16",
             use_pallas="auto",
             donate=True,

@@ -1,5 +1,4 @@
-"""Batching loader to the device (port of rdfc_gan_tpu/data/loader.py, one
-process).
+"""Batching loader to the device (port of rdfc_gan_tpu/data/loader.py).
 
 With ``shuffle`` the order is a permutation that is a pure function of
 (seed, epoch), the JAX loader's (loader.py:129-133): ``set_epoch`` picks the
@@ -19,6 +18,14 @@ processes, each holding an unpickled copy of the dataset (the reference's
 whole batch, handed the epoch with it, so the per-sample generators, keyed
 by (seed, epoch, index), give both backends the same batches. Workers see
 numpy only and never touch the card. ``close`` stops the pool.
+
+Rank shards (``world`` > 1; the JAX ``per_process``, loader.py:98-127): the
+epoch's global order is padded to a multiple of ``world`` by repeating its
+leading indices and rank ``rank`` takes ``order[rank::world]``, so every
+rank has the same number of batches (and runs the same collectives) and
+the shards are disjoint but for the padding. ``batch_size`` is the rank's,
+as each JAX device's is. The per-sample draws stay keyed by (seed, epoch,
+index), so a rank's samples are those of a one-rank run.
 """
 
 from __future__ import annotations
@@ -65,9 +72,12 @@ class DataLoader:
     def __init__(self, dataset, batch_size: int, device="cpu",
                  num_workers: int = 4, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0,
-                 worker_backend: str = "thread"):
+                 worker_backend: str = "thread", rank: int = 0,
+                 world: int = 1):
         if batch_size < 1:
             raise ValueError(f"batch_size {batch_size} < 1")
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} of world {world}")
         if worker_backend not in BACKENDS:
             raise ValueError(f"worker_backend {worker_backend!r} not in "
                              f"{BACKENDS}")
@@ -80,6 +90,7 @@ class DataLoader:
         self.seed = seed
         self.epoch = 0
         self.worker_backend = worker_backend
+        self.rank, self.world = rank, world
         self._pool = None
         # host seconds the consumer waited for each batch of the last
         # iteration (the loader's share of a step)
@@ -89,16 +100,21 @@ class DataLoader:
         self.epoch = epoch
 
     def __len__(self):
+        # the rank's share of the padded global order
+        n = -(-len(self.dataset) // self.world)
         if self.drop_last:
-            return len(self.dataset) // self.batch_size
-        return -(-len(self.dataset) // self.batch_size)
+            return n // self.batch_size
+        return -(-n // self.batch_size)
 
     def indices(self) -> np.ndarray:
-        """The epoch's order of dataset indices."""
+        """The epoch's order of dataset indices (this rank's shard)."""
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.RandomState(self.seed * 1000003 + self.epoch).shuffle(
                 idx)
+        if self.world > 1:
+            pad = -len(idx) % self.world
+            idx = np.concatenate([idx, idx[:pad]])[self.rank::self.world]
         return idx
 
     def _rows(self, order, i):

@@ -18,6 +18,13 @@ which gives the same numbers. D runs in train mode in the G loss and
 updates its running statistics a third time, as JAX's ``ds2``. Only D's
 optimizer sees the D loss and only G's the G loss: D's parameters take no
 gradient while the G loss is differentiated.
+
+At a world size above 1 (``parallel``) each rank runs the step on its
+shard of the global batch: the losses are its shares of the global ones
+(``losses``: global denominators; the image weight's mask sum is summed
+over the ranks), the wgangp draw is the global batch's, and each
+optimizer's gradients are summed over the ranks before the clip and the
+step, so every rank takes the global step.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ from typing import Dict, Optional
 import torch
 
 from ..losses import GANLoss, gradient_penalty, l1_loss
+from ..losses.gan_loss import global_count
+from ..parallel import all_reduce_grads
 from ..registry import MODELS, build_discriminator, build_generator
 from ..utils import pretrained
 from .base import BaseEngine, clip_gradients, make_optimizer
@@ -94,6 +103,7 @@ class RDFGAN(BaseEngine):
         opt = self.optimizers[name]
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_grads(self.modules[name].parameters())
         clip_gradients(self.cfg, self.modules[name].parameters())
         opt.step()
         self.schedulers[name].step()
@@ -114,7 +124,7 @@ class RDFGAN(BaseEngine):
         mask = batch.get("depth_masks")
         if mask is None:
             mask = torch.ones_like(real_B)
-        image_loss_weight = mask / (mask.sum() + 1e-6)
+        image_loss_weight = mask / (global_count(mask.sum()) + 1e-6)
         stats = {}
         grad = torch.enable_grad() if update_g else torch.no_grad()
         with grad, self.autocast():

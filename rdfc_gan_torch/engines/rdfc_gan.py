@@ -39,6 +39,14 @@ step. The step's draws (the pepper noise's batch uniform and field, and
 the two keep masks of G_label's dropouts, shared by its two applications
 as JAX's one dropout key gives) come from ``step_generator``, or are
 handed in (``draws``), as the tests hand in JAX's.
+
+At a world size above 1 (``parallel``) each rank runs the step on its
+shard of the global batch: the losses are its shares of the global ones
+(``losses``: global denominators; the image weight's mask sum is summed
+over the ranks), the draws are made at the global batch's shape and each
+rank takes its rows (the pepper's batch uniform is one scalar on every
+rank), and each optimizer's gradients are summed over the ranks before
+its clip and step.
 """
 
 from __future__ import annotations
@@ -50,8 +58,10 @@ import torch
 
 from ..losses import (GANLoss, l1_loss, manhattan_loss, nor_loss,
                       norm_normalize, softmax_cross_entropy_loss)
+from ..losses.gan_loss import global_count
 from ..models.label_net import PSPNet
 from ..models.normal_net import NNET
+from ..parallel import all_reduce_grads, rank_rows, world_size
 from ..registry import MODELS, build_discriminator, build_generator
 from ..utils import pretrained
 from ..utils.image_ops import add_pepper_noise, pepper_draw
@@ -161,14 +171,16 @@ class RDFCGAN(BaseEngine):
     def draws(self, step: int, batch: Dict[str, torch.Tensor]) -> dict:
         """Step ``step``'s random draws: ``pepper`` (the batch uniform and
         the (B,1,H,W) field of ``add_pepper_noise``) and ``keep`` (the
-        keep masks of G_label's two dropouts, kept with probability 0.9)."""
+        keep masks of G_label's two dropouts, kept with probability 0.9),
+        drawn at the global batch's shape; this rank's rows are returned."""
         gen = self.step_generator(step)
-        real_B = batch["gt_depth"]
-        pepper = pepper_draw(real_B.shape, gen, self.device)
-        keep = tuple(torch.rand(s, generator=gen, device=self.device) < 0.9
-                     for s in self.modules["G_label"].dropout_shapes(
-                         real_B.shape[0]))
-        return dict(pepper=pepper, keep=keep)
+        b, c, h, w = batch["gt_depth"].shape
+        b *= world_size()
+        active, field = pepper_draw((b, c, h, w), gen, self.device)
+        keep = tuple(rank_rows(torch.rand(s, generator=gen,
+                                          device=self.device) < 0.9)
+                     for s in self.modules["G_label"].dropout_shapes(b))
+        return dict(pepper=(active, rank_rows(field)), keep=keep)
 
     @torch.inference_mode()
     def save_samples(self, fixed_samples: Dict[str, torch.Tensor],
@@ -226,6 +238,8 @@ class RDFCGAN(BaseEngine):
             self.optimizers[name].zero_grad(set_to_none=True)
         loss.backward()
         for name in names:
+            all_reduce_grads(p for k in OPT_NETS[name]
+                             for p in self.modules[k].parameters())
             clip_gradients(self.cfg, [p for k in OPT_NETS[name]
                                       for p in self.modules[k].parameters()])
             self.optimizers[name].step()
@@ -240,7 +254,7 @@ class RDFCGAN(BaseEngine):
         mask = batch.get("depth_masks")
         if mask is None:
             mask = torch.ones_like(real_B)
-        w_img = mask / (mask.sum() + 1e-6)
+        w_img = mask / (global_count(mask.sum()) + 1e-6)
         lam_A, lam_B, lam_l1 = cfg.lambda_A, cfg.lambda_B, cfg.lambda_L1
         keep = draws["keep"]
 

@@ -2,7 +2,14 @@
 of rdfc_gan_tpu/evaluator/evaluator.py; reference evaluator.py:12-98): per
 batch run ``forward_test``, un-normalize prediction and ground truth by the
 dataset's depth std/mean (x5+5 on NYUv2), compute per-image metrics on the
-device, drop pad rows, and average over the split."""
+device, drop pad rows, and average over the split.
+
+Over ranks (a loader with ``world`` > 1 holds this rank's shard) the rows
+and their ``sample_idx`` are gathered in rank order (``all_gather_object``,
+the JAX ``process_allgather``) and, as in JAX (evaluator.py:80-88), the
+shard padding's duplicates are dropped by ``np.unique`` on the indices,
+which also puts the rows in index order; every rank returns the same
+metrics."""
 
 from __future__ import annotations
 
@@ -13,6 +20,7 @@ import numpy as np
 import torch
 
 from ..metrics import METRIC_NAMES, compute_depth_metrics
+from ..parallel import all_gather_object
 
 
 class Eval:
@@ -27,8 +35,9 @@ class Eval:
         self.batch_seconds: List[float] = []
 
     def inference(self, model):
-        """Returns (per-image metric rows (N, 8), sample indices (N,));
-        pad rows (sample_idx == -1) are dropped."""
+        """Returns (per-image metric rows (N, 8), sample indices (N,)) of
+        the whole split (gathered over the ranks of a sharded loader); pad
+        rows (sample_idx == -1) are dropped."""
         rows, idxs = [], []
         self.batch_seconds = []
         for data in self.dataloader:
@@ -45,11 +54,18 @@ class Eval:
             keep = si >= 0
             rows.append(r[keep])
             idxs.append(si[keep])
-        return np.concatenate(rows, axis=0), np.concatenate(idxs)
+        rows, idxs = np.concatenate(rows, axis=0), np.concatenate(idxs)
+        if getattr(self.dataloader, "world", 1) > 1:
+            parts = all_gather_object((rows, idxs))
+            rows = np.concatenate([p[0] for p in parts], axis=0)
+            idxs = np.concatenate([p[1] for p in parts])
+        return rows, idxs
 
     def evaluate(self, model, logger=None) -> Dict[str, float]:
-        rows, _ = self.inference(model)
-        metrics = rows.mean(axis=0)
+        rows, idx = self.inference(model)
+        # one row an image: the shard padding's duplicates go
+        _, first = np.unique(idx, return_index=True)
+        metrics = rows[first].mean(axis=0)
         ret = {name: float(metrics[i]) for i, name in enumerate(METRIC_NAMES)}
         sink = logger.log if logger is not None else print
         for k, v in ret.items():

@@ -10,6 +10,13 @@ than the loss broadcasts over the channel axis. The normal losses
 non-zero, with 1e-6 in the count, so an empty mask gives exactly 0.
 ``manhattan_loss`` returns its three terms scaled by ``weight`` or 1 (the
 reference returns None for a falsy weight; the JAX package fixed that).
+
+At a world size above 1 (``parallel``) every mean and count divides this
+rank's numerator by the global denominator: the global element count, or
+a detached count summed over the ranks, with the 1e-6 added once to the
+global count as JAX adds it. A rank's loss is then its share, and the sum
+over the ranks is the JAX value of the global batch. At world 1 each form
+is the one-process form, bit for bit.
 """
 
 from __future__ import annotations
@@ -18,13 +25,29 @@ from typing import Callable, Optional
 
 import torch
 
+from ..parallel import all_reduce_sum, rank_rows, world_size
+
 _EPS6 = 1e-6
+
+
+def global_mean(t: torch.Tensor) -> torch.Tensor:
+    """The mean of ``t`` over the global batch: this rank's sum over the
+    global count (``t.mean()`` at world 1)."""
+    world = world_size()
+    if world == 1:
+        return t.mean()
+    return t.sum() / (t.numel() * world)
+
+
+def global_count(t: torch.Tensor) -> torch.Tensor:
+    """A detached count (or sum) ``t``, summed over the ranks."""
+    return all_reduce_sum(t.detach())
 
 
 def _apply_weight(loss: torch.Tensor,
                   weight: Optional[torch.Tensor]) -> torch.Tensor:
     if weight is None:
-        return loss * (1.0 / (loss.numel() + _EPS6))
+        return loss * (1.0 / (loss.numel() * world_size() + _EPS6))
     weight = weight.to(loss.dtype)
     if weight.dim() != loss.dim():
         weight = weight.unsqueeze(1)
@@ -73,8 +96,8 @@ class GANLoss:
             crit = (mse_loss if self.gan_mode == "lsgan"
                     else binary_cross_entropy_loss)
             return crit(prediction, target, weight)
-        p = prediction.float()
-        return -p.mean() if target_is_real else p.mean()
+        p = global_mean(prediction.float())
+        return -p if target_is_real else p
 
 
 def softmax_cross_entropy_loss(logits: torch.Tensor,
@@ -83,7 +106,7 @@ def softmax_cross_entropy_loss(logits: torch.Tensor,
     integer labels in [0, C) (torch's CrossEntropyLoss default, as the JAX
     one-hot contraction computes it), in f32."""
     logz = torch.log_softmax(logits.float(), dim=1)
-    return -torch.gather(logz, 1, labels.long()[:, None]).mean()
+    return -global_mean(torch.gather(logz, 1, labels.long()[:, None]))
 
 
 def _safe_norm(x: torch.Tensor, dim: int = 1,
@@ -111,7 +134,7 @@ def nor_loss(pred: torch.Tensor, target: torch.Tensor,
     dsg = dot.detach()
     valid = (m.float() * (dsg < 0.999) * (dsg > -0.999)) > 0.0
     contrib = (1.0 - dot) * valid
-    count = torch.sum(contrib != 0.0)
+    count = global_count(torch.sum(contrib != 0.0))
     return contrib.sum() / (count + _EPS6)
 
 
@@ -132,7 +155,7 @@ def manhattan_loss(normal: torch.Tensor, semantic_logits: torch.Tensor,
         cos = sign * (ny * maskf) / torch.clamp_min(
             _safe_norm(normal * maskf[:, None]), 1e-8)
         contrib = (1.0 - cos) * maskf
-        count = torch.sum(contrib != 0.0)
+        count = global_count(torch.sum(contrib != 0.0))
         return contrib.sum() / (count + _EPS6)
 
     floor_loss = directional(sem == label_floor, 1.0)
@@ -141,7 +164,7 @@ def manhattan_loss(normal: torch.Tensor, semantic_logits: torch.Tensor,
     wall_cos = (ny * wall) / torch.clamp_min(
         _safe_norm(normal * wall[:, None]), 1e-8)
     wall_contrib = wall_cos * wall * 2.0
-    wall_count = torch.sum(wall_contrib != 0.0)
+    wall_count = global_count(torch.sum(wall_contrib != 0.0))
     wall_loss = torch.abs(wall_contrib).sum() / (wall_count + _EPS6)
     w = 1.0 if weight is None else weight
     return floor_loss * w, wall_loss * w, ceiling_loss * w
@@ -162,15 +185,17 @@ def gradient_penalty(disc: Callable[[torch.Tensor], torch.Tensor],
                      lam: float = 10.0) -> torch.Tensor:
     """WGAN-GP penalty lam * mean((||grad_x disc(x_hat)||_2 - 1)^2) on
     x_hat = eps * real + (1 - eps) * fake, eps (B, 1, 1, 1) uniform in
-    [0, 1): passed in (the tests hand in JAX's draw) or drawn from
-    ``generator``. Differentiable in the discriminator's parameters."""
+    [0, 1): passed in (this rank's rows; the tests hand in JAX's draw) or
+    drawn from ``generator`` for the global batch, of which this rank takes
+    its rows. Differentiable in the discriminator's parameters."""
     b = real.shape[0]
     if eps is None:
-        eps = torch.rand((b,) + (1,) * (real.dim() - 1), device=real.device,
-                         generator=generator)
+        eps = rank_rows(torch.rand(
+            (b * world_size(),) + (1,) * (real.dim() - 1),
+            device=real.device, generator=generator))
     eps = eps.to(real.dtype)
     x_hat = (eps * real + (1.0 - eps) * fake).detach().requires_grad_(True)
     grads, = torch.autograd.grad(disc(x_hat).sum(), x_hat, create_graph=True)
     gnorm = torch.sqrt(torch.sum(grads.float().reshape(b, -1) ** 2, dim=1)
                        + 1e-12)
-    return lam * ((gnorm - 1.0) ** 2).mean()
+    return lam * global_mean((gnorm - 1.0) ** 2)

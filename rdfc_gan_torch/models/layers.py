@@ -39,6 +39,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.kernels.norm_kernel import instance_norm
+from ..parallel import all_reduce_sum, world_size
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -58,11 +59,22 @@ class BatchNorm2d(nn.BatchNorm2d):
     norm, then moves ``running_var`` from the unbiased to the biased
     variance: with n values per channel, rv_new = (1 - m) rv_old + m u and
     u = b n / (n - 1), so the wanted (1 - m) rv_old + m b is
-    rv_new (n - 1) / n + (1 - m) rv_old / n. Eval mode is torch's."""
+    rv_new (n - 1) / n + (1 - m) rv_old / n. Eval mode is torch's.
+
+    At a world size above 1 (``parallel``) both types take ``_SyncBN``,
+    the JAX ``_bn_train`` with ``axis_name`` (layers.py:65-150): the
+    statistics and the backward's sums are those of the global batch. At
+    world 1 the two forms above stay, so a one-rank run keeps its numbers
+    bit for bit: torch's fused f32 kernel, which the JAX package's f32
+    numbers match within the parity tolerance, and the rounded bf16 form."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if world_size() > 1:
+            y, mean, var = _SyncBN.apply(x, self.weight, self.bias, self.eps)
+            self.update_running(mean, var)
+            return y
         if x.dtype != torch.float32:
             return self._forward_rounded(x)
         n = x.numel() // x.shape[1]
@@ -95,6 +107,72 @@ class BatchNorm2d(nn.BatchNorm2d):
         self.running_mean.data.mul_(1 - m).add_(mean, alpha=m)
         self.running_var.data.mul_(1 - m).add_(var, alpha=m)
         self.num_batches_tracked.data.add_(1)
+
+
+def _col(v: torch.Tensor) -> torch.Tensor:
+    return v[None, :, None, None]
+
+
+class _SyncBN(torch.autograd.Function):
+    """Train-mode batch norm over the global batch (the JAX ``_bn_train``
+    with ``axis_name``, layers.py:65-150). Forward: the per-channel sums of
+    x and x^2 of this rank's rows, summed over the ranks and divided by the
+    global count (``pmean``: every rank holds as many rows); var = max(E[x^2]
+    - mean^2, 0), a and b in f32 from gamma and beta rounded to x's type, y
+    = x a + b in x's type, the product and the sum rounded apart. Backward
+    (``_bn_train_bwd``, from the output): s1 = sum dy and s2 = sum dy x_hat
+    summed over the ranks with the global count; the returned gamma and
+    beta gradients are this rank's sums, which the gradient all-reduce
+    adds. Returns (y, the global mean, the biased variance).
+
+    The sums of a bf16 input are f32, as in JAX. Those of an f32 input are
+    f64, as torch's kernel accumulates them at world 1 on the CPU and as
+    the fused block's moments are."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        dt = x.dtype
+        acc = torch.float64 if dt == torch.float32 else torch.float32
+        xa = x.to(acc)
+        n = x.numel() // x.shape[1] * world_size()
+        mom = all_reduce_sum(torch.stack([xa.sum((0, 2, 3)),
+                                          (xa * xa).sum((0, 2, 3))])) / n
+        mean = mom[0]
+        var = torch.clamp_min(mom[1] - mean * mean, 0.0)
+        mean, var = mean.float(), var.float()
+        rstd = torch.rsqrt(var + eps)
+        a = weight.detach().to(dt).float() * rstd
+        b = bias.detach().to(dt).float() - mean * a
+        y = x * _col(a.to(dt)) + _col(b.to(dt))
+        ctx.save_for_backward(y, rstd, weight, bias)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, *_):
+        y, rstd, weight, bias = ctx.saved_tensors
+        dt = y.dtype
+        acc = torch.float64 if dt == torch.float32 else torch.float32
+        dy = dy.to(dt)
+        sf = weight.detach().to(dt).to(acc)
+        bf = bias.detach().to(dt).to(acc)
+        # x_hat = (y - beta) / gamma; where gamma is 0, y is beta and the
+        # gradient is 0 as well
+        ginv = torch.where(sf.abs() > 1e-30, 1.0 / sf,
+                           torch.zeros_like(sf))
+        dya = dy.to(acc)
+        s1 = dya.sum((0, 2, 3))
+        dyy = dya * y.to(acc) if acc == torch.float64 else (dy * y).to(acc)
+        s2 = (dyy.sum((0, 2, 3)) - bf * s1) * ginv
+        dgamma = s2.to(dt).to(weight.dtype)
+        dbeta = s1.to(dt).to(bias.dtype)
+        n = y.numel() // y.shape[1] * world_size()
+        s = all_reduce_sum(torch.stack([s1, s2])) / n
+        A = sf * rstd.to(acc)
+        cy = -A * ginv * s[1]
+        c0 = A * (ginv * s[1] * bf - s[0])
+        dx = (_col(A.to(dt)) * dy + _col(cy.to(dt)) * y + _col(c0.to(dt)))
+        return dx, dgamma, dbeta, None
 
 
 def _reflect_fold(g: torch.Tensor, pad: int, dim: int) -> torch.Tensor:

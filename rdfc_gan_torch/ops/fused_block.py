@@ -19,6 +19,14 @@ for BN2's sums, then ``conv3x3_bwd`` for conv2 (BN2's finalize, ReLU',
 BN1's sums), then for conv1 (BN1's finalize, the residual's gradient as the
 carry). It returns the batch means and biased variances for the module's
 running statistics.
+
+At a world size above 1 (``parallel``) the statistics are the global
+batch's, as the JAX block's under ``axis_name``: the f64 (2, C) moment
+totals of each conv are summed over the ranks between the kernel launches
+(conv1's before conv2's forward launch) and divided by the global count,
+and in the backward BN2's sums before conv2's ``conv3x3_bwd`` and BN1's
+between the two. The sums stay f64 across the wire. The gamma and beta
+gradients stay this rank's sums, which the gradient all-reduce adds.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from typing import Tuple
 
 import torch
 
+from ..parallel import all_reduce_sum, world_size
 from .kernels.conv_block_kernel import conv3x3_bwd, conv3x3_fwd
 
 
@@ -42,9 +51,16 @@ def _over_batch(m: torch.Tensor) -> torch.Tensor:
     return tot
 
 
+def _global(s: torch.Tensor) -> torch.Tensor:
+    """``s`` summed over the ranks, in a new tensor (``s`` itself at world
+    1)."""
+    return s if world_size() == 1 else all_reduce_sum(s.clone())
+
+
 def _stats(mom: torch.Tensor, n: int):
-    """(mean, var) f32 of the conv output from its f64 moments."""
-    tot = _over_batch(mom)
+    """(mean, var) f32 of the conv output from its f64 moments, over the
+    global batch; ``n`` is the global count."""
+    tot = _global(_over_batch(mom))
     mean = (tot[0] / n).float()
     var = torch.clamp_min((tot[1] / n).float() - mean * mean, 0.0)
     return mean, var
@@ -70,7 +86,7 @@ class _BasicBlock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1, g1, b1, w2, g2, b2, eps):
         B, C, H, W = x.shape
-        n = B * H * W
+        n = B * H * W * world_size()
         dt = x.dtype
         y1, mom1 = conv3x3_fwd(x, w1)
         m1, v1 = _stats(mom1, n)
@@ -89,7 +105,7 @@ class _BasicBlock(torch.autograd.Function):
         (x, w1, w2, y1, y2, out, m1, inv1, a1, c1, m2, inv2,
          a2) = ctx.saved_tensors
         B, C, H, W = x.shape
-        n = B * H * W
+        n = B * H * W * world_size()
         dt = x.dtype
         dn2 = torch.where(out > 0, d_out.to(dt),
                           torch.zeros((), dtype=dt, device=x.device))
@@ -99,11 +115,12 @@ class _BasicBlock(torch.autograd.Function):
         s2 = torch.stack([dd.sum((0, 2, 3)),
                           (dd * xhat2.double()).sum((0, 2, 3))])
         dn1, dw2, sums1 = conv3x3_bwd(dn2, y1, w2, a1, c1, "relu", y=y2,
-                                      fin=_finalize(a2, s2, n, m2, inv2),
+                                      fin=_finalize(a2, _global(s2), n, m2,
+                                                    inv2),
                                       xh=(m1, inv1))
         s1 = _over_batch(sums1)
         dx, dw1, _ = conv3x3_bwd(dn1, x, w1, y=y1,
-                                 fin=_finalize(a1, s1, n, m1, inv1),
+                                 fin=_finalize(a1, _global(s1), n, m1, inv1),
                                  carry=dn2)
         return (dx, dw1.to(w1.dtype), s1[1].float(), s1[0].float(),
                 dw2.to(w2.dtype), s2[1].float(), s2[0].float(), None)

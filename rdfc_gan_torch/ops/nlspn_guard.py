@@ -15,6 +15,8 @@ import logging
 import math
 from typing import Tuple
 
+from ..parallel import all_reduce_max
+
 logger = logging.getLogger(__name__)
 
 # above this radius the (2R+4)^2 shift-mask stack (S=12 -> 144 planes) is no
@@ -23,13 +25,14 @@ MAX_STENCIL_RADIUS = 4
 
 
 def probe_max_offset(engine, batch) -> float:
-    """One generator forward; the max |offset| it reports, or 0.0 when the
-    generator has no NLSPN stage."""
+    """One generator forward; the max |offset| it reports (the max over the
+    ranks, so every rank escalates alike), or 0.0 when the generator has no
+    NLSPN stage."""
     mod = engine.modules.get("G")
     if mod is None or not getattr(mod, "use_nlspn_refine", False):
         return 0.0
     ret = engine.forward_test(rgb=batch["rgb"], raw_depth=batch["raw_depth"])
-    return float(ret.get("nlspn_max_offset", 0.0))
+    return float(all_reduce_max(ret["nlspn_max_offset"].float().clone()))
 
 
 def escalate_nlspn_cfg(g_cfg: dict, max_offset: float,

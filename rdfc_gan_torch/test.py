@@ -23,6 +23,13 @@ larger radius or the gather path when needed.
 ``--cal_fps`` runs the FPS harness instead (RDF-GAN/lib/tools/main.py:
 318-350): 300 images after 5 warm-up forwards, each bracketed by a device
 synchronize.
+
+Over N ranks (``torchrun``), as the JAX ``test.py:74-80`` shards its
+batch over the mesh: where N divides ``--batch_size`` each rank serves its
+shard of the split at batch_size / N and the evaluator gathers the rows;
+otherwise every rank serves the whole split. Every rank probes its first
+batch and all take the max offset, so all rebuild alike. ``--cal_fps``
+runs on rank 0 alone; rank 0 alone writes the log.
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ from .data import DataLoader
 from .engines import build_engine
 from .evaluator import Eval
 from .ops.nlspn_guard import escalate_nlspn_cfg, probe_max_offset
+from .parallel import (broadcast_from_rank0, destroy, init_distributed,
+                       is_main, rank, world_size)
 from .registry import build_dataset
 from .utils import Logger, set_random_seed
 from .utils.checkpoint import load_checkpoint
@@ -68,18 +77,38 @@ def build_split(cfg, mode: str):
     return build_dataset(dict(type=cfg.dataset, mode=mode, **ds_kwargs))
 
 
-def build_val_loader(cfg, device) -> DataLoader:
-    return DataLoader(build_split(cfg, "val"), cfg.batch_size, device=device,
-                      num_workers=cfg.num_workers)
+def build_val_loader(cfg, device, batch_size=None,
+                     shard: bool = False) -> DataLoader:
+    """The val split in order, padded to whole batches of ``batch_size``
+    (default ``cfg.batch_size``); with ``shard``, this rank's shard."""
+    world = world_size() if shard else 1
+    return DataLoader(build_split(cfg, "val"), batch_size or cfg.batch_size,
+                      device=device, num_workers=cfg.num_workers,
+                      rank=rank() if shard else 0, world=world)
 
 
 def run(cfg) -> dict:
-    """Serve ``cfg``. Returns the metrics (or the FPS), the engine, the
-    loader, the per-batch seconds and the number of generator forwards."""
-    set_random_seed(cfg.seed)
+    """Serve ``cfg``. Returns the metrics (or the FPS, rank 0 only), the
+    engine, the loader, the per-batch seconds and the number of generator
+    forwards."""
+    device, made = init_distributed(cfg)
+    cfg.device = str(device)
+    try:
+        return _serve(cfg)
+    finally:
+        destroy(made)
+
+
+def _serve(cfg) -> dict:
+    set_random_seed(cfg.seed, cfg.get("deterministic", False))
     logger = Logger(cfg.work_dir)
     engine = build_engine(cfg, is_train=False)
-    loader = build_val_loader(cfg, engine.device)
+    world = world_size()
+    if world > 1 and cfg.batch_size % world == 0:
+        loader = build_val_loader(cfg, engine.device,
+                                  cfg.batch_size // world, shard=True)
+    else:
+        loader = build_val_loader(cfg, engine.device)
     forwards = 0
     max_offset = None
     if cfg.load_from:
@@ -98,12 +127,15 @@ def run(cfg) -> dict:
             forwards += engine.n_forward  # the probe's, on the old engine
             engine = build_engine(cfg, is_train=False)
             load_checkpoint(engine.modules, cfg.load_from)
+    broadcast_from_rank0([t for m in engine.modules.values()
+                          for t in (*m.parameters(), *m.buffers())])
 
     out = dict(engine=engine, loader=loader, max_offset=max_offset)
     depth_only = bool(cfg.get("depth_only", False))
     if cfg.cal_fps:
-        out["fps"] = cal_fps(engine, loader, logger=logger,
-                             depth_only=depth_only)
+        if is_main():
+            out["fps"] = cal_fps(engine, loader, logger=logger,
+                                 depth_only=depth_only)
     else:
         evaluator = Eval(loader, depth_only=depth_only)
         out["metrics"] = evaluator.evaluate(engine, logger)

@@ -6,9 +6,19 @@ reference RDFC-GAN/train.py:1-189).
         [--n_epochs N] [--batch_size 4] [--device cuda|cpu] \
         [--resume_from W/epoch_5.pth | --load_from six_nets.pth] \
         [--loader_backend thread|process] [--sample_interval 1000] \
-        [--profile_dir P]
+        [--profile_dir P] [--deterministic]
     python -m rdfc_gan_torch.train --dataset synthetic \
         --model_cfg_path configs/rdf_gan_nlspn_config.yaml --work_dir W ...
+    torchrun --nproc_per_node N -m rdfc_gan_torch.train ... --batch_size 4
+
+Over N ranks (``torchrun``; ``parallel.init_distributed`` before the
+loaders) each rank loads its shard of every epoch's order at
+``--batch_size`` rows (a rank's batch, as each JAX device's), the state is
+broadcast from rank 0 after any load, and each step is the step of the
+global batch of N x batch_size rows (the engines' collectives). The logged
+losses are summed over the ranks (their shares) and ``nlspn_max_offset``
+is their max; rank 0 alone writes the log, ``config.yaml``, the
+checkpoints (a barrier follows each), the sample grids and the trace.
 
 Builds the shuffled, ``drop_last`` train loader (its order a pure function
 of (seed, epoch); thread or process workers) and the padded val loader, the
@@ -45,8 +55,10 @@ import yaml
 
 from .cli import parse_config
 from .data import DataLoader
-from .engines import build_engine, resolve_device
+from .engines import build_engine
 from .evaluator import Eval
+from .parallel import (all_reduce_max, all_reduce_sum, broadcast_from_rank0,
+                       destroy, init_distributed, is_main, rank, world_size)
 from .test import build_split, build_val_loader
 from .utils import Logger, MovingAverage, set_random_seed
 from .utils.checkpoint import load_checkpoint, resume_from, save_checkpoint
@@ -57,10 +69,12 @@ _PROFILE_STEP = 50  # the traced step of --profile_dir (train.py:121)
 
 
 def build_train_loader(cfg, device) -> DataLoader:
+    """The shuffled, drop_last train loader of this rank's shard."""
     return DataLoader(build_split(cfg, "train"), cfg.batch_size,
                       device=device, num_workers=cfg.num_workers,
                       shuffle=True, drop_last=True, seed=cfg.seed,
-                      worker_backend=cfg.get("loader_backend", "thread"))
+                      worker_backend=cfg.get("loader_backend", "thread"),
+                      rank=rank(), world=world_size())
 
 
 class _LossLog:
@@ -81,10 +95,19 @@ class _LossLog:
             return
         keys = sorted(self.pending[0])
         rows = torch.stack([torch.stack([s[k] for k in keys])
-                            for s in self.pending]).cpu().tolist()
+                            for s in self.pending])
+        if world_size() > 1:
+            # the ranks' loss shares add up to the global losses; the
+            # offsets take their max
+            is_max = torch.tensor([k == "nlspn_max_offset" for k in keys],
+                                  device=rows.device)
+            sums = all_reduce_sum(torch.where(is_max, 0.0, rows))
+            rows = torch.where(is_max, all_reduce_max(rows.clone()), sums)
+        rows = rows.cpu().tolist()
         for row in rows:
             self.avg.update(dict(zip(keys, row)))
-        ips = len(rows) * batch_size / (time.perf_counter() - self.t0)
+        ips = (len(rows) * batch_size * world_size()
+               / (time.perf_counter() - self.t0))
         self.pending.clear()
         m = self.avg.mean()
         if self.radius is not None and m.get("nlspn_max_offset",
@@ -105,25 +128,30 @@ def run(cfg) -> dict:
     seconds of each step (a step that ends at a log boundary includes the
     device sync of its readback), the host seconds each step waited for
     its batch, the number of steps, the epoch it started from and the
-    sample grids written."""
-    set_random_seed(cfg.seed)
+    sample grids written. Over ranks every rank returns the same."""
+    device, made = init_distributed(cfg)
+    cfg.device = str(device)
+    set_random_seed(cfg.seed, cfg.get("deterministic", False))
     logger = Logger(cfg.work_dir, filename="train.log")
-    device = resolve_device(cfg.get("device", "cuda"))
-    train_loader = build_train_loader(cfg, device)
-    val_loader = build_val_loader(cfg, device)
     try:
-        return _train(cfg, logger, device, train_loader, val_loader)
+        train_loader = build_train_loader(cfg, device)
+        val_loader = build_val_loader(cfg, device, shard=True)
+        try:
+            return _train(cfg, logger, device, train_loader, val_loader)
+        finally:
+            train_loader.close()
+            val_loader.close()
     finally:
-        train_loader.close()
-        val_loader.close()
         logger.close()
+        destroy(made)
 
 
 def _train(cfg, logger, device, train_loader, val_loader) -> dict:
     engine = build_engine(cfg, is_train=True,
                           steps_per_epoch=len(train_loader))
-    logger.log(f"device {device}, train batches/epoch {len(train_loader)}, "
-               f"compute dtype {engine.compute_dtype or torch.float32}, "
+    logger.log(f"device {device}, rank {rank()} of {world_size()}, train "
+               f"batches/epoch {len(train_loader)}, compute dtype "
+               f"{engine.compute_dtype or torch.float32}, "
                f"loader {train_loader.worker_backend}")
     # fixed train + val batches for the sample grids (train.py:85-87)
     vis_batches = {}
@@ -137,9 +165,13 @@ def _train(cfg, logger, device, train_loader, val_loader) -> dict:
     elif cfg.load_from:
         meta = load_checkpoint(engine.modules, cfg.load_from)
         logger.log(f"loaded {cfg.load_from} (epoch {meta.get('epoch')})")
-    os.makedirs(cfg.work_dir, exist_ok=True)
-    with open(os.path.join(cfg.work_dir, "config.yaml"), "w") as f:
-        yaml.safe_dump(cfg.to_dict(), f)
+    # replicate_state (train.py:89): every rank starts from rank 0's nets
+    broadcast_from_rank0([t for m in engine.modules.values()
+                          for t in (*m.parameters(), *m.buffers())])
+    if is_main():
+        os.makedirs(cfg.work_dir, exist_ok=True)
+        with open(os.path.join(cfg.work_dir, "config.yaml"), "w") as f:
+            yaml.safe_dump(cfg.to_dict(), f)
 
     # the NLSPN generator: the RDFGAN's G or the flagship's G_A2B
     G = engine.modules.get("G", engine.modules.get("G_A2B"))
@@ -151,7 +183,7 @@ def _train(cfg, logger, device, train_loader, val_loader) -> dict:
     metrics = None
     step_seconds, wait_seconds, samples = [], [], []
     timer = StepTimer()
-    profile_dir = cfg.get("profile_dir")
+    profile_dir = cfg.get("profile_dir") if is_main() else None
 
     def checkpoint(name, **meta):
         save_checkpoint(engine.modules, os.path.join(cfg.work_dir, name),
@@ -174,7 +206,7 @@ def _train(cfg, logger, device, train_loader, val_loader) -> dict:
             it += 1
             if it % cfg.log_interval == 0:
                 losses.flush(epoch, i, cfg.batch_size)
-            if it % cfg.sample_interval == 0:
+            if it % cfg.sample_interval == 0 and is_main():
                 for split, vb in vis_batches.items():
                     samples.append(engine.save_samples(
                         vb, os.path.join(cfg.work_dir, "samples"), it,

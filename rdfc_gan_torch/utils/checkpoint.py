@@ -13,6 +13,9 @@ unread (the serving RDFCGAN reads G_A2B, G_normal and G_label).
 ``resume_from`` restores a training engine whole: nets, optimizers,
 schedulers and the global step, so that a resumed run replays the straight
 run's stream of per-step draws.
+
+Over ranks rank 0 alone writes, and every rank waits at a barrier after
+the write, so a resume on any rank reads a whole file; every rank reads.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import os
 from typing import Callable, Dict, Mapping, Optional, Union
 
 import torch
+
+from ..parallel import barrier, is_main
 
 Net = Union[torch.nn.Module, Mapping[str, torch.Tensor]]
 _TRAIN_SUFFIXES = ("_optimizer_state_dict", "_lr_scheduler_state_dict")
@@ -43,7 +48,11 @@ def save_checkpoint(nets: Dict[str, Net], filename: str,
                     train_state: Optional[Dict] = None):
     """Write ``{net}_state_dict`` for every module or state dict in
     ``nets``, the entries of ``train_state`` (an engine's
-    ``train_state()``), all on the CPU, and ``meta``, atomically."""
+    ``train_state()``), all on the CPU, and ``meta``, atomically; over
+    ranks rank 0 writes and all wait for it."""
+    if not is_main():
+        barrier()
+        return
     obj = {}
     for name, net in nets.items():
         sd = net.state_dict() if isinstance(net, torch.nn.Module) else net
@@ -54,6 +63,7 @@ def save_checkpoint(nets: Dict[str, Net], filename: str,
     tmp = f"{filename}.tmp"
     torch.save(obj, tmp)
     os.replace(tmp, filename)
+    barrier()
 
 
 def _read(filename: str) -> dict:

@@ -1,5 +1,6 @@
-"""Logger to stdout and a file in ``work_dir`` (reference helper.py:79-170,
-single process), and the windowed moving average of the train losses
+"""Logger to stdout and a file in ``work_dir`` (reference helper.py:79-170;
+over ranks, rank 0 alone logs, as the reference's ``get_root_logger``), and
+the windowed moving average of the train losses
 (rdfc_gan_tpu/utils/logger.py:MovingAverage)."""
 
 from __future__ import annotations
@@ -8,6 +9,8 @@ import logging
 import os
 from collections import deque
 from typing import Dict, Optional
+
+from ..parallel import is_main
 
 
 class MovingAverage:
@@ -35,6 +38,9 @@ class Logger:
             h.close()
         self.logger.setLevel(logging.INFO)
         self.logger.propagate = False
+        if not is_main():
+            self.logger.addHandler(logging.NullHandler())
+            return
         fmt = logging.Formatter("%(asctime)s %(levelname)s %(message)s")
         sh = logging.StreamHandler()
         sh.setFormatter(fmt)

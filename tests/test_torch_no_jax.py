@@ -50,7 +50,9 @@ def test_port_imports_no_jax():
         "        'rdfc_gan_torch.data.folder_dataset',\n"
         "        'rdfc_gan_torch.utils.data_augmentation',\n"
         "        'rdfc_gan_torch.tools.make_s2d_fixture',\n"
-        "        'rdfc_gan_torch.tools.create_ddrnet_csv'} <= set(names)\n"
+        "        'rdfc_gan_torch.tools.create_ddrnet_csv',\n"
+        "        'rdfc_gan_torch.parallel',\n"
+        "        'rdfc_gan_torch.parallel.dist'} <= set(names)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'rdfc_gan_tpu',\n"
         "              'tools', 'attic', 'cv2', 'PIL', 'imageio', 'h5py',\n"
