@@ -80,7 +80,16 @@ and PyTorch built for CUDA. It
    the IN forward held there too), trains ``cleargrasp`` 4 steps at
    256x256 and serves it, and serves G_A2B built with the ``IN`` and
    ``AdaIN`` fuse layers and with ``add`` skips (IN launches counted; the
-   IN build also one train step);
+   IN build also one train step); then the v1 family
+   (``v1_family_phase``): the fused conv3x3 kernels held against their
+   plain versions at ESANet's planes (228x304 and 480x640, down to
+   4x512x8x10) and timed beside cuDNN; the guided v1 model (ESANet
+   guidance, NLSPN, W-AdaIN) trained one epoch (4 bf16 steps) through
+   ``python -m rdfc_gan_torch.tools.main_v1``'s code path with every
+   kernel's launches checked, evaluated by ``EvalV1`` at the 480x640
+   origin, served by ``--inference`` and ``--cal_fps``; one f32 guided
+   step through the kernels against the plain step; the driver-default
+   AdaIN build and a vanilla build served, and one vanilla train step;
 12. trains the NLSPN config 4 bf16 steps twice under
    ``set_random_seed(seed, deterministic=True)`` and holds the two
    checkpoints bit-equal (``nlspn_repeat_check``); then data parallelism
@@ -2835,6 +2844,397 @@ def v1_variants_phase(workdir, s2d_root):
           f"{time.perf_counter() - t_phase:.2f} s")
 
 
+def esanet_planes(h: int, w: int):
+    """(C, H, W) of the identity BasicBlocks of ESANet's resnet18 torso at
+    an h x w input: behind the 7x7/2 stem and the 3x3/2 max-pool, layer1
+    (both blocks) and the second block of layers 2-4."""
+    return tuple((c, _halve(h, 2 + i), _halve(w, 2 + i))
+                 for i, c in enumerate((64, 128, 256, 512)))
+
+
+def hold_conv_kernels(planes, title: str):
+    """The fused conv3x3 kernels (#9, #10) against their plain versions at
+    ``planes`` (batch B), as ``conv_block_phase`` holds them: the forward
+    without and with the affine + ReLU prologue, the backward of conv2,
+    of conv1 (carry) and bare; f32 bit for bit, bf16 within
+    ``conv_block_kernel``'s stated tolerance. Times the bf16 conv2
+    forward and backward beside cuDNN's bf16 convolution and its backward
+    on the same inputs, and the f32 kernels. Returns {plane: times}."""
+    import torch
+
+    from rdfc_gan_torch.ops.kernels import conv_block_kernel as ck
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def rnd(*s, scale=1.0, shift=0.0):
+        return torch.randn(s, device="cuda", generator=gen) * scale + shift
+
+    errs, times = [], {}
+    for C, h, w in planes:
+        uf = rnd(B, C, h, w, scale=1.5, shift=0.2)
+        wf = rnd(C, C, 3, 3, scale=(2.0 / (9 * C)) ** 0.5)
+        a, b = rnd(C, scale=0.3, shift=1.0), rnd(C, scale=0.3)
+        gf, yf, cf = (rnd(B, C, h, w), rnd(B, C, h, w, scale=2.0, shift=0.5),
+                      rnd(B, C, h, w))
+        fin = torch.stack([rnd(C, scale=0.3, shift=1.0), rnd(C, scale=0.1),
+                           rnd(C, scale=0.1), rnd(C, scale=0.3),
+                           rnd(C, scale=0.1, shift=0.8)])
+        xh = (rnd(C, scale=0.3), rnd(C, scale=0.1, shift=0.8))
+        conv2_bwd = dict(a=a, b=b, act="relu", y=None, fin=fin, xh=xh)
+        for dt in (torch.float32, torch.bfloat16):
+            u, g, y, cy = (t.to(dt) for t in (uf, gf, yf, cf))
+            conv2_bwd["y"] = y
+            tag = f"{title} ({B}, {C}, {h}, {w}) {dt}"
+            for args, kind in (((None, None, "none"), "conv1"),
+                               ((a, b, "relu"), "conv2")):
+                got = ck.conv3x3_fwd(u, wf, *args)
+                torch.cuda.synchronize()
+                want = ck.conv3x3_fwd_plain(u, wf, *args)
+                if dt == torch.bfloat16:
+                    for name, err, bnd, _ in ck.check_fwd_bf16(
+                            got, u, wf, *args, want=want):
+                        if err > bnd:
+                            fail(f"conv3x3_fwd {kind} {tag} {name}: error "
+                                 f"{err:.4g} past {bnd:.4g}")
+                    errs.append(float((got[0].float() - want[0].float())
+                                      .abs().max()))
+                    continue
+                for name, x_, y_ in zip(("y", "moments"), got, want):
+                    errs.append(compare(f"conv3x3_fwd {kind} {name} {tag}",
+                                        x_, y_, CONV_RTOL, CONV_ATOL,
+                                        quiet=True))
+            for kw, kind in ((conv2_bwd, "conv2"),
+                             (dict(y=y, fin=fin, carry=cy), "conv1"),
+                             ({}, "bare")):
+                got = ck.conv3x3_bwd(g, u, wf, **kw)
+                torch.cuda.synchronize()
+                if dt == torch.bfloat16:
+                    parts = ck._bwd_parts(g, u, wf, **kw)
+                    for name, err, bnd, _ in ck.check_bwd_bf16(
+                            got, g, u, wf, **kw, parts=parts):
+                        if err > bnd:
+                            fail(f"conv3x3_bwd {kind} {tag} {name}: error "
+                                 f"{err:.4g} past {bnd:.4g}")
+                    errs.append(float((got[0].float() - parts["gout"]
+                                       .float()).abs().max()))
+                    continue
+                want = ck.conv3x3_bwd_plain(g, u, wf, **kw)
+                for name, x_, y_ in zip(("gout", "dW", "sums"), got, want):
+                    if y_ is not None:
+                        errs.append(compare(
+                            f"conv3x3_bwd {kind} {name} {tag}", x_, y_,
+                            CONV_RTOL, CONV_ATOL, quiet=True))
+        u, g, y = (t.to(torch.bfloat16) for t in (uf, gf, yf))
+        wd = wf.to(torch.bfloat16)
+        bwd = dict(conv2_bwd, y=y)
+        t = dict(
+            fwd=time_ms(lambda: ck.conv3x3_fwd(u, wf, a, b, "relu")),
+            bwd=time_ms(lambda: ck.conv3x3_bwd(g, u, wf, **bwd)),
+            fwd_f32=time_ms(lambda: ck.conv3x3_fwd(uf, wf, a, b, "relu"),
+                            reps=3, warmup=1),
+            bwd_f32=time_ms(lambda: ck.conv3x3_bwd(gf, uf, wf, **dict(
+                conv2_bwd, y=yf)), reps=3, warmup=1))
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=False,
+                                        allow_tf32=False):
+            t["cudnn_fwd"] = time_ms(lambda: torch.nn.functional.conv2d(
+                u, wd, padding=1))
+            t["cudnn_bwd"] = time_ms(
+                lambda: torch.ops.aten.convolution_backward(
+                    g, u, wd, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                    [True, True, False]))
+        times[(C, h, w)] = t
+        print(f"  {title} {B}x{C}x{h}x{w} ({gpu_line()}): bf16 fwd "
+              f"{t['fwd']:.4f} ms (cuDNN {t['cudnn_fwd']:.4f}), bwd "
+              f"{t['bwd']:.4f} ms (cuDNN {t['cudnn_bwd']:.4f}); f32 fwd "
+              f"{t['fwd_f32']:.4f} ms, bwd {t['bwd_f32']:.4f} ms")
+    print(f"  conv3x3 kernels vs plain at the {title} planes "
+          f"{', '.join('x'.join(map(str, p)) for p in planes)}, f32 bit for "
+          f"bit and bf16 within tolerance ({len(errs)} comparisons, max "
+          f"|kernel - plain| of y/gout {max(errs):.3e})")
+    return times
+
+
+def _s2d_origin_dataset():
+    """``nyuv2_s2d`` whose val samples carry the frame's uncropped 480x640
+    depth as ``gt_depth_origin``: EvalV1 resizes each 228x304 prediction
+    back to it."""
+    from rdfc_gan_torch.data.nyuv2_s2d import NYUV2S2DDataset
+
+    class Origin(NYUV2S2DDataset):
+        def get_test_data(self, idx):
+            sample = super().get_test_data(idx)
+            sample["gt_depth_origin"] = self._load(idx)[1]
+            return sample
+
+    return Origin
+
+
+V1_FLAGS = ["--use_guidance", "--use_nlspn_to_refine",
+            "--fuse_depth_in_rgb_decoder", "WAdaIN"]
+
+
+def _v1_cfg(workdir, s2d_root, work, extra=()):
+    from rdfc_gan_torch.tools import main_v1
+
+    return main_v1.parse_cfg([
+        "--dataset", "nyuv2_s2d", "--data_root", s2d_root, "--batch_size",
+        str(B), "--num_workers", "4", "--work_dir",
+        os.path.join(workdir, work), "--device", "cuda", *extra])
+
+
+def _served_counts(forwards: int, nlspn: bool = True, n_in: int = 4):
+    want = {"instance_norm_fwd": n_in * forwards} if n_in else {}
+    if nlspn:
+        want.update(shift_mask_scatter=forwards, nlspn_propagate=forwards)
+    return want
+
+
+def _nets_moved(engine, cfg) -> dict:
+    """{net: (tensors moved, tensors)} against the same seeded init."""
+    import torch
+
+    from rdfc_gan_torch.engines import build_engine
+    from rdfc_gan_torch.utils import set_random_seed
+
+    set_random_seed(cfg.seed)
+    init = build_engine(cfg, is_train=True)
+    out = {}
+    for k in ("G", "D"):
+        a = dict(engine.modules[k].named_parameters())
+        b = dict(init.modules[k].named_parameters())
+        out[k] = (sum(int(not torch.equal(a[n], b[n])) for n in a), len(a))
+    return out
+
+
+def v1_family_phase(workdir, s2d_root):
+    """The v1 RDF-GAN family through ``python -m
+    rdfc_gan_torch.tools.main_v1``'s code path on the s2d fixture: #9 /
+    #10 held against their plain versions at ESANet's planes (228x304 and
+    480x640, down to 8x10) and timed beside cuDNN; the guided model
+    (ESANet guidance, NLSPN, W-AdaIN) trained one epoch (4 bf16 steps at
+    batch 4, 228x304, deterministic cuDNN) with every kernel's launches a
+    step checked, G and D moved, step times and peak memory; EvalV1 with
+    the predictions resized back to 480x640; ``--inference`` from
+    epoch_1.pth and ``--cal_fps``, launches counted a forward; one f32
+    guided step through the kernels against the step with their plain
+    versions; the driver-default AdaIN build and a vanilla build served,
+    and one vanilla train step with its #9 / #10 launches."""
+    import numpy as np
+    import torch
+
+    from rdfc_gan_torch.data import DataLoader
+    from rdfc_gan_torch.engines import build_engine
+    from rdfc_gan_torch.evaluator import EvalV1
+    from rdfc_gan_torch.ops.kernels import build
+    from rdfc_gan_torch.tools import main_v1
+    from rdfc_gan_torch.utils.checkpoint import load_checkpoint
+
+    t_phase = time.perf_counter()
+    print(f"v1 family ({gpu_line()}):")
+    for size in ((S2D_H, S2D_W), (DDR_H, DDR_W)):
+        hold_conv_kernels(esanet_planes(*size),
+                          f"ESANet {size[0]}x{size[1]}")
+
+    # the guided model, trained one epoch through the driver
+    cfg = _v1_cfg(workdir, s2d_root, "v1_train", V1_FLAGS + [
+        "--n_epochs", "1", "--save_interval", "1", "--log_interval", "1"])
+    cfg.deterministic = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    res = main_v1.run(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, engine, steps = dict(build.LAUNCHES), res["engine"], res["steps"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = _rdfgan_counts(engine, steps)
+    blocks = fused_blocks(engine.modules["G"])
+    sec = np.asarray(res["step_seconds"]) * 1e3
+    print(f"  guided v1 train (ESANet + NLSPN + W-AdaIN, "
+          f"{engine.compute_dtype}, batch {B}, {S2D_H}x{S2D_W}): {steps} "
+          f"steps + "
+          f"{engine.n_forward} EvalV1 forwards in {wall:.2f} s; step ms "
+          f"(host clock, each ends in the loss readback) "
+          f"{', '.join(f'{v:.1f}' for v in sec)}, median after the first "
+          f"{np.median(sec[1:]):.3f}; peak memory {peak:.3f} GiB "
+          f"({gpu_line()})")
+    print("    last losses: " + ", ".join(
+        f"{k}={v:.6g}" for k, v in sorted(res["losses"].items())))
+    print("    metrics: " + ", ".join(
+        f"{k}={v:.6g}" for k, v in res["metrics"].items()))
+    print(f"    fused BasicBlocks {blocks} (core 10 + ESANet 5); kernel "
+          f"launches {counts}; expected {want}")
+    if steps != S2D_TRAIN // B or res["g_updates"] != steps:
+        fail(f"v1 train: {steps} steps, {res['g_updates']} G updates")
+    if not all(np.isfinite(v) for v in list(res["losses"].values())
+               + list(res["metrics"].values())):
+        fail("v1 train: non-finite losses or metrics")
+    _no_f32_conv(counts, "the guided v1 bf16 epoch")
+    if blocks != 15 or counts != want:
+        fail(f"v1 train launch counts {counts} are not {want}")
+    moved = _nets_moved(engine, cfg)
+    print(f"    parameter tensors moved from the seeded init: {moved}")
+    if any(m == 0 for m, _ in moved.values()):
+        fail(f"v1 train: a net did not move {moved}")
+    trained = res["metrics"]
+
+    # EvalV1 at the 480x640 origin
+    loader = DataLoader(_s2d_origin_dataset()(s2d_root, mode="val"), B,
+                        device=torch.device("cuda"), num_workers=4)
+    build.reset_launches()
+    forwards = engine.n_forward
+    t0 = time.perf_counter()
+    m = EvalV1(loader).evaluate(engine)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    fwd = engine.n_forward - forwards
+    counts, want = dict(build.LAUNCHES), _served_counts(fwd)
+    print(f"  EvalV1 at the 480x640 origin ({S2D_VAL} frames, {fwd} "
+          f"forwards, {ms:.1f} ms host clock, {gpu_line()}): " + ", ".join(
+              f"{k}={v:.6g}" for k, v in m.items())
+          + f"; launches {counts}; expected {want}")
+    if counts != want or not all(np.isfinite(list(m.values()))):
+        fail(f"EvalV1 at 480x640: launches {counts}, metrics {m}")
+    del engine, res
+    pth = os.path.join(workdir, "v1_train", "epoch_1.pth")
+
+    # --inference and --cal_fps from epoch_1.pth
+    build.reset_launches()
+    inf = main_v1.run(_v1_cfg(workdir, s2d_root, "v1_inf", V1_FLAGS + [
+        "--inference", "--load_from", pth]))
+    counts = dict(build.LAUNCHES)
+    fwd = inf["engine"].n_forward
+    want = _served_counts(fwd)
+    print(f"  --inference from epoch_1.pth: " + ", ".join(
+        f"{k}={v:.6g}" for k, v in inf["metrics"].items())
+        + f"; {fwd} forwards, launches {counts}; expected {want}")
+    if counts != want:
+        fail(f"--inference launches {counts} are not {want}")
+    for k, v in inf["metrics"].items():
+        if not np.isclose(v, trained[k], rtol=SERVE_RTOL, atol=SERVE_ATOL):
+            fail(f"--inference {k}={v}, the epoch's evaluation {trained[k]}")
+    build.reset_launches()
+    fps = main_v1.run(_v1_cfg(workdir, s2d_root, "v1_fps", V1_FLAGS + [
+        "--cal_fps", "--load_from", pth]))
+    counts, fwd = dict(build.LAUNCHES), fps["engine"].n_forward
+    want = _served_counts(fwd)
+    print(f"  --cal_fps: {fps['fps']:.2f} img/s at batch {B}, "
+          f"{S2D_H}x{S2D_W}, f32 ({gpu_line()}); {fwd} forwards, launches "
+          f"{counts}; expected {want}")
+    if counts != want or not fps["fps"] > 0:
+        fail(f"--cal_fps launches {counts} are not {want}")
+    del inf, fps
+
+    # one f32 guided step through the kernels against the plain step
+    from rdfc_gan_torch.ops import nlspn_stencil as st
+    from rdfc_gan_torch.ops.kernels import mask_kernel as mk
+    from rdfc_gan_torch.ops.kernels import nlspn_kernel
+
+    cfg = _v1_cfg(workdir, s2d_root, "v1_step", V1_FLAGS)
+    cfg.compute_dtype = "float32"
+    batch = next(iter(DataLoader(_s2d_origin_dataset()(s2d_root,
+                                                        mode="train"), B,
+                                 device=torch.device("cuda"), num_workers=4,
+                                 shuffle=True, drop_last=True)))
+    plain = {(mk, "_scatter"): mk.scatter_shift_masks_plain,
+             (mk, "shift_mask_gather"): mk.shift_mask_gather_plain,
+             (mk, "shift_correlation"): mk.shift_correlation_plain,
+             (nlspn_kernel, "propagate_x"): st.propagate_x_plain,
+             (nlspn_kernel, "reverse_chain"): st.reverse_chain_plain,
+             **plain_in_and_conv()}
+    out, launches = {}, {}
+    for path, patches in (("kernels", {}), ("plain", plain)):
+        engine = build_engine(cfg, is_train=True)
+        load_checkpoint(engine.modules, pth)
+        build.reset_launches()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(torch.backends.cudnn.flags(
+                enabled=True, benchmark=False, deterministic=True,
+                allow_tf32=False))
+            for (mod, name), fn in patches.items():
+                stack.enter_context(mock.patch.object(mod, name, fn))
+            losses = engine.train_step(batch)
+            torch.cuda.synchronize()
+        out[path] = (losses, {f"{net}.{n}": p.grad.detach().clone()
+                              for net in ("G", "D")
+                              for n, p in engine.modules[net]
+                              .named_parameters() if p.grad is not None})
+        launches[path] = dict(build.LAUNCHES)
+        del engine
+    want = _rdfgan_counts_f32(blocks)
+    print(f"  one f32 guided step, kernels vs plain (deterministic cuDNN): "
+          f"launches {launches['kernels']} (expected {want}) vs "
+          f"{launches['plain']}")
+    if launches["plain"] or launches["kernels"] != want:
+        fail("the f32 guided step's launches")
+    worst, errs = _step_diff("guided v1 kernels vs plain", out["kernels"],
+                             out["plain"])
+    if set(out["kernels"][1]) != set(out["plain"][1]) \
+            or worst > STEP_RTOL or errs[0][0] > STEP_RTOL:
+        fail("the f32 guided step through the kernels disagrees with the "
+             "plain step")
+
+    # the driver-default AdaIN build and a vanilla build served; one
+    # vanilla train step
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rgb = torch.randn((B, 3, S2D_H, S2D_W), device="cuda", generator=gen)
+    raw = torch.rand((B, 1, S2D_H, S2D_W), device="cuda", generator=gen)
+    for name, extra, want in (
+            ("driver default (AdaIN)", ["--use_guidance",
+                                        "--use_nlspn_to_refine"],
+             _served_counts(1, n_in=0)),
+            ("vanilla (AdaIN)", ["--model", "vanilla", "--use_guidance"],
+             {})):
+        vcfg = _v1_cfg(workdir, s2d_root, "v1_variant", extra)
+        torch.manual_seed(0)
+        engine = build_engine(vcfg, is_train=True)
+        build.reset_launches()
+        pred = engine.forward_test(rgb, raw)["pred_depth"]
+        torch.cuda.synchronize()
+        counts = dict(build.LAUNCHES)
+        print(f"  {name} served at {B}x{S2D_H}x{S2D_W}: pred_depth "
+              f"{tuple(pred.shape)} in [{float(pred.min()):.4f}, "
+              f"{float(pred.max()):.4f}], launches {counts}; expected {want}")
+        if counts != want or not torch.isfinite(pred).all():
+            fail(f"{name} served: launches {counts}")
+        if not name.startswith("vanilla"):
+            del engine
+            continue
+        blocks = fused_blocks(engine.modules["G"])
+        vbatch = dict(batch, rgb=rgb, raw_depth=raw)
+        build.reset_launches()
+        t0 = time.perf_counter()
+        losses = engine.train_step(vbatch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(build.LAUNCHES)
+        want = {"conv3x3_fwd": 2 * blocks, "conv3x3_bwd": 2 * blocks}
+        print(f"  one vanilla train step (guided, {engine.compute_dtype}, "
+              f"{blocks} fused BasicBlocks: two torsos and ESANet's): "
+              f"{ms:.1f} ms host clock (the first; {gpu_line()}), losses "
+              + ", ".join(
+                  f"{k}={float(v):.6g}" for k, v in sorted(losses.items()))
+              + f"; launches {counts}; expected {want}")
+        if blocks != 15 or counts != want or not all(
+                torch.isfinite(v) for v in losses.values()):
+            fail(f"the vanilla train step: launches {counts}")
+        del engine
+    print(f"  v1 family phase wall {time.perf_counter() - t_phase:.2f} s "
+          f"({gpu_line()})")
+
+
+def _rdfgan_counts_f32(blocks: int) -> dict:
+    """The launches of one f32 RDFGAN step with W-AdaIN and NLSPN: the f32
+    conv kernels carry the identity blocks."""
+    return {"shift_mask_scatter": 1, "shift_mask_gather": 1,
+            "nlspn_propagate_x": 1, "nlspn_reverse_chain": 1,
+            "shift_correlation": 1, "instance_norm_fwd": 4,
+            "instance_norm_bwd": 4, "conv3x3_fwd_f32": 2 * blocks,
+            "conv3x3_bwd_f32": 2 * blocks}
+
+
 REPEAT_STEPS = 4
 
 
@@ -3460,6 +3860,7 @@ def main():
         file_dataset_phase(workdir)
         s2d_root = s2d_phase(workdir)
         v1_variants_phase(workdir, s2d_root)
+        v1_family_phase(workdir, s2d_root)
         nlspn_repeat_check(workdir)
         data_parallel_phase(workdir)
     # launches: the scatter and the served chain from the serve run, the

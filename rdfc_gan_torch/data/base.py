@@ -1,7 +1,7 @@
 """BaseDataset (port of rdfc_gan_tpu/data/base.py; reference
 lib/datasets/base.py:12-163): mode dispatch, retry-on-None, the per-sample
-generator keyed by (seed, epoch, index), the decoded-sample cache and the
-debug dumps.
+generator keyed by (seed, epoch, index), the decoded-sample cache, the v1
+``evaluate`` and the debug dumps.
 
 Decoded-sample cache: PNG decode is most of a sample's host cost and the
 same every epoch, so datasets route their raw decode through
@@ -109,6 +109,14 @@ class BaseDataset:
                 tries += 1
             return sample
         return self.get_test_data(idx)
+
+    def evaluate(self, results, logger=None):
+        """The split's metrics from v1 results (dicts of 'gt', 'pd' and an
+        optional 'evaluate_mask'), through ``RDFGANMetric`` (base.py:
+        112-115); ``evaluator.EvalV1`` calls it."""
+        from ..metrics import RDFGANMetric
+
+        return RDFGANMetric().evaluate_all(results, logger)
 
     def show(self, samples, iters: int = 0, save_dir: str = ".",
              max_show_num: int = 6):

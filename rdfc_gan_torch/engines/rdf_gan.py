@@ -1,7 +1,9 @@
 """RDFGAN engine: generator G and PatchGAN discriminator D (port of
 rdfc_gan_tpu/engines/rdf_gan.py; reference lib/models/rdf_gan.py:18-251).
 
-  * forward_test: G(rgb, raw_depth) in eval mode, no gradient.
+  * forward_test: G(rgb, raw_depth) in eval mode, no gradient. A
+    generator's v1 5-tuple becomes the dict (``_as_ret_dict``), in the step
+    too, so the v1 generators drive the engine.
   * train_step: one G forward in train mode, then the D update FIRST
     (rdf_gan.py:192-196), then (``update_g``) the G update against the
     updated D:
@@ -40,6 +42,18 @@ from ..parallel import all_reduce_grads
 from ..registry import MODELS, build_discriminator, build_generator
 from ..utils import pretrained
 from .base import BaseEngine, clip_gradients, make_optimizer
+
+
+def _as_ret_dict(ret):
+    """A generator's output as the engine's dict (rdf_gan.py:30-38): the
+    v1 5-tuple (depth_map_1, confidence_map_1, depth_map_2,
+    confidence_map_2, pred_depth) of ``DCVGANGeneratorVanilla`` or a
+    ``return_tuple`` DCVGANGenerator gets the dict keys; a dict stays."""
+    if isinstance(ret, (tuple, list)):
+        d1, c1, d2, c2, f = ret
+        return dict(depth_map_1=d1, confidence_map_1=c1, depth_map_2=d2,
+                    confidence_map_2=c2, pred_depth=f)
+    return ret
 
 
 @contextlib.contextmanager
@@ -88,7 +102,7 @@ class RDFGAN(BaseEngine):
         has no auxiliary heads to skip."""
         del depth_only
         self.n_forward += 1
-        return self.modules["G"].eval()(rgb, raw_depth)
+        return _as_ret_dict(self.modules["G"].eval()(rgb, raw_depth))
 
     __call__ = forward_test
 
@@ -128,7 +142,7 @@ class RDFGAN(BaseEngine):
         stats = {}
         grad = torch.enable_grad() if update_g else torch.no_grad()
         with grad, self.autocast():
-            ret = G(real_A, corrupted_B)
+            ret = _as_ret_dict(G(real_A, corrupted_B))
         fake = ret["depth_map_1"]
         if "nlspn_max_offset" in ret:
             stats["nlspn_max_offset"] = ret["nlspn_max_offset"]

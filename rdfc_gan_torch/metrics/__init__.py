@@ -1,3 +1,3 @@
-from .depth_metrics import METRIC_NAMES, compute_depth_metrics
+from .depth_metrics import METRIC_NAMES, RDFGANMetric, compute_depth_metrics
 
-__all__ = ["METRIC_NAMES", "compute_depth_metrics"]
+__all__ = ["METRIC_NAMES", "RDFGANMetric", "compute_depth_metrics"]

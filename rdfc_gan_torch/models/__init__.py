@@ -1,10 +1,16 @@
 """Models of the port; importing registers the generators and the
-discriminator with ``GENERATORS`` and ``DISCRIMINATORS``."""
-from .discriminators import PatchGANDiscriminator
+discriminators with ``GENERATORS`` and ``DISCRIMINATORS``."""
+from .dcv_gan_generator import DCVGANGenerator
+from .dcv_gan_generator_vanilla import DCVGANGeneratorVanilla
+from .discriminators import (PatchGANDiscriminator, PixelGANDiscriminator,
+                             PointNetDiscriminator)
+from .esanet import ESANet, ESANetOneModality
 from .label_net import PSPNet
 from .normal_net import NNET
 from .rdf_generator import RDFGenerator
 from .resnet_generator import ResnetGenerator
 
-__all__ = ["NNET", "PSPNet", "PatchGANDiscriminator", "RDFGenerator",
+__all__ = ["DCVGANGenerator", "DCVGANGeneratorVanilla", "ESANet",
+           "ESANetOneModality", "NNET", "PSPNet", "PatchGANDiscriminator",
+           "PixelGANDiscriminator", "PointNetDiscriminator", "RDFGenerator",
            "ResnetGenerator"]

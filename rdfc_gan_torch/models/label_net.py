@@ -99,7 +99,8 @@ class PSPModule(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         size = (x.shape[2], x.shape[3])
-        pyramids = [x] + [bilinear_resize(s(x), size) for s in self.stages]
+        pyramids = [x] + [bilinear_resize(s(x), size, align_corners=True)
+                          for s in self.stages]
         return self.bottleneck(torch.cat(pyramids, dim=1))
 
 
@@ -146,7 +147,9 @@ class PSPNet(nn.Module):
         size = (x.shape[2], x.shape[3])
         h = self.layer2(self.layer1(self.initial(x)))
         x_aux = self.layer3(h)
-        out = bilinear_resize(self.master_branch(self.layer4(x_aux)), size)
+        out = bilinear_resize(self.master_branch(self.layer4(x_aux)), size,
+                              align_corners=True)
         if self.training or force_aux:
-            return [out, bilinear_resize(self.auxiliary_branch(x_aux), size)]
+            return [out, bilinear_resize(self.auxiliary_branch(x_aux), size,
+                                         align_corners=True)]
         return out

@@ -23,8 +23,11 @@ reference PyTorch state-dict names:
     ``fuse_depth_in_rgb_decoder`` choices.
   * ``instance_norm`` — layers.py:219-281, the hand-written kernels of
     ``ops/kernels/norm_kernel`` on the card.
-  * ``bilinear_resize`` — layers.py:675-714 with align_corners=True, in the
-    JAX package's matmul form.
+  * ``bilinear_resize`` — layers.py:675-714: ``jax.image.resize``'s
+    half-pixel bilinear (antialiased when it downsamples) by default, and
+    align_corners=True; both as interpolation matmuls.
+  * ``NonBottleneck1D`` — layers.py:633-672, the ERFNet block of ESANet's
+    decoders.
 """
 
 from __future__ import annotations
@@ -252,19 +255,56 @@ def _interp_matrix(src: int, dst: int) -> np.ndarray:
     return m
 
 
-def bilinear_resize(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
-    """Align-corners bilinear resize of (B, C, H, W) to ``size``, as two
+@functools.lru_cache(maxsize=None)
+def _half_pixel_matrix(src: int, dst: int) -> np.ndarray:
+    """(dst, src) weights of ``jax.image.resize(method="bilinear")`` along
+    one axis (jax/_src/image/scale.py:compute_weight_mat), in f32 as JAX
+    computes them: the triangle kernel at the half-pixel sample points
+    (d + 0.5) src / dst - 0.5, widened by src / dst when downsampling (the
+    antialias), each row renormalised to sum to 1 over the taps inside the
+    input, rows whose sample point lies outside it zero."""
+    f32 = np.float32
+    inv = f32(1.0 / (dst / src))
+    kscale = max(inv, f32(1.0))
+    sample = (np.arange(dst, dtype=f32) + f32(0.5)) * inv - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(src, dtype=f32)[:, None]) / kscale
+    w = np.maximum(f32(0.0), f32(1.0) - np.abs(x))  # (src, dst)
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(f32).eps,
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= src - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).T.astype(f32)
+
+
+def bilinear_resize(x: torch.Tensor, size: Tuple[int, int],
+                    align_corners: bool = False) -> torch.Tensor:
+    """Bilinear resize of (B, C, H, W) to ``size`` (layers.py:693-714), as
     interpolation matmuls (rows, then columns) summed in f32, each rounded
     to x's type with the weights in x's type, as the JAX package computes
-    it. ``F.interpolate(..., align_corners=True)`` agrees to rounding."""
+    it; an axis whose size stays is left alone, and x comes back as it is
+    when neither changes.
+
+    ``align_corners=False`` (the default, as in JAX) is
+    ``jax.image.resize(method="bilinear")``: half-pixel centres, and an
+    antialiasing triangle when it downsamples (``_half_pixel_matrix``), so
+    it is not ``F.interpolate`` below the input size. ``align_corners=True``
+    is the JAX matmul form (``_interp_matrix``); ``F.interpolate(...,
+    align_corners=True)`` agrees to rounding. Both directions run the one
+    code path, and the backward is two matrix products, free of the
+    atomics of ``F.interpolate``'s CUDA backward, so a step repeats bit for
+    bit on the card."""
     B, C, H, W = x.shape
     h, w = size
     if (H, W) == (h, w):
         return x
-    wy, wx = (torch.from_numpy(_interp_matrix(s, d)).to(x.device, x.dtype)
-              .float() for s, d in ((H, h), (W, w)))
-    out = torch.matmul(wy, x.float().reshape(B * C, H, W)).to(x.dtype)
-    out = torch.matmul(out.float(), wx.t()).to(x.dtype)
+    mat = _interp_matrix if align_corners else _half_pixel_matrix
+    out = x.reshape(B * C, H, W)
+    if h != H:
+        wy = torch.from_numpy(mat(H, h)).to(x.device, x.dtype).float()
+        out = torch.matmul(wy, out.float()).to(x.dtype)
+    if w != W:
+        wx = torch.from_numpy(mat(W, w)).to(x.device, x.dtype).float()
+        out = torch.matmul(out.float(), wx.t()).to(x.dtype)
     return out.reshape(B, C, h, w)
 
 
@@ -378,3 +418,49 @@ class INFuse(nn.Module):
     def forward(self, content: torch.Tensor,
                 style: torch.Tensor) -> torch.Tensor:
         return self.conv(instance_norm(torch.cat([content, style], dim=1)))
+
+
+class NonBottleneck1D(nn.Module):
+    """ERFNet's factorised residual block (layers.py:633-672; reference
+    model_utils.py:131-199): 3x1 (stride s, 1) -> ReLU -> 1x3 (1, s) ->
+    norm -> ReLU -> 3x1 (dilation d) -> ReLU -> 1x3 (dilation d) -> norm,
+    every conv with a bias; then ReLU(out + identity), the identity a 1x1
+    conv with a bias where the stride or the width changes, or the
+    residual alone with ``residual_only``. The norm is ``BatchNorm2d``
+    (eps 1e-3), or with ``use_in`` the instance norm (eps 1e-3, the IN
+    kernels on the card). ``in_channels`` defaults to ``planes``."""
+
+    def __init__(self, planes: int, stride: int = 1, dilation: int = 1,
+                 use_in: bool = False, residual_only: bool = False,
+                 in_channels: int = None):
+        super().__init__()
+        cin = planes if in_channels is None else in_channels
+        d = dilation
+        self.use_in = use_in
+        self.residual_only = residual_only
+        self.conv3x1_1 = nn.Conv2d(cin, planes, (3, 1), (stride, 1), (1, 0))
+        self.conv1x3_1 = nn.Conv2d(planes, planes, (1, 3), (1, stride),
+                                   (0, 1))
+        self.conv3x1_2 = nn.Conv2d(planes, planes, (3, 1), 1, (d, 0), (d, 1))
+        self.conv1x3_2 = nn.Conv2d(planes, planes, (1, 3), 1, (0, d), (1, d))
+        if not use_in:
+            self.bn1 = BatchNorm2d(planes, eps=1e-3)
+            self.bn2 = BatchNorm2d(planes, eps=1e-3)
+        self.downsample = None
+        if not residual_only and (stride != 1 or cin != planes):
+            self.downsample = nn.Conv2d(cin, planes, 1, stride)
+
+    def _norm(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        if self.use_in:
+            return instance_norm(x, 1e-3)
+        return getattr(self, f"bn{i}")(x)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.conv3x1_1(x))
+        out = F.relu(self._norm(self.conv1x3_1(out), 1))
+        out = F.relu(self.conv3x1_2(out))
+        out = self._norm(self.conv1x3_2(out), 2)
+        if self.residual_only:
+            return out
+        idn = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + idn)

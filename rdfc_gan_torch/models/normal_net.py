@@ -180,7 +180,8 @@ class UpSampleBN(nn.Module):
             BatchNorm2d(features, eps=DEC_EPS), nn.LeakyReLU(0.01))
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        up = bilinear_resize(x, (skip.shape[2], skip.shape[3]))
+        up = bilinear_resize(x, (skip.shape[2], skip.shape[3]),
+                             align_corners=True)
         return self._net(torch.cat([up, skip], dim=1))
 
 
@@ -216,7 +217,7 @@ class NNET(nn.Module):
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         """img (B, 3, H, W) -> (B, 4, out_height, out_width)."""
         return bilinear_resize(self.decoder(self.encoder(img)),
-                               self.out_size)
+                               self.out_size, align_corners=True)
 
 
 def norm_normalize_kappa(norm_out: torch.Tensor,

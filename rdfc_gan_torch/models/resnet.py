@@ -6,7 +6,9 @@ torchvision and reference weights load as they are:
   * ``Bottleneck`` stages of resnet50, plain or dilated (PSPNet's output
     stride 8, backbone_resnet50.py:126-235);
   * ``DeepStem``, the PSPNet backbone's deep_base stem
-    (backbone_resnet50.py:139-154).
+    (backbone_resnet50.py:139-154);
+  * ``ResNetStem``, torchvision's 7x7/2 stem and max-pool (resnet.py:
+    211-225), ESANet's and the vanilla v1 generator's.
 
 In train mode a ``BasicBlock`` with stride 1, dilation 1 and an identity
 shortcut runs as one autograd Function on the fused conv3x3 + moments
@@ -140,3 +142,18 @@ class DeepStem(nn.Sequential):
             nn.Conv2d(f, 2 * f, 3, 1, 1, bias=False))
         super().__init__(conv1, BatchNorm2d(2 * f, eps=1e-5), nn.ReLU(),
                          nn.MaxPool2d(3, 2, 1))
+
+
+class ResNetStem(nn.Module):
+    """7x7/2 conv (no bias) -> BN (eps 1e-5) -> ReLU -> 3x3/2 max-pool
+    padded with -inf (resnet.py:ResNetStem; torchvision's conv1, bn1,
+    maxpool). ``in_channels`` is 3 for an image; the vanilla v1 generator's
+    depth stem takes the depth and the guidance map, 1 + C channels."""
+
+    def __init__(self, in_channels: int = 3, features: int = 64):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_channels, features, 7, 2, 3, bias=False)
+        self.bn1 = BatchNorm2d(features, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.max_pool2d(F.relu(self.bn1(self.conv1(x))), 3, 2, 1)

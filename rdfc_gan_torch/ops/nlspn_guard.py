@@ -27,9 +27,11 @@ MAX_STENCIL_RADIUS = 4
 def probe_max_offset(engine, batch) -> float:
     """One generator forward; the max |offset| it reports (the max over the
     ranks, so every rank escalates alike), or 0.0 when the generator has no
-    NLSPN stage."""
+    NLSPN stage: neither G nor its ``core`` (a DCVGANGenerator's
+    RDFGenerator) has ``use_nlspn_refine`` set (nlspn_guard.py:38-42)."""
     mod = engine.modules.get("G")
-    if mod is None or not getattr(mod, "use_nlspn_refine", False):
+    if mod is None or not getattr(mod, "use_nlspn_refine", getattr(
+            getattr(mod, "core", None), "use_nlspn_refine", False)):
         return 0.0
     ret = engine.forward_test(rgb=batch["rgb"], raw_depth=batch["raw_depth"])
     return float(all_reduce_max(ret["nlspn_max_offset"].float().clone()))

@@ -68,6 +68,15 @@ _MINIMIZE = ("RMSE", "MAE", "iRMSE", "iMAE", "REL")
 _PROFILE_STEP = 50  # the traced step of --profile_dir (train.py:121)
 
 
+def nlspn_radius(G) -> "int | None":
+    """The stencil radius of G's NLSPN stage (a DCVGANGenerator's is its
+    ``core``'s), or None without one (the vanilla v1 build has none)."""
+    core = getattr(G, "core", G)
+    if getattr(core, "use_nlspn_refine", False):
+        return core.nlspn_offset_radius
+    return None
+
+
 def build_train_loader(cfg, device) -> DataLoader:
     """The shuffled, drop_last train loader of this rank's shard."""
     return DataLoader(build_split(cfg, "train"), cfg.batch_size,
@@ -93,8 +102,13 @@ class _LossLog:
     def flush(self, epoch: int, i: int, batch_size: int):
         if not self.pending:
             return
-        keys = sorted(self.pending[0])
-        rows = torch.stack([torch.stack([s[k] for k in keys])
+        # a step that skips the G update (the v1 driver's n_critic) has no
+        # G losses: a window's rows hold the keys of all its steps, and
+        # each step's mean takes only the keys it has
+        keys = sorted(set().union(*self.pending))
+        zero = next(iter(self.pending[0].values())).new_zeros(())
+        present = [[k in s for k in keys] for s in self.pending]
+        rows = torch.stack([torch.stack([s.get(k, zero) for k in keys])
                             for s in self.pending])
         if world_size() > 1:
             # the ranks' loss shares add up to the global losses; the
@@ -104,8 +118,8 @@ class _LossLog:
             sums = all_reduce_sum(torch.where(is_max, 0.0, rows))
             rows = torch.where(is_max, all_reduce_max(rows.clone()), sums)
         rows = rows.cpu().tolist()
-        for row in rows:
-            self.avg.update(dict(zip(keys, row)))
+        for row, has in zip(rows, present):
+            self.avg.update({k: v for k, v, h in zip(keys, row, has) if h})
         ips = (len(rows) * batch_size * world_size()
                / (time.perf_counter() - self.t0))
         self.pending.clear()
@@ -175,7 +189,7 @@ def _train(cfg, logger, device, train_loader, val_loader) -> dict:
 
     # the NLSPN generator: the RDFGAN's G or the flagship's G_A2B
     G = engine.modules.get("G", engine.modules.get("G_A2B"))
-    radius = G.nlspn_offset_radius if G.use_nlspn_refine else None
+    radius = nlspn_radius(G)
     losses = _LossLog(cfg, logger, radius)
     evaluator = Eval(val_loader)
     minimize = cfg.criterion_to_get_best_ckpt in _MINIMIZE

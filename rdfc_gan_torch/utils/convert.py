@@ -32,6 +32,21 @@ dict with the reference names, undoing
   * EqualLinear's (in, out) ``weight`` -> (out, in) ``weight_orig``; both
     sides store it unscaled and scale by sqrt(2 / fan_in) at call time.
 
+The v1 family (``esanet_state_dict_from_jax``,
+``dcv_gan_generator_state_dict_from_jax``,
+``dcv_gan_generator_vanilla_state_dict_from_jax``,
+``pixelgan_state_dict_from_jax``, ``pointnet_state_dict_from_jax``) walks
+the Flax trees by their compact names, which count each class in creation
+order: ``ResNetStem_0``, ``ResNetStage_{i}``, ``SqueezeAndExcitation_{i}``,
+``ConvBNActESA_{i}`` (a skip projection takes the next one only where the
+widths differ), ``ESADecoderModule_{i}``, ``LearnedUpsample_{i}``,
+``VanillaDecoderModule_{i}`` (the RGB and the depth stage of each level in
+turn) and ``AdaptiveInstanceNorm_{i}``; the port's modules are named after
+those classes. The reference's ESANet state-dict names are not in the
+repository, so a reference v1 ``.pth`` has no converter here. A
+train-mode side conv of an ESANet decoder that the tree lacks (initialised
+in eval mode) is left out of the dict.
+
 ``fuse_layer5`` exists in the reference but the forward never uses it, and
 the JAX tree has no parameters for it: the returned dict leaves it out, so
 load with ``strict=False`` and it keeps its init values. The frozen NLSPN
@@ -180,15 +195,20 @@ def rdf_generator_state_dict_from_jax(params: Dict[str, Any],
         if fuse == "IN":
             _conv(sd, f"{pre}.conv", fl["Conv_0"])
             continue
-        sd[f"{pre}.style.linear.weight_orig"] = _t(
-            np.asarray(fl["EqualLinear_0"]["weight"]).T)
-        sd[f"{pre}.style.linear.bias"] = _t(fl["EqualLinear_0"]["bias"])
-        if adain_weighting:
-            for conv, name in (("Conv_0", "gamma_weight_layer"),
-                               ("Conv_1", "beta_weight_layer")):
-                sd[f"{pre}.{name}.weight"] = _oihw(fl[conv]["kernel"])
-                sd[f"{pre}.{name}.bias"] = _t(fl[conv]["bias"])
+        _wadain(sd, pre, fl, adain_weighting)
     return sd
+
+
+def _wadain(sd, pre, fl, weighting: bool):
+    """An AdaptiveInstanceNorm: EqualLinear's (in, out) ``weight`` ->
+    (out, in) ``weight_orig``, and the weighting convs."""
+    sd[f"{pre}.style.linear.weight_orig"] = _t(
+        np.asarray(fl["EqualLinear_0"]["weight"]).T)
+    sd[f"{pre}.style.linear.bias"] = _t(fl["EqualLinear_0"]["bias"])
+    if weighting:
+        for conv, name in (("Conv_0", "gamma_weight_layer"),
+                           ("Conv_1", "beta_weight_layer")):
+            _conv(sd, f"{pre}.{name}", fl[conv])
 
 
 def patchgan_state_dict_from_jax(params: Dict[str, Any],
@@ -373,3 +393,245 @@ def rdfcgan_state_dicts_from_jax(params: Dict[str, Any],
         out["G_label"] = pspnet_state_dict_from_jax(params["G_label"],
                                                     batch_stats["G_label"])
     return out
+
+
+# ------------------------------------------------------------ v1 family --
+def _resnet_stage(sd, prefix, p, s):
+    """A Flax ``ResNetStage`` (``BasicBlock_{j}`` or ``Bottleneck_{j}``)
+    -> ``{prefix}.{j}.conv{k}/bn{k}[/downsample.{0,1}]``: the projection is
+    the last conv of a block that has one more than its main path."""
+    for blk, bp in p.items():
+        j = int(blk.rsplit("_", 1)[1])
+        bs = s[blk]
+        main = 3 if blk.startswith("Bottleneck") else 2
+        for k in range(main):
+            _conv(sd, f"{prefix}.{j}.conv{k + 1}", bp[f"Conv_{k}"])
+            _bn(sd, f"{prefix}.{j}.bn{k + 1}", bp[f"BatchNorm_{k}"],
+                bs[f"BatchNorm_{k}"])
+        if f"Conv_{main}" in bp:
+            _conv(sd, f"{prefix}.{j}.downsample.0", bp[f"Conv_{main}"])
+            _bn(sd, f"{prefix}.{j}.downsample.1", bp[f"BatchNorm_{main}"],
+                bs[f"BatchNorm_{main}"])
+
+
+def _stem(sd, prefix, p, s):
+    _conv(sd, f"{prefix}.conv1", p["Conv_0"])
+    _bn(sd, f"{prefix}.bn1", p["BatchNorm_0"], s["BatchNorm_0"])
+
+
+def _conv_bn_act(sd, prefix, p, s):
+    """A ``ConvBNActESA``: ``{prefix}.conv`` / ``{prefix}.bn``."""
+    _conv(sd, f"{prefix}.conv", p["Conv_0"])
+    _bn(sd, f"{prefix}.bn", p["BatchNorm_0"], s["BatchNorm_0"])
+
+
+def _se(sd, prefix, p):
+    _conv(sd, f"{prefix}.fc.0", p["Conv_0"])
+    _conv(sd, f"{prefix}.fc.2", p["Conv_1"])
+
+
+def _non_bottleneck(sd, prefix, p, s):
+    """A ``NonBottleneck1D``: ``Conv_0-3`` the 3x1 / 1x3 pairs,
+    ``BatchNorm_0-1`` (absent with ``use_in``), ``Conv_4`` the projection."""
+    for k, name in enumerate(("conv3x1_1", "conv1x3_1", "conv3x1_2",
+                              "conv1x3_2")):
+        _conv(sd, f"{prefix}.{name}", p[f"Conv_{k}"])
+    for k in range(2):
+        if f"BatchNorm_{k}" in p:
+            _bn(sd, f"{prefix}.bn{k + 1}", p[f"BatchNorm_{k}"],
+                s[f"BatchNorm_{k}"])
+    if "Conv_4" in p:
+        _conv(sd, f"{prefix}.downsample", p["Conv_4"])
+
+
+def _learned_upsample(sd, prefix, p):
+    if "Conv_0" in p:
+        _conv(sd, f"{prefix}.conv", p["Conv_0"])
+
+
+def _decoder_module(sd, prefix, p, s):
+    """An ``ESADecoderModule`` or a ``VanillaDecoderModule``."""
+    _conv_bn_act(sd, f"{prefix}.conv3x3", p["ConvBNActESA_0"],
+                 s["ConvBNActESA_0"])
+    j = 0
+    while f"NonBottleneck1D_{j}" in p:
+        _non_bottleneck(sd, f"{prefix}.decoder_blocks.{j}",
+                        p[f"NonBottleneck1D_{j}"],
+                        s.get(f"NonBottleneck1D_{j}", {}))
+        j += 1
+    if "Conv_0" in p:
+        _conv(sd, f"{prefix}.side_output", p["Conv_0"])
+    _learned_upsample(sd, f"{prefix}.upsample", p.get("LearnedUpsample_0",
+                                                      {}))
+
+
+def _skip_projections(sd, prefix, p, s, skip_channels, decoder_channels):
+    """The skips at 1/16, 1/8, 1/4 (``skip_layer3``, ``2``, ``1``) take
+    ``ConvBNActESA_{next}`` in that order where their width differs from
+    the decoder's."""
+    n = 0
+    for i, (c, d) in reversed(list(enumerate(zip(skip_channels,
+                                                 decoder_channels[2::-1])))):
+        if c != d:
+            _conv_bn_act(sd, f"{prefix}skip_layer{i + 1}",
+                         p[f"ConvBNActESA_{n}"], s[f"ConvBNActESA_{n}"])
+            n += 1
+    return n
+
+
+def _esanet_decoder(sd, pre, p, s, skip_channels, decoder_channels):
+    """Skip projections, the three decoders, the class conv and the two
+    upsamplings of an ESANet."""
+    _skip_projections(sd, pre, p, s, skip_channels, decoder_channels)
+    for i in range(3):
+        _decoder_module(sd, f"{pre}decoder{i + 1}",
+                        p[f"ESADecoderModule_{i}"],
+                        s[f"ESADecoderModule_{i}"])
+    _conv(sd, f"{pre}conv_out", p["Conv_0"])
+    for i in range(2):
+        _learned_upsample(sd, f"{pre}upsample{i + 1}",
+                          p.get(f"LearnedUpsample_{i}", {}))
+
+
+def _skip_widths(p) -> tuple:
+    """Widths of the torso's 1/4, 1/8 and 1/16 skips (BasicBlock or
+    Bottleneck stages behind the stem)."""
+    c = np.asarray(p["ResNetStem_0"]["Conv_0"]["kernel"]).shape[-1]
+    e = 4 if any(k.startswith("Bottleneck") for k in p["ResNetStage_0"]) \
+        else 1
+    return (c * e, 2 * c * e, 4 * c * e)
+
+
+def esanet_state_dict_from_jax(params: Dict[str, Any],
+                               batch_stats: Dict[str, Any],
+                               prefix: str = "",
+                               two_modality: bool = False
+                               ) -> Dict[str, torch.Tensor]:
+    """Flax ``ESANetOneModality`` (or, with ``two_modality``, ``ESANet``)
+    (params, batch_stats) numpy trees -> state dict of
+    ``rdfc_gan_torch.models.esanet``'s module, its keys under ``prefix``."""
+    sd: Dict[str, torch.Tensor] = {}
+    p, s = params, batch_stats
+    pre = prefix
+    if two_modality:
+        _stem(sd, f"{pre}stem_rgb", p["ResNetStem_0"], s["ResNetStem_0"])
+        _stem(sd, f"{pre}stem_depth", p["ResNetStem_1"], s["ResNetStem_1"])
+        for br, off in (("rgb", 0), ("depth", 4)):
+            for i in range(4):
+                k = f"ResNetStage_{i + off}"
+                _resnet_stage(sd, f"{pre}{br}_layer{i + 1}", p[k], s[k])
+        for i in range(5):
+            f = p[f"SqueezeAndExciteFusionAdd_{i}"]
+            _se(sd, f"{pre}se_layer{i}.se_rgb", f["SqueezeAndExcitation_0"])
+            _se(sd, f"{pre}se_layer{i}.se_depth",
+                f["SqueezeAndExcitation_1"])
+    else:
+        _stem(sd, f"{pre}stem", p["ResNetStem_0"], s["ResNetStem_0"])
+        for i in range(4):
+            k = f"ResNetStage_{i}"
+            _resnet_stage(sd, f"{pre}layer{i + 1}", p[k], s[k])
+        for i in range(5):
+            if f"SqueezeAndExcitation_{i}" in p:
+                _se(sd, f"{pre}se_layer{i}", p[f"SqueezeAndExcitation_{i}"])
+    n_ppm = 0
+    if "PyramidPoolingModule_0" in p:
+        pp, ps = p["PyramidPoolingModule_0"], s["PyramidPoolingModule_0"]
+        n_ppm = sum(1 for k in pp if k.startswith("ConvBNActESA_"))
+        for i in range(n_ppm - 1):
+            _conv_bn_act(sd, f"{pre}context_module.features.{i}.1",
+                         pp[f"ConvBNActESA_{i}"], ps[f"ConvBNActESA_{i}"])
+        _conv_bn_act(sd, f"{pre}context_module.final_conv",
+                     pp[f"ConvBNActESA_{n_ppm - 1}"],
+                     ps[f"ConvBNActESA_{n_ppm - 1}"])
+    decoder_channels = [np.asarray(p[f"ESADecoderModule_{i}"][
+        "ConvBNActESA_0"]["Conv_0"]["kernel"]).shape[-1] for i in range(3)]
+    _esanet_decoder(sd, pre, p, s, _skip_widths(p), decoder_channels)
+    return sd
+
+
+def dcv_gan_generator_state_dict_from_jax(params: Dict[str, Any],
+                                          batch_stats: Dict[str, Any],
+                                          use_nlspn_refine: bool = True,
+                                          adain_weighting: bool = False,
+                                          fuse: str = "WAdaIN"
+                                          ) -> Dict[str, torch.Tensor]:
+    """Flax ``DCVGANGenerator`` trees -> state dict of
+    ``rdfc_gan_torch.models.DCVGANGenerator``: ``global_guidance_module``
+    through ``esanet_state_dict_from_jax``, ``core`` through
+    ``rdf_generator_state_dict_from_jax`` (its fused stem undone at the
+    guidance's channel count)."""
+    sd = {}
+    if "global_guidance_module" in params:
+        sd.update(esanet_state_dict_from_jax(
+            params["global_guidance_module"],
+            batch_stats["global_guidance_module"],
+            prefix="global_guidance_module."))
+    core = rdf_generator_state_dict_from_jax(
+        params["core"], batch_stats["core"],
+        use_nlspn_refine=use_nlspn_refine, adain_weighting=adain_weighting,
+        fuse=fuse)
+    sd.update({f"core.{k}": v for k, v in core.items()})
+    return sd
+
+
+def dcv_gan_generator_vanilla_state_dict_from_jax(
+        params: Dict[str, Any], batch_stats: Dict[str, Any],
+        adain_weighting: bool = False) -> Dict[str, torch.Tensor]:
+    """Flax ``DCVGANGeneratorVanilla`` trees -> state dict of
+    ``rdfc_gan_torch.models.DCVGANGeneratorVanilla``."""
+    sd: Dict[str, torch.Tensor] = {}
+    p, s = params, batch_stats
+    if "ESANetOneModality_0" in p:
+        sd.update(esanet_state_dict_from_jax(
+            p["ESANetOneModality_0"], s["ESANetOneModality_0"],
+            prefix="global_guidance_module."))
+    for k, name in (("ResNetStem_0", "rgb_stem"),
+                    ("ResNetStem_1", "depth_stem")):
+        _stem(sd, name, p[k], s[k])
+    for br, off in (("rgb", 0), ("depth", 4)):
+        for i in range(4):
+            k = f"ResNetStage_{i + off}"
+            _resnet_stage(sd, f"{br}_layer{i + 1}", p[k], s[k])
+    rcd = [np.asarray(p[f"VanillaDecoderModule_{2 * i}"]["ConvBNActESA_0"][
+        "Conv_0"]["kernel"]).shape[-1] for i in range(3)]
+    _skip_projections(sd, "", p, s, _skip_widths(p), rcd)
+    for i in range(10):
+        br = ("rgb", "depth")[i % 2]
+        _decoder_module(sd, f"{br}_decoder{i // 2 + 1}",
+                        p[f"VanillaDecoderModule_{i}"],
+                        s[f"VanillaDecoderModule_{i}"])
+    for i in range(6):
+        if f"AdaptiveInstanceNorm_{i}" in p:
+            _wadain(sd, f"fuse_layer{i + 1}", p[f"AdaptiveInstanceNorm_{i}"],
+                    adain_weighting)
+    for i, name in enumerate(("rgb_depth_head", "rgb_conf_head",
+                              "depth_depth_head", "depth_conf_head")):
+        _conv(sd, name, p[f"Conv_{i}"])
+    return sd
+
+
+def pixelgan_state_dict_from_jax(params: Dict[str, Any],
+                                 batch_stats: Dict[str, Any]
+                                 ) -> Dict[str, torch.Tensor]:
+    """Flax ``PixelGANDiscriminator`` trees -> ``net.{0,2,3,5}``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i, idx in enumerate((0, 2, 5)):
+        _conv(sd, f"net.{idx}", params[f"Conv_{i}"])
+    _bn(sd, "net.3", params["BatchNorm_0"], batch_stats["BatchNorm_0"])
+    return sd
+
+
+def pointnet_state_dict_from_jax(params: Dict[str, Any],
+                                 batch_stats: Dict[str, Any]
+                                 ) -> Dict[str, torch.Tensor]:
+    """Flax ``PointNetDiscriminator`` trees -> ``fc1-7`` (Dense (in, out)
+    -> Linear (out, in)) and ``bn1-6`` (BatchNorm2d over (B N, C, 1, 1))."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(7):
+        d = params[f"Dense_{i}"]
+        sd[f"fc{i + 1}.weight"] = _t(np.asarray(d["kernel"]).T)
+        sd[f"fc{i + 1}.bias"] = _t(d["bias"])
+        if i < 6:
+            _bn(sd, f"bn{i + 1}", params[f"BatchNorm_{i}"],
+                batch_stats[f"BatchNorm_{i}"])
+    return sd

@@ -3,7 +3,8 @@ rdfc_gan_tpu/utils/torch_convert.py, which the JAX engines call from
 ``init_state``):
 
   * ``load_resnet_torsos``: torchvision resnet18/34 ``layer{1-4}`` into
-    ``en{2-5}`` of both encoder-decoders of an RDFGenerator
+    ``en{2-5}`` of both encoder-decoders of an RDFGenerator (a
+    DCVGANGenerator's ``core``)
     (``apply_pretrained_torsos`` / ``apply_torso_dicts`` /
     ``load_resnet_torso``; the reference's ``pretrained_on_imagenet``,
     encoder_decoder/common.py:5-26);
@@ -87,7 +88,10 @@ def load_resnet_torsos(generator: nn.Module, sd: Dict[str, torch.Tensor]):
     """torchvision resnet18/34 ``layer{1-4}.*`` -> ``en{2-5}.*`` of each
     encoder-decoder branch of ``generator`` (conv1/bn1/conv2/bn2 and the
     downsample conv and BN of every BasicBlock, running statistics
-    included). A layer absent from the file keeps its init."""
+    included), or of its ``core`` where it nests one (a DCVGANGenerator's
+    RDFGenerator, torch_convert.py:151-154; its guidance net keeps its
+    init). A layer absent from the file keeps its init."""
+    generator = getattr(generator, "core", generator)
     for branch in TORSO_BRANCHES:
         ed = getattr(generator, branch, None)
         if ed is None:
