@@ -1,6 +1,7 @@
 """Parent against change on one card, each tree running its own phases.
 
-    python3 ab_chip.py PARENT_TREE CHANGE_TREE LOG_DIR
+    python3 ab_chip.py [--wrappers] PARENT_TREE [OTHER_TREE ...] CHANGE_TREE
+        LOG_DIR
 
 Each tree is a checkout of the repository (a ``git archive`` of the parent
 commit unpacked in a git-ignored directory, and this checkout). In turns,
@@ -14,9 +15,16 @@ step's shapes (bf16 stacks, dM in f32 and in bf16: a tree whose kernel
 writes only f32 casts after it, as its train step did), the RDF-GAN
 serve and train phases (latency, step times, launch counts), and the
 flagship train phase (16 bf16 steps at batch 4: step times, with each
-tree's own G_B2A reflect pad). Each
+tree's own G_B2A reflect pad). With ``--wrappers`` a run only builds the
+kernels and times the served kernels' wrappers as the main path calls
+them, through the tree's own modules: the shift-mask scatter (#1) and the
+served chain (#3, T=18) at 4x224x304, S=8, and the instance norm's forward
+(#7) at the four W-AdaIN shapes, f32, beside ``F.instance_norm``; each as
+the CUDA events time a call over a burst of back-to-back calls, and the
+host's time to issue a call. More than two trees run in the order given,
+then in reverse (parent, other, change, change, other, parent). Each
 run's whole output goes to LOG_DIR/ab_<label>.log; the lines that compare
-the two trees are printed. Needs one CUDA card, as ``chip_smoke.py``.
+the trees are printed. Needs one CUDA card, as ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -28,8 +36,6 @@ import sys
 import tempfile
 import time
 
-RUNS = (("parent", "parent1"), ("change", "change1"), ("change", "change2"),
-        ("parent", "parent2"))
 # the printed lines of a run's log
 KEEP = ("[", "  nlspn_", "  per-request", "  step ms", "NVIDIA")
 
@@ -95,22 +101,76 @@ def run_tree(label: str):
     print(c.gpu_line())
 
 
+def wrapper_times(label: str):
+    """The served kernels' wrappers, from the current directory's tree."""
+    tree = os.getcwd()
+    sys.path.insert(0, tree)
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as c
+    from rdfc_gan_torch.ops.kernels import build, mask_kernel as mk
+    from rdfc_gan_torch.ops.kernels import nlspn_kernel as nk
+    from rdfc_gan_torch.ops.kernels import norm_kernel as nm
+
+    t0 = time.time()
+    build.build_all()
+    print(f"[{label}] built in {time.time() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    offsets, aff, feat, _ = c.mask_inputs(gen, 2)
+    a, _ = c.scatter_args(offsets, aff, 2)
+    M16 = mk.scatter_shift_masks(a["w"], a["sy"], a["sx"], a["S"]).reshape(
+        c.B, a["S"], a["S"], c.H, c.W).to(torch.bfloat16)
+    cases = [("shift_mask_scatter", f"{tuple(a['w'].shape)} S={a['S']}",
+              lambda: mk.scatter_shift_masks(a["w"], a["sy"], a["sx"],
+                                             a["S"])),
+             ("nlspn_propagate", f"{tuple(M16.shape)} T={c.T}",
+              lambda: nk.nlspn_stencil_propagate(feat, M16, None, c.T, 2,
+                                                 False))]
+    for shape in c.IN_SHAPES:
+        x = torch.randn(shape, device="cuda", generator=gen) * 3 + 1.5
+        cases.append(("instance_norm_fwd", f"{shape}",
+                      lambda x=x: nm.instance_norm_fwd(x, 1e-5)))
+        cases.append(("F.instance_norm", f"{shape}",
+                      lambda x=x: F.instance_norm(x, eps=1e-5)))
+    with torch.no_grad():
+        for name, shape, fn in cases:
+            events = c.time_ms(fn, reps=200, warmup=10)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(100):
+                fn()
+            host = (time.perf_counter() - t) / 100 * 1e3
+            torch.cuda.synchronize()
+            print(f"[{label}] wrapper {name} {shape}: events {events:.4f} ms "
+                  f"a call over 200 calls, host {host:.4f} ms to issue a "
+                  f"call")
+    print(c.gpu_line())
+
+
 def main():
-    if len(sys.argv) == 3 and sys.argv[1] == "--run":
-        run_tree(sys.argv[2])
+    args = sys.argv[1:]
+    wrappers = "--wrappers" in args
+    args = [a for a in args if a != "--wrappers"]
+    if len(args) == 2 and args[0] == "--run":
+        (wrapper_times if wrappers else run_tree)(args[1])
         return
-    if len(sys.argv) != 4:
+    if len(args) < 3:
         sys.exit(__doc__)
-    trees = {"parent": os.path.abspath(sys.argv[1]),
-             "change": os.path.abspath(sys.argv[2])}
-    log_dir = os.path.abspath(sys.argv[3])
+    trees = [os.path.abspath(t) for t in args[:-1]]
+    names = ["parent"] + [os.path.basename(t) for t in trees[1:-1]] + \
+        ["change"]
+    log_dir = os.path.abspath(args[-1])
     os.makedirs(log_dir, exist_ok=True)
-    for which, label in RUNS:
+    order = list(range(len(trees)))
+    for n, i in enumerate(order + order[::-1]):
+        label = f"{names[i]}{1 + n // len(trees)}"
         log = os.path.join(log_dir, f"ab_{label}.log")
         with open(log, "w") as f:
             rc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                 "--run", label], cwd=trees[which],
-                                stdout=f, stderr=subprocess.STDOUT).returncode
+                                 "--run", label] + ["--wrappers"] * wrappers,
+                                cwd=trees[i], stdout=f,
+                                stderr=subprocess.STDOUT).returncode
         with open(log) as f:
             lines = f.read().splitlines()
         print("\n".join(ln for ln in lines if ln.startswith(KEEP)))

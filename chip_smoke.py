@@ -14,7 +14,14 @@ and PyTorch built for CUDA. It
    they take in bands of rows (16x352x1216), and their launch plan's
    Python mirror against each kernel's own; the shift correlation with dM
    in f32 and in bf16, each timed beside its own bound, and its cut's
-   Python mirror against the kernel's;
+   Python mirror against the kernel's; then exports ``forward_test``
+   through ``python -m rdfc_gan_torch.tools.export_model``'s code path
+   with ``--check`` at 4x224x304 (the flagship in full and
+   ``--depth_only``, the NLSPN config), loads each ``.pt2`` in a fresh
+   process that imports only torch and ``rdfc_gan_torch.ops.kernels``,
+   holds its outputs against the live forward and counts its launches
+   (``export_phase``); and holds the general deformable ops, the DCNv2
+   backward's repeat and ``nlspn_refine_stencil`` (``deform_phase``);
 3. serves ``configs/rdf_gan_nlspn_config.yaml`` at full width through
    ``python -m rdfc_gan_torch.test``'s code path, with random weights from a
    seed and non-zero NLSPN offsets, and checks that its kernels carried it;
@@ -3813,6 +3820,410 @@ def data_parallel_phase(workdir, device="cuda:0", flagship=None, nlspn=None,
              + "; ".join(problems))
 
 
+# the loading host of an exported program: torch and the kernels' ops,
+# nothing else of the port. argv: the .pt2, the inputs file, the outputs
+# file. One forward counted, then 20 timed (each synchronized), after 3
+# warm-up forwards, under deterministic cuDNN and no TF32, as the engine
+# serves.
+EXPORT_LOADER = """
+import json, sys, time
+import torch
+import rdfc_gan_torch.ops.kernels
+from rdfc_gan_torch.ops.kernels import build
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+t0 = time.perf_counter()
+ep = torch.export.load(sys.argv[1])
+serve = ep.module()
+load_s = time.perf_counter() - t0
+rgb, raw = (t.cuda() for t in torch.load(sys.argv[2]))
+with torch.no_grad():
+    build.reset_launches()
+    out = serve(rgb, raw)
+    torch.cuda.synchronize()
+    counts = dict(build.LAUNCHES)
+    for _ in range(3):
+        serve(rgb, raw)
+    ms = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        serve(rgb, raw)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+torch.save({k: v.cpu() for k, v in out.items()}, sys.argv[3])
+print(json.dumps(dict(
+    counts=counts, ms=ms, load_s=load_s, state=sorted(ep.state_dict),
+    modules=sorted(m for m in sys.modules if m.startswith("rdfc_gan_torch")),
+    device=torch.cuda.get_device_name(0))))
+"""
+EXPORT_RTOL = EXPORT_ATOL = 2e-5
+
+
+def _ms_stats(ms):
+    import numpy as np
+
+    return float(np.median(ms)), float(np.percentile(ms, 90))
+
+
+def export_phase(workdir):
+    """``python -m rdfc_gan_torch.tools.export_model``'s code path (``run``,
+    the body of its ``main``) with ``--check`` at 4x224x304, three times:
+    the flagship in full and with ``--depth_only`` (seeded random weights)
+    and the NLSPN config (the serve phase's seeded G, its offsets scaled
+    to TARGET_MAX_OFFSET on the sample batch, through ``--load_from``).
+    Each ``.pt2`` is loaded in a fresh process that imports only torch and
+    ``rdfc_gan_torch.ops.kernels`` and run on the card; its outputs are
+    held against the live ``forward_test`` (rtol = atol = 2e-5), its
+    launches a forward counted (#7 four times, #1 and #3 once for NLSPN),
+    the depth-only file checked for G_label weights; export seconds,
+    artifact MB and the median and p90 ms of 20 forwards, exported against
+    live, printed. Deterministic cuDNN throughout."""
+    import torch
+
+    from rdfc_gan_torch.cli import parse_config
+    from rdfc_gan_torch.ops.kernels import build
+    from rdfc_gan_torch.tools import export_model
+
+    t_phase = time.perf_counter()
+    nlspn_cfg = os.path.join(ROOT, "configs", "rdf_gan_nlspn_config.yaml")
+    flagship_cfg = os.path.join(ROOT, "configs",
+                                "rdf_cycle_patchgan_config.yaml")
+    rgb, raw = export_model.sample_inputs(B, H, W, 0, "cuda")
+    cfg = parse_config(["--model_cfg_path", nlspn_cfg, "--work_dir",
+                        workdir, "--out_height", str(H), "--out_width",
+                        str(W), "--device", "cuda"])
+    g = _seeded_generator(cfg, "cuda", dict(rgb=rgb, raw_depth=raw))
+    g_pth = os.path.join(workdir, "export_G.pth")
+    torch.save({"G_state_dict": g.state_dict()}, g_pth)
+    del g
+    in_per_forward = {"instance_norm_fwd": 4}
+    cases = (("flagship", flagship_cfg, (), in_per_forward),
+             ("flagship --depth_only", flagship_cfg, ("--depth_only",),
+              in_per_forward),
+             ("nlspn", nlspn_cfg, ("--load_from", g_pth),
+              {**in_per_forward, "shift_mask_scatter": 1,
+               "nlspn_propagate": 1}))
+    print(f"export: {gpu_line()}")
+    for title, cfg_path, extra, want_counts in cases:
+        out = os.path.join(workdir, title.replace(" --", "_") + ".pt2")
+        argv = ["--model_cfg_path", cfg_path, "--out", out, "--batch_size",
+                str(B), "--out_height", str(H), "--out_width", str(W),
+                "--device", "cuda", "--check", *extra]
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True,
+                                        allow_tf32=False):
+            res = export_model.run(argv)
+            engine = res["engine"]
+            depth_only = "--depth_only" in extra
+            nodes = collections.Counter(
+                str(n.target) for n in res["program"].graph.nodes
+                if str(n.target).startswith(build.OP_NAMESPACE))
+            live = engine.forward_test(rgb=rgb, raw_depth=raw,
+                                       depth_only=depth_only)
+            live_ms = []
+            for _ in range(3):
+                engine.forward_test(rgb=rgb, raw_depth=raw,
+                                    depth_only=depth_only)
+            for _ in range(20):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engine.forward_test(rgb=rgb, raw_depth=raw,
+                                    depth_only=depth_only)
+                torch.cuda.synchronize()
+                live_ms.append((time.perf_counter() - t0) * 1e3)
+        export_s, export_mb = res["seconds"], res["bytes"] / 1e6
+        inputs = os.path.join(workdir, "export_inputs.pt")
+        outputs = os.path.join(workdir, "export_outputs.pt")
+        torch.save((rgb.cpu(), raw.cpu()), inputs)
+        del res, engine
+        torch.cuda.empty_cache()
+        proc = subprocess.run(
+            [sys.executable, "-c", EXPORT_LOADER, out, inputs, outputs],
+            cwd=workdir, env=dict(os.environ, PYTHONPATH=ROOT),
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"export {title}: the loading process failed:\n"
+                 f"{proc.stderr[-3000:]}")
+        info = json.loads(proc.stdout.strip().splitlines()[-1])
+        got = torch.load(outputs)
+        if set(got) != set(live):
+            fail(f"export {title}: outputs {sorted(got)}, live "
+                 f"{sorted(live)}")
+        errs = {k: compare(f"export {title} {k}, loaded program vs live",
+                           got[k].cuda(), live[k], EXPORT_RTOL, EXPORT_ATOL,
+                           quiet=True) for k in sorted(live)}
+        med, p90 = _ms_stats(info["ms"])
+        lmed, lp90 = _ms_stats(live_ms)
+        print(f"  {title}: {export_mb:.2f} MB, traced and saved in "
+              f"{export_s:.2f} s; op nodes {dict(nodes)}")
+        print(f"    loaded in a fresh process ({info['device']}) in "
+              f"{info['load_s']:.2f} s; max |exported - live| "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (tolerance {EXPORT_ATOL:g}); launches a forward "
+              f"{info['counts']}")
+        print(f"    ms a forward (batch {B}, 20 forwards): exported median "
+              f"{med:.3f}, p90 {p90:.3f}; live median {lmed:.3f}, p90 "
+              f"{lp90:.3f}")
+        if info["counts"] != want_counts:
+            fail(f"export {title}: launches a forward {info['counts']}, "
+                 f"expected {want_counts}")
+        if dict(nodes) != {f"{build.OP_NAMESPACE}.{k}.default": v
+                           for k, v in want_counts.items()}:
+            fail(f"export {title}: op nodes {dict(nodes)}")
+        if any(m.startswith(("rdfc_gan_torch.engines",
+                             "rdfc_gan_torch.models"))
+               for m in info["modules"]):
+            fail(f"export {title}: the loading process imported "
+                 f"{info['modules']}")
+        has_label = any("G_label" in k for k in info["state"])
+        if has_label != (title == "flagship"):
+            fail(f"export {title}: G_label weights in the file: {has_label}")
+    print(f"  export_phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+# a DCNv2 layer of a resnet18 layer 1 at 224x304 / 4
+DCN_SHAPE = (B, 64, H // 4, W // 4)
+DEFORM_RTOL = DEFORM_ATOL = 1e-5
+# F.conv2d (cuDNN, TF32 off) against the deformable conv at zero offsets:
+# the same products summed in another order
+DCN_CONV_RTOL, DCN_CONV_ATOL = 1e-4, 1e-5
+
+
+def _plain_gather(src, idx):
+    """``torch.gather``, whose CUDA backward adds with atomics: what
+    ``ops.deform._FixedOrderGather`` replaces, patched in for the record."""
+    import torch
+
+    return torch.gather(src, 2, idx.expand(src.shape[0], src.shape[1],
+                                           idx.shape[-1]))
+
+
+def deform_phase(workdir):
+    """The general deformable ops and the stencil refine on the card:
+    ``modulated_deform_conv`` at NLSPN's own use (C = 1, K = 9, weight of
+    ones, mask = the affinity, 4x1x224x304) against one gather step of
+    ``nlspn_propagate``, its backward run twice and held bit-equal; a
+    DCNv2 layer 4x64x56x76 -> 64, groups 1 and 64,
+    at zero offsets against ``F.conv2d`` (TF32 off) and at offsets up to 4
+    pixels against the CPU, its backward run twice and held bit-equal (and
+    the same with ``torch.gather``'s own backward patched in, reported),
+    forward and forward + backward timed, peak memory;
+    ``deform_psroi_pooling`` (1x490x38x50, 64 ROIs, P = 7, 4 samples a
+    part, output_dim 10) against the CPU; ``nlspn_refine_stencil`` at
+    4x224x304 (S = 8, T = 18), on the inputs of the seeded NLSPN
+    generator's refine block (as ``export_phase`` seeds it), bit for bit
+    against its own composition, with
+    its launches (#1 and #3 once), its offsets and affinities against the
+    CPU's, its masks and chain against the CPU's from the same offsets
+    (the masks rounded to bf16, as the card's chain rounds them) at the
+    served tolerance, and its distance to the unrounded CPU run
+    printed."""
+    import torch
+    import torch.nn.functional as F
+
+    from rdfc_gan_torch.cli import parse_config
+    from rdfc_gan_torch.ops import (NLSPNParamsSpec, deform,
+                                    deform_psroi_pooling,
+                                    modulated_deform_conv, nlspn_propagate,
+                                    nlspn_refine_stencil)
+    from rdfc_gan_torch.ops.kernels import build, nlspn_kernel
+    from rdfc_gan_torch.ops.nlspn import nlspn_offset_affinity
+    from rdfc_gan_torch.ops.nlspn_stencil import build_shift_masks
+    from rdfc_gan_torch.tools import export_model
+
+    t_phase = time.perf_counter()
+    print(f"deform: {gpu_line()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    R = 2
+    with torch.no_grad():
+        offsets, aff, feat, _ = mask_inputs(gen, R)
+        got = modulated_deform_conv(feat, offsets, aff,
+                                    torch.ones((1, 1, 3, 3), device="cuda"))
+        want = nlspn_propagate(feat, offsets, aff,
+                               NLSPNParamsSpec(prop_time=1))
+    compare(f"modulated_deform_conv {B}x1x{H}x{W} (weight of ones, mask = "
+            f"affinity) vs one nlspn_propagate gather step", got, want,
+            DEFORM_RTOL, DEFORM_ATOL)
+    ins = [t.clone().requires_grad_() for t in (feat, offsets, aff)]
+
+    def nlspn_use_grads():
+        for t in ins:
+            t.grad = None
+        modulated_deform_conv(*ins, torch.ones(
+            (1, 1, 3, 3), device="cuda")).square().sum().backward()
+        return [t.grad.clone() for t in ins]
+
+    repeats = all(torch.equal(u, v) for u, v in zip(nlspn_use_grads(),
+                                                    nlspn_use_grads()))
+    print(f"  modulated_deform_conv {B}x1x{H}x{W}: backward twice bit-equal "
+          f"{repeats} (feat, offsets, mask)")
+    if not repeats:
+        fail(f"modulated_deform_conv {B}x1x{H}x{W}: two backward passes "
+             f"differ")
+    del ins
+
+    b, c, h, w = DCN_SHAPE
+    x = torch.randn(DCN_SHAPE, device="cuda", generator=gen)
+    off = torch.empty((b, 9, 2, h, w), device="cuda").uniform_(
+        -4, 4, generator=gen)
+    mask = torch.rand((b, 9, h, w), device="cuda", generator=gen)
+    bias = torch.randn((c,), device="cuda", generator=gen)
+    gout = torch.randn(DCN_SHAPE, device="cuda", generator=gen)
+    tag = f"DCNv2 {b}x{c}x{h}x{w} -> {c}"
+    for groups in (1, c):
+        wt = torch.randn((c, c // groups, 3, 3), device="cuda",
+                         generator=gen) / (9 * c // groups) ** 0.5
+        with torch.no_grad(), torch.backends.cudnn.flags(
+                enabled=True, benchmark=False, deterministic=True,
+                allow_tf32=False):
+            zero = modulated_deform_conv(x, torch.zeros_like(off), None, wt,
+                                         bias, groups=groups)
+            ref = F.conv2d(x, wt, bias, padding=1, groups=groups)
+            got = modulated_deform_conv(x, off, mask, wt, bias,
+                                        groups=groups)
+            conv_ms = time_ms(lambda: F.conv2d(x, wt, bias, padding=1,
+                                               groups=groups))
+            fwd_ms = time_ms(lambda: modulated_deform_conv(
+                x, off, mask, wt, bias, groups=groups))
+        compare(f"{tag} groups {groups}, zero offsets vs F.conv2d", zero,
+                ref, DCN_CONV_RTOL, DCN_CONV_ATOL)
+        cpu = modulated_deform_conv(x.cpu(), off.cpu(), mask.cpu(),
+                                    wt.cpu(), bias.cpu(), groups=groups)
+        compare(f"{tag} groups {groups}, offsets up to 4 px, card vs CPU",
+                got, cpu.cuda(), DEFORM_RTOL, DEFORM_ATOL)
+        ins = [t.clone().requires_grad_() for t in (x, off, mask, wt)]
+
+        def fwd_bwd():
+            for t in ins:
+                t.grad = None
+            modulated_deform_conv(*ins, bias, groups=groups).backward(gout)
+            return [t.grad.clone() for t in ins]
+
+        first, second = fwd_bwd(), fwd_bwd()
+        repeats = all(torch.equal(u, v) for u, v in zip(first, second))
+        with mock.patch.object(deform._FixedOrderGather, "apply",
+                               _plain_gather):
+            p1, p2 = fwd_bwd(), fwd_bwd()
+        plain_diff = float((p1[0] - p2[0]).abs().max())
+        fb_ms = time_ms(fwd_bwd, reps=10)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fwd_bwd()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        print(f"  {tag} groups {groups}: backward twice bit-equal "
+              f"{repeats} (feat, offsets, mask, weight); with torch.gather's "
+              f"own backward bit-equal {torch.equal(p1[0], p2[0])}, max "
+              f"|dfeat diff| {plain_diff:.3e}")
+        print(f"    ms: forward {fwd_ms:.3f} (F.conv2d at zero offsets "
+              f"{conv_ms:.3f}), forward + backward {fb_ms:.3f}; peak memory "
+              f"of a forward + backward {peak / 2**20:.1f} MiB")
+        if not repeats:
+            fail(f"{tag} groups {groups}: two backward passes differ")
+
+    P, n = 7, 64
+    pfeat = torch.randn((1, P * P * 10, 38, 50), device="cuda",
+                        generator=gen)
+    # ROIs in the image of a 1/16 feature map (800x608)
+    corners = torch.rand((n, 4), device="cuda", generator=gen) * \
+        torch.tensor([800.0, 608.0, 800.0, 608.0], device="cuda")
+    rois = torch.stack([torch.zeros(n, device="cuda"),
+                        torch.minimum(corners[:, 0], corners[:, 2]),
+                        torch.minimum(corners[:, 1], corners[:, 3]),
+                        torch.maximum(corners[:, 0], corners[:, 2]),
+                        torch.maximum(corners[:, 1], corners[:, 3])], 1)
+    poff = (torch.rand((n, 2, P, P), device="cuda", generator=gen) - 0.5)
+    kw = dict(pooled_size=P, output_dim=10, spatial_scale=1 / 16,
+              sample_per_part=4, gamma=0.1)
+    with torch.no_grad():
+        got = deform_psroi_pooling(pfeat, rois, poff, **kw)
+        roi_ms = time_ms(lambda: deform_psroi_pooling(pfeat, rois, poff,
+                                                      **kw))
+    cpu = deform_psroi_pooling(pfeat.cpu(), rois.cpu(), poff.cpu(), **kw)
+    if tuple(got.shape) != (n, 10, P, P):
+        fail(f"deform_psroi_pooling shape {tuple(got.shape)}")
+    compare(f"deform_psroi_pooling 1x490x38x50, {n} ROIs, card vs CPU "
+            f"({roi_ms:.3f} ms on the card)", got, cpu.cuda(), DEFORM_RTOL,
+            DEFORM_ATOL)
+
+    # the refine's inputs as the served NLSPN generator makes them: the
+    # serve phase's seeded G on the export tool's sample batch, its NLSPN
+    # block's guide, confidence, initial depth and sparse depth captured
+    cfg = parse_config(["--model_cfg_path", os.path.join(
+        ROOT, "configs", "rdf_gan_nlspn_config.yaml"), "--work_dir",
+        workdir, "--out_height", str(H), "--out_width", str(W), "--device",
+        "cuda"])
+    rgb, raw_depth = export_model.sample_inputs(B, H, W, 0, "cuda")
+    g = _seeded_generator(cfg, "cuda", dict(rgb=rgb, raw_depth=raw_depth))
+    seen = {}
+    block = g._nlspn_block
+
+    def spy(guide, confidence, pred_init, origin_depth):
+        seen.update(guide=guide, conf=confidence, pred=pred_init,
+                    fix=origin_depth)
+        return block(guide, confidence, pred_init, origin_depth)
+
+    g._nlspn_block = spy
+    with torch.no_grad():
+        g(rgb, raw_depth)
+        prop = g.nlspn_refine_module.prop_layer
+        raw = prop.conv_offset_aff(seen["guide"])
+    gamma, spec, R = prop.aff_scale_const.detach(), g.nlspn_spec, \
+        g.nlspn_offset_radius
+    pred, conf, fix = seen["pred"], seen["conf"], seen["fix"]
+    del g, seen
+    if (spec.prop_time, R) != (T, 2):
+        fail(f"the NLSPN config's prop_time {spec.prop_time} and radius {R}"
+             f", expected {T} and 2")
+    with torch.no_grad():
+        build.reset_launches()
+        got = nlspn_refine_stencil(pred, raw, conf, gamma, spec, fix, R=R)
+        torch.cuda.synchronize()
+        counts = dict(build.LAUNCHES)
+        refine_ms = time_ms(lambda: nlspn_refine_stencil(
+            pred, raw, conf, gamma, spec, fix, R=R))
+        offs, affs = nlspn_offset_affinity(raw, conf, gamma, spec)
+        own = nlspn_kernel.propagate_auto(
+            pred, build_shift_masks(offs, affs, 3, R), T, R, fix,
+            spec.preserve_input)
+        coffs, caffs = nlspn_offset_affinity(raw.cpu(), conf.cpu(),
+                                             gamma.cpu(), spec)
+        served_cpu = nlspn_kernel.nlspn_stencil_propagate(
+            pred.cpu(), build_shift_masks(offs.cpu(), affs.cpu(), 3, R),
+            fix.cpu(), T, R, spec.preserve_input)
+        plain_cpu = nlspn_refine_stencil(pred.cpu(), raw.cpu(), conf.cpu(),
+                                         gamma.cpu(), spec, fix.cpu(), R=R)
+    tag = f"nlspn_refine_stencil {B}x{H}x{W} S={2 * R + 4} T={T}"
+    print(f"  {tag}: {refine_ms:.3f} ms on the card, launches {counts}")
+    if counts != {"shift_mask_scatter": 1, "nlspn_propagate": 1}:
+        fail(f"{tag}: launches {counts}, expected the scatter and the "
+             f"served chain once each")
+    compare(f"{tag} vs its own composition", got, own, 0.0, 0.0)
+    compare(f"{tag} offsets, card vs CPU", offs, coffs.cuda(), DEFORM_RTOL,
+            DEFORM_ATOL)
+    compare(f"{tag} affinities, card vs CPU", affs, caffs.cuda(),
+            DEFORM_RTOL, DEFORM_ATOL)
+    compare(f"{tag} vs the CPU's masks and served chain from the same "
+            f"offsets (M in bf16)", got, served_cpu.cuda(), SERVE_RTOL,
+            SERVE_ATOL)
+    diff = (got - plain_cpu.cuda()).abs()
+    print(f"  {tag} vs its CPU run, whose masks stay f32 (the card's chain "
+          f"rounds them to bf16): max_abs_diff {float(diff.max()):.3e}, "
+          f"max|ref| {float(plain_cpu.abs().max()):.3e}, median abs diff "
+          f"{float(diff.median()):.3e}, max_abs_diff / max|ref| "
+          f"{float(diff.max() / plain_cpu.abs().max()):.3e}; max|initial "
+          f"depth| "
+          f"{float(pred.abs().max()):.3e}, max|offset| "
+          f"{float(offs.abs().max()):.3f}, preserve_input "
+          f"{spec.preserve_input}")
+    print(f"  deform_phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "rdfc_gan_torch", "csrc")):
         fail(f"no rdfc_gan_torch package beside {__file__}")
@@ -3840,6 +4251,8 @@ def main():
     conv_rows = conv_block_phase()
     batchnorm_rounding_check()
     with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=ROOT) as workdir:
+        export_phase(workdir)
+        deform_phase(workdir)
         counts, engine, batch = serve_phase(workdir)
         profile_phase(engine, batch)
         del engine

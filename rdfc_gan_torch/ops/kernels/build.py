@@ -15,6 +15,12 @@ served chain) and ``nlspn_propagate_x`` (the chain that also stores X),
 ``conv3x3_bf16.cu`` (the bf16 conv block) as ``conv3x3_fwd`` and
 ``conv3x3_bwd``, ``conv_block.cu`` (its f32 case) as ``conv3x3_fwd_f32`` and
 ``conv3x3_bwd_f32``.
+
+The three kernels of the served path (the shift-mask scatter, the served
+chain and the instance norm's forward) are also dispatcher ops of the
+``OP_NAMESPACE`` namespace (``define_op``), so that ``torch.export``
+keeps them in an exported program; their count is taken inside the op's
+CUDA implementation, so a run of such a program counts its launches too.
 """
 
 from __future__ import annotations
@@ -40,10 +46,14 @@ SOURCES = ("shift_mask_scatter", "shift_mask_gather", "nlspn_propagate",
            "conv_block", "conv3x3_bf16")
 
 LAUNCHES: collections.Counter = collections.Counter()
+OP_NAMESPACE = "rdfc_gan_torch"
 # ptxas report (registers, shared memory, spills) of each built kernel,
 # kept beside its library as lib<name>-<hash>.so.log
 BUILD_LOGS: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# the dispatcher library that defines the served kernels' ops (its ops go
+# when it is collected)
+_OPS = torch.library.Library(OP_NAMESPACE, "DEF")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -182,6 +192,22 @@ def check(lib: ctypes.CDLL, name: str, code: int):
 
 def stream_handle() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def define_op(schema: str, cuda, cpu, fake):
+    """Define the dispatcher op ``OP_NAMESPACE::<schema>``: ``cuda`` is its
+    CUDA kernel (the launch), ``cpu`` its CPU kernel (the plain version),
+    ``fake`` the outputs' shapes and types for a meta or fake (traced)
+    tensor. Registered through ``torch.library.Library``, whose dispatch
+    calls the kernel directly: ``torch.library.custom_op`` adds a Python
+    wrapper to every call. Returns the op's overload, called as a
+    function."""
+    name = schema.split("(", 1)[0]
+    _OPS.define(schema)
+    _OPS.impl(name, cuda, "CUDA")
+    _OPS.impl(name, cpu, "CPU")
+    torch.library.register_fake(f"{OP_NAMESPACE}::{name}", fake, lib=_OPS)
+    return getattr(getattr(torch.ops, OP_NAMESPACE), name).default
 
 
 def require_cuda(name: str, *tensors: torch.Tensor):

@@ -10,7 +10,9 @@ rdfc_gan_tpu/ops/pallas/mask_kernel.py).
 
 ``scatter_shift_masks`` is differentiable in ``w``: its backward is the
 gather. Each wrapper takes its plain version for a tensor on the CPU and
-launches its kernel, or raises, for any other.
+launches its kernel, or raises, for any other. The scatter, a kernel of
+the served path, is the dispatcher op ``rdfc_gan_torch::shift_mask_scatter``
+(``scatter_op``), which ``torch.export`` keeps in an exported program.
 """
 
 from __future__ import annotations
@@ -49,20 +51,11 @@ def scatter_shift_masks_plain(w: torch.Tensor, sy: torch.Tensor,
     return M.reshape(B, S * S, H, W).to(w.dtype)
 
 
-def _scatter(w: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
-             S: int) -> torch.Tensor:
-    if w.device.type == "cpu":
-        return scatter_shift_masks_plain(w, sy, sx, S)
+def _scatter_launch(w: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
+                    S: int) -> torch.Tensor:
+    """The CUDA implementation of ``scatter_op``: one launch of
+    ``shift_mask_scatter``, counted."""
     lib = build.library(NAME)
-    build.require_cuda(NAME, w, sy, sx)
-    if w.dim() != 4 or sy.shape != w.shape or sx.shape != w.shape:
-        raise ValueError(f"{NAME}: w, sy, sx must share one (B,K,H,W) shape")
-    if w.dtype not in _FLOATS:
-        raise ValueError(f"{NAME}: w must be f32 or bf16, got {w.dtype}")
-    if sy.dtype != torch.int32 or sx.dtype != torch.int32:
-        raise ValueError(f"{NAME}: sy and sx must be int32")
-    if not 1 <= S <= 12:
-        raise ValueError(f"{NAME}: S={S} outside [1, 12]")
     B, K, H, W = w.shape
     M = torch.empty((B, S * S, H, W), dtype=w.dtype, device=w.device)
     rc = lib.shift_mask_scatter(w.data_ptr(), sy.data_ptr(), sx.data_ptr(),
@@ -72,6 +65,35 @@ def _scatter(w: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
     build.check(lib, NAME, rc)
     build.LAUNCHES[NAME] += 1
     return M
+
+
+def _scatter_fake(w, sy, sx, S):
+    B, K, H, W = w.shape
+    return w.new_empty((B, S * S, H, W))
+
+
+# the scatter as a dispatcher op, so that ``torch.export`` keeps it as one
+# node: the CUDA kernel on the card, the plain version on the CPU
+scatter_op = build.define_op(
+    f"{NAME}(Tensor w, Tensor sy, Tensor sx, int S) -> Tensor",
+    _scatter_launch, scatter_shift_masks_plain, _scatter_fake)
+
+
+def _scatter(w: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
+             S: int) -> torch.Tensor:
+    if w.device.type != "cpu":
+        build.library(NAME)
+        build.require_cuda(NAME, w, sy, sx)
+        if w.dim() != 4 or sy.shape != w.shape or sx.shape != w.shape:
+            raise ValueError(f"{NAME}: w, sy, sx must share one (B,K,H,W) "
+                             f"shape")
+        if w.dtype not in _FLOATS:
+            raise ValueError(f"{NAME}: w must be f32 or bf16, got {w.dtype}")
+        if sy.dtype != torch.int32 or sx.dtype != torch.int32:
+            raise ValueError(f"{NAME}: sy and sx must be int32")
+        if not 1 <= S <= 12:
+            raise ValueError(f"{NAME}: S={S} outside [1, 12]")
+    return scatter_op(w, sy, sx, S)
 
 
 class _ScatterShiftMasks(torch.autograd.Function):

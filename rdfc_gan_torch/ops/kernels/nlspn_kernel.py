@@ -6,7 +6,9 @@ dispatcher ``propagate_auto`` (port of rdfc_gan_tpu/ops/pallas/
 nlspn_kernel.py). The plain versions are ``stencil_propagate``,
 ``propagate_x_plain`` and ``reverse_chain_plain`` of ``ops/nlspn_stencil``.
 Each kernel runs a whole chain in one cooperative launch; ``chain_plan``
-mirrors how both cut it (the plan of ``csrc/nlspn_chain.cuh``).
+mirrors how both cut it (the plan of ``csrc/nlspn_chain.cuh``). The served
+chain is the dispatcher op ``rdfc_gan_torch::nlspn_propagate``
+(``chain_op``), which ``torch.export`` keeps in an exported program.
 
 As on the TPU, the kernel path rounds the mask stack to bf16 and sums in
 f32 (nlspn_kernel.py:303), so its output differs from the unrounded plain
@@ -240,6 +242,36 @@ def _needs_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
+def _chain_launch(feat0: torch.Tensor, M16: torch.Tensor,
+                  fix: Optional[torch.Tensor], prop_time: int,
+                  R: int) -> torch.Tensor:
+    """The CUDA implementation of ``chain_op``: one cooperative launch of
+    the served chain, counted."""
+    out = _launch_chain(build.library(NAME), feat0, M16, fix, None, R,
+                        prop_time)
+    build.LAUNCHES[NAME] += 1
+    return out
+
+
+def _chain_plain(feat0, M16, fix, prop_time, R):
+    """The served chain's plain version: the f32 stencil over the bf16
+    masks (B, H, W) planes in and out."""
+    return stencil_propagate(feat0[:, None], M16, prop_time, R,
+                             None if fix is None else fix[:, None],
+                             fix is not None)[:, 0]
+
+
+def _chain_fake(feat0, M16, fix, prop_time, R):
+    return torch.empty_like(feat0)
+
+
+# the served chain as a dispatcher op, so that ``torch.export`` keeps it as
+# one node: the CUDA kernel on the card, the plain version on the CPU
+chain_op = build.define_op(
+    f"{NAME}(Tensor feat0, Tensor M16, Tensor? fix, int prop_time, int R)"
+    f" -> Tensor", _chain_launch, _chain_plain, _chain_fake)
+
+
 def nlspn_stencil_propagate(feat_init: torch.Tensor, M: torch.Tensor,
                             feat_fix: Optional[torch.Tensor], prop_time: int,
                             R: int = 2,
@@ -248,17 +280,14 @@ def nlspn_stencil_propagate(feat_init: torch.Tensor, M: torch.Tensor,
     ``preserve_input``); M: (B, S, S, H, W). Rounds M to bf16, then runs
     ``prop_time`` steps. When a gradient is wanted it is the card Function
     (kernels 4, 5 and the shift correlation on the card, their plain
-    versions on the CPU); otherwise the served chain: the plain stencil for
-    a CPU tensor, else the CUDA kernel (one cooperative launch) or raise.
-    The kernels take the shift windows of ``CHAIN_WINDOWS`` (R = 0..4);
-    another raises ValueError."""
-    if feat_init.device.type == "cpu":
-        if _needs_grad(feat_init, M, feat_fix):
-            return _CardPropagate.apply(feat_init, M, feat_fix, prop_time, R,
-                                        preserve_input)
-        return stencil_propagate(feat_init, M.to(torch.bfloat16), prop_time,
-                                 R, feat_fix, preserve_input)
-    lib = build.library(NAME)
+    versions on the CPU); otherwise the served chain, the dispatcher op
+    ``rdfc_gan_torch::nlspn_propagate`` (``chain_op``): the plain stencil
+    for a CPU tensor, else the CUDA kernel (one cooperative launch) or
+    raise. The kernels take the shift windows of ``CHAIN_WINDOWS``
+    (R = 0..4); another raises ValueError."""
+    on_card = feat_init.device.type != "cpu"
+    if on_card:
+        build.library(NAME)
     B, C, H, W = feat_init.shape
     if C != 1:
         raise ValueError(f"{NAME}: feat (B,1,H,W) expected, got "
@@ -272,10 +301,11 @@ def nlspn_stencil_propagate(feat_init: torch.Tensor, M: torch.Tensor,
         return _CardPropagate.apply(feat_init, M, feat_fix, prop_time, R,
                                     preserve_input)
     feat0 = feat_init[:, 0].float().contiguous()
+    M16 = M.to(torch.bfloat16).contiguous()
     fix = feat_fix[:, 0].float().contiguous() if preserve_input else None
-    out = _launch_chain(lib, feat0, M.to(torch.bfloat16).contiguous(), fix,
-                        None, R, prop_time)
-    build.LAUNCHES[NAME] += 1
+    if on_card:
+        _check_planes(NAME, feat0, M16, fix, R)
+    out = chain_op(feat0, M16, fix, prop_time, R)
     return out[:, None].to(feat_init.dtype)
 
 

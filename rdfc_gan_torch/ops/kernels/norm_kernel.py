@@ -15,8 +15,10 @@ step amplifies a last-bit change of these statistics far beyond rounding,
 PERF.md). The backward reads the forward's output y and the (B, C)
 f32 scale a, not x (the JAX residuals). Each wrapper takes its plain
 version for a tensor on the CPU and launches its kernel, or raises, for
-any other. The JAX function's ``pack`` (a TPU lane layout) has no
-counterpart here.
+any other. The forward, a kernel of the served path, is the dispatcher op
+``rdfc_gan_torch::instance_norm_fwd`` (``fwd_op``), which ``torch.export``
+keeps in an exported program. The JAX function's ``pack`` (a TPU lane
+layout) has no counterpart here.
 
 The plain versions sum in their kernel's order, divide as IEEE does and
 take a correctly rounded rsqrt, as the kernels do, so the two agree bit for
@@ -238,16 +240,12 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
-def instance_norm_fwd(x: torch.Tensor, eps: float
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, C, H, W) f32 or bf16. Returns (y in x.dtype, a (B, C) f32)."""
-    if x.device.type == "cpu":
-        return instance_norm_fwd_plain(x, eps)
+def _fwd_launch(x: torch.Tensor, eps: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA implementation of ``fwd_op``: one launch of
+    ``instance_norm_fwd``, counted."""
     lib = build.library(SOURCE)
-    _check(FWD, x)
     B, C, H, W = x.shape
-    _check_stage(FWD, fwd_plan(H * W, x.element_size()), 1, H, W,
-                 x.element_size())
     x = _aligned(x)
     y = torch.empty_like(x)
     a = torch.empty((B, C), dtype=torch.float32, device=x.device)
@@ -258,6 +256,32 @@ def instance_norm_fwd(x: torch.Tensor, eps: float
     build.check(lib, FWD, rc)
     build.LAUNCHES[FWD] += 1
     return y, a
+
+
+def _fwd_fake(x, eps):
+    return torch.empty_like(x), x.new_empty(x.shape[:2],
+                                            dtype=torch.float32)
+
+
+# the forward as a dispatcher op, so that ``torch.export`` keeps it as one
+# node: the CUDA kernel on the card, the plain version on the CPU
+fwd_op = build.define_op(
+    f"{FWD}(Tensor x, float eps) -> (Tensor, Tensor)", _fwd_launch,
+    instance_norm_fwd_plain, _fwd_fake)
+
+
+def instance_norm_fwd(x: torch.Tensor, eps: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, C, H, W) f32 or bf16. Returns (y in x.dtype, a (B, C) f32),
+    through the dispatcher op ``rdfc_gan_torch::instance_norm_fwd``
+    (``fwd_op``)."""
+    if x.device.type != "cpu":
+        build.library(SOURCE)
+        _check(FWD, x)
+        B, C, H, W = x.shape
+        _check_stage(FWD, fwd_plan(H * W, x.element_size()), 1, H, W,
+                     x.element_size())
+    return fwd_op(x, float(eps))
 
 
 def instance_norm_bwd(dy: torch.Tensor, y: torch.Tensor,

@@ -186,3 +186,17 @@ def nlspn_propagate(feat_init: torch.Tensor, offsets: torch.Tensor,
         g = torch.gather(feat, 1, idx_flat).reshape(B, K4, H * W)
         feat = torch.sum(g * w, dim=1)
     return feat.reshape(B, 1, H, W).to(feat_init.dtype)
+
+
+def nlspn_refine(pred_init: torch.Tensor, offset_aff_raw: torch.Tensor,
+                 confidence: Optional[torch.Tensor],
+                 aff_scale_const: torch.Tensor, spec: NLSPNParamsSpec,
+                 origin_depth: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The whole NLSPN refine stage (NLSPNRefineModule.forward,
+    nlspn_model.py:191-197): offsets and affinities once, then the gather
+    propagation. pred_init, origin_depth: (B, 1, H, W). Returns the refined
+    depth; the caller keeps its own confidence."""
+    offsets, aff = nlspn_offset_affinity(offset_aff_raw, confidence,
+                                         aff_scale_const, spec)
+    return nlspn_propagate(pred_init, offsets, aff, spec,
+                           feat_fix=origin_depth)

@@ -63,3 +63,20 @@ def escalate_nlspn_cfg(g_cfg: dict, max_offset: float,
             max_offset, MAX_STENCIL_RADIUS)
         g_cfg["nlspn_impl"] = "gather"
     return g_cfg, True
+
+
+def guard_loaded_engine(cfg, engine, batch, rebuild):
+    """After a checkpoint load: probe ``batch`` and, where the offsets pass
+    the stencil radius, merge the escalated generator config into
+    ``cfg.model.G`` and return ``rebuild()``, an engine built (and loaded)
+    anew from ``cfg``. Returns (engine, max |offset| or None, changed); a
+    config without a ``G`` node is returned unprobed."""
+    g_node = cfg.model.get("G")
+    if g_node is None:
+        return engine, None, False
+    max_offset = probe_max_offset(engine, batch)
+    g_cfg, changed = escalate_nlspn_cfg(g_node.to_dict(), max_offset)
+    if changed:
+        g_node.merge(g_cfg)
+        engine = rebuild()
+    return engine, max_offset, changed

@@ -195,3 +195,24 @@ def stencil_propagate(feat_init: torch.Tensor, M: torch.Tensor,
         return feat_init.clone()
     return _StencilPropagate.apply(feat_init, M, feat_fix, prop_time, R,
                                    preserve_input)
+
+
+def nlspn_refine_stencil(pred_init: torch.Tensor,
+                         offset_aff_raw: torch.Tensor,
+                         confidence: Optional[torch.Tensor],
+                         aff_scale_const: torch.Tensor, spec,
+                         origin_depth: Optional[torch.Tensor] = None,
+                         R: int = 2) -> torch.Tensor:
+    """``ops.nlspn.nlspn_refine`` on the stencil path: offsets and
+    affinities (confidence sampled by the gather), the shift masks of clamp
+    radius R, then ``propagate_auto`` (the scatter kernel and the card's
+    chain for a CUDA tensor). ``spec`` is an ``NLSPNParamsSpec``."""
+    from .kernels.nlspn_kernel import propagate_auto
+    from .nlspn import nlspn_offset_affinity
+
+    offsets, aff = nlspn_offset_affinity(offset_aff_raw, confidence,
+                                         aff_scale_const, spec)
+    M = build_shift_masks(offsets, aff, spec.prop_kernel, R)
+    return propagate_auto(pred_init, M, spec.prop_time, R,
+                          feat_fix=origin_depth,
+                          preserve_input=spec.preserve_input)

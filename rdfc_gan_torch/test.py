@@ -40,7 +40,7 @@ from .cli import parse_config
 from .data import DataLoader
 from .engines import build_engine
 from .evaluator import Eval
-from .ops.nlspn_guard import escalate_nlspn_cfg, probe_max_offset
+from .ops.nlspn_guard import guard_loaded_engine
 from .parallel import (broadcast_from_rank0, destroy, init_distributed,
                        is_main, rank, world_size)
 from .registry import build_dataset
@@ -114,19 +114,21 @@ def _serve(cfg) -> dict:
     if cfg.load_from:
         meta = load_checkpoint(engine.modules, cfg.load_from, logger.log)
         logger.log(f"loaded {cfg.load_from} (epoch {meta.get('epoch')})")
-        g_node = cfg.model.get("G")
-        changed = False
-        if g_node is not None:
-            max_offset = probe_max_offset(engine, next(iter(loader)))
-            g_cfg, changed = escalate_nlspn_cfg(g_node.to_dict(), max_offset)
+
+        def rebuild():
+            fresh = build_engine(cfg, is_train=False)
+            load_checkpoint(fresh.modules, cfg.load_from)
+            return fresh
+
+        probed = engine
+        engine, max_offset, changed = guard_loaded_engine(
+            cfg, engine, next(iter(loader)), rebuild)
         if changed:
-            logger.log(f"NLSPN max|offset|={max_offset:.2f}: rebuilding the "
-                       f"generator with {g_cfg.get('nlspn_impl', 'auto')!r} "
-                       f"impl, R={g_cfg.get('nlspn_offset_radius')}")
-            g_node.merge(g_cfg)
-            forwards += engine.n_forward  # the probe's, on the old engine
-            engine = build_engine(cfg, is_train=False)
-            load_checkpoint(engine.modules, cfg.load_from)
+            g = cfg.model.G
+            logger.log(f"NLSPN max|offset|={max_offset:.2f}: rebuilt the "
+                       f"generator with {g.get('nlspn_impl', 'auto')!r} "
+                       f"impl, R={g.get('nlspn_offset_radius')}")
+            forwards += probed.n_forward  # the probe's, on the old engine
     broadcast_from_rank0([t for m in engine.modules.values()
                           for t in (*m.parameters(), *m.buffers())])
 

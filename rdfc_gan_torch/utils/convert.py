@@ -1,7 +1,9 @@
 """JAX (Flax) weights -> the port's state dicts: the RDFGenerator, the
 PatchGAN, the ResnetGenerator, NNET (G_normal), PSPNet (G_label) and the
 RDFCGAN's six nets. Each takes the Flax ``params`` / ``batch_stats`` trees
-as numpy arrays.
+as numpy arrays. Also the deformable ops' tensors
+(``deform_conv_weight_from_jax``, ``deform_offsets_from_jax``,
+``deform_mask_from_jax``).
 
 ``nnet_state_dict_from_jax`` and ``pspnet_state_dict_from_jax`` are the
 inverses of the JAX package's ``utils/torch_convert.py:convert_nnet`` and
@@ -635,3 +637,37 @@ def pointnet_state_dict_from_jax(params: Dict[str, Any],
             _bn(sd, f"bn{i + 1}", params[f"BatchNorm_{i}"],
                 batch_stats[f"BatchNorm_{i}"])
     return sd
+
+
+# --------------------------------------------------- deformable ops --
+def deform_conv_weight_from_jax(w, groups: int, kh: int,
+                                kw: int) -> torch.Tensor:
+    """The JAX ``modulated_deform_conv`` weight (K, Cin/g, Cout) -> the
+    port's (Cout, Cin/g, kh, kw), the reference DCNv2 schema.
+
+    The JAX function reads its weight, for groups > 1, as
+    ``reshape(K, g, Cin/g, Cout/g)`` (rdfc_gan_tpu/ops/deform.py:160): the
+    weight of output j of group gi, input c of that group and tap k is
+    ``w.reshape(K, g, Cin/g, Cout/g)[k, gi, c, j]``, not ``w[k, c, gi *
+    Cout/g + j]`` as an HWIO layout would have it (the two agree only where
+    Cin/g = 1). This takes the JAX function's own reading, so the port
+    equals it at every ``groups``."""
+    w = np.asarray(w)
+    K, cg, cout = w.shape
+    if K != kh * kw or cout % groups:
+        raise ValueError(f"(K={kh * kw}, Cin/g, Cout) with groups={groups} "
+                         f"dividing Cout expected, got {w.shape}")
+    og = cout // groups
+    return _t(w.reshape(K, groups, cg, og).transpose(1, 3, 2, 0).reshape(
+        cout, cg, kh, kw))
+
+
+def deform_offsets_from_jax(offsets) -> torch.Tensor:
+    """JAX offsets (B, H, W, K, 2) -> the port's (B, K, 2, H, W); (dy, dx)
+    stay in that order."""
+    return _t(np.asarray(offsets).transpose(0, 3, 4, 1, 2))
+
+
+def deform_mask_from_jax(mask) -> torch.Tensor:
+    """A JAX modulation mask (B, H, W, K) -> the port's (B, K, H, W)."""
+    return _t(np.asarray(mask).transpose(0, 3, 1, 2))

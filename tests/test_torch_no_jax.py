@@ -61,7 +61,11 @@ def test_port_imports_no_jax():
         "        'rdfc_gan_torch.utils.point_cloud',\n"
         "        'rdfc_gan_torch.tools.main_v1',\n"
         "        'rdfc_gan_torch.tools.main_vanilla',\n"
-        "        'rdfc_gan_torch.tools.dataset_checker'} <= set(names)\n"
+        "        'rdfc_gan_torch.tools.dataset_checker',\n"
+        "        'rdfc_gan_torch.ops.deform',\n"
+        "        'rdfc_gan_torch.ops.deform_roi',\n"
+        "        'rdfc_gan_torch.tools.export_model',\n"
+        "        'rdfc_gan_torch.utils.image_pool'} <= set(names)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'rdfc_gan_tpu',\n"
         "              'tools', 'attic', 'cv2', 'PIL', 'imageio', 'h5py',\n"
@@ -222,6 +226,19 @@ class _FakeLib:
         return lambda *args: 0
 
 
+def _ops_launch_on_meta(monkeypatch):
+    """The served kernels are dispatcher ops, which run their fake (shape)
+    implementation for a meta tensor: route each wrapper's op to the op's
+    CUDA implementation, the faked launch, instead."""
+    from rdfc_gan_torch.ops.kernels import mask_kernel, nlspn_kernel, \
+        norm_kernel
+
+    monkeypatch.setattr(mask_kernel, "scatter_op",
+                        mask_kernel._scatter_launch)
+    monkeypatch.setattr(nlspn_kernel, "chain_op", nlspn_kernel._chain_launch)
+    monkeypatch.setattr(norm_kernel, "fwd_op", norm_kernel._fwd_launch)
+
+
 def test_kernel_results_carry_grad_fn(monkeypatch):
     """Fault 1 of slice 1: a ctypes launch returns a tensor outside the
     autograd graph. The kernel path (here on meta tensors, which are not
@@ -233,6 +250,7 @@ def test_kernel_results_carry_grad_fn(monkeypatch):
     monkeypatch.setattr(build, "library", lambda name: _FakeLib())
     monkeypatch.setattr(build, "require_cuda", lambda name, *t: None)
     monkeypatch.setattr(build, "stream_handle", lambda: None)
+    _ops_launch_on_meta(monkeypatch)
     build.reset_launches()
     meta = dict(device="meta")
     B, K, S, H, W, T = 2, 36, 8, 5, 6, 3
@@ -265,6 +283,7 @@ def test_instance_norm_result_carries_grad_fn(monkeypatch):
     monkeypatch.setattr(build, "library", lambda name: _FakeLib())
     monkeypatch.setattr(build, "require_cuda", lambda name, *t: None)
     monkeypatch.setattr(build, "stream_handle", lambda: None)
+    _ops_launch_on_meta(monkeypatch)
     build.reset_launches()
     for dt in (torch.float32, torch.bfloat16):
         x = torch.empty((2, 3, 14, 19), dtype=dt,
