@@ -105,7 +105,16 @@ and PyTorch built for CUDA. It
    group (f32 flagship and RDF-GAN steps against world 1, 4 bf16 flagship
    steps bit-equal across the ranks with their launch counts, an NLSPN
    evaluation with pad rows against world 1's);
-13. prints the card's name and power limit, one ``{"kernels": [...]}``
+13. serves width-sharded (``spatial_phase``, the JAX ``spatial_sharding``):
+   after the IN forward's split for a sharded plane is held against its
+   plain versions and its M = 1 composition against the forward kernel
+   (``in_split_phase``, with the kernel phases), gloo ranks on the one card
+   serve the flagship at 2x480x640 on three ``data`` x ``model`` grids in
+   full and ``--depth_only``, and the NLSPN config on two ranks, each held
+   against the unsharded forward with its launches counted, and
+   ``rdfc_gan_torch.test`` serves with a ``model`` axis, its metrics held to
+   world 1's; peak memory a rank, bytes exchanged and times printed;
+14. prints the card's name and power limit, one ``{"kernels": [...]}``
    line, and ``{"ok": true, "device": {...}}`` as the last line.
 
 It exits non-zero, printing no result, when there is no card or no
@@ -3820,6 +3829,541 @@ def data_parallel_phase(workdir, device="cuda:0", flagship=None, nlspn=None,
              + "; ".join(problems))
 
 
+# width-sharded serving (spatial_phase): the served batch and plane, the
+# grids each pool of ranks runs (by world size), the timed forwards
+SPATIAL_B, SPATIAL_SIZE = 2, (480, 640)
+SPATIAL_GRIDS = {2: ({"model": 2},), 4: ({"model": 4},
+                                         {"data": 2, "model": 2})}
+SPATIAL_REPS = 5
+SPLIT = ("instance_norm_moments", "instance_norm_apply")
+
+
+def _mesh_label(mesh) -> str:
+    return "x".join(f"{k}{v}" for k, v in mesh.items())
+
+
+def _ulps(a, b) -> int:
+    """The largest distance in f32 units in the last place between two f32
+    tensors of one sign."""
+    import torch
+
+    ia, ib = (t.contiguous().view(torch.int32).long() for t in (a, b))
+    return int((ia - ib).abs().max())
+
+
+def in_split_phase():
+    """The IN forward's split for width-sharded planes: the moments and
+    apply kernels bit for bit against their plain versions at the four
+    W-AdaIN planes of a 2x480x640 forward, whole and as M = 2 and M = 4
+    shards; their M = 1 composition bit for bit against the forward kernel
+    (#7); the statistics of the M-shard composition beside #7's; times at
+    the M = 2 shard (a rank's launch) beside #7 on that shard and
+    ``torch.var_mean`` / ``torch.addcmul``. Returns the two kernel rows,
+    each time summed over the four planes."""
+    import torch
+
+    from rdfc_gan_torch.ops.kernels import norm_kernel as nk
+
+    shapes = tuple((SPATIAL_B,) + s[1:] for s in fuse_in_shapes(
+        *SPATIAL_SIZE))
+    print(f"instance norm split (moments + apply) at the W-AdaIN planes of "
+          f"{SPATIAL_B}x{SPATIAL_SIZE[0]}x{SPATIAL_SIZE[1]}: {shapes}")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    acc = {k: collections.defaultdict(float) for k in SPLIT}
+    for shape in shapes:
+        x = torch.randn(shape, device="cuda", generator=gen) * 3 + 1.5
+        B_, C_, h, w = shape
+        y7, a7 = nk.instance_norm_fwd(x, 1e-5)
+        y1, a1 = nk.instance_norm_fwd_sharded(x, 1e-5)
+        compare(f"M=1 composition y {shape} vs #7", y1, y7, 0.0, 0.0,
+                quiet=True)
+        compare(f"M=1 composition a {shape} vs #7", a1, a7, 0.0, 0.0,
+                quiet=True)
+        worst = {}
+        for M in (1, 2, 4):
+            cols = w // M
+            parts = [x[..., m * cols:(m + 1) * cols].contiguous()
+                     for m in range(M)]
+            sums = [nk.instance_norm_moments(p) for p in parts]
+            for m, (p, s) in enumerate(zip(parts, sums)):
+                acc[SPLIT[0]]["err"] = max(acc[SPLIT[0]]["err"], compare(
+                    f"instance_norm_moments {shape} M={M} m={m}", s,
+                    nk.instance_norm_moments_plain(p), 0.0, 0.0, quiet=True))
+            total = sums[0]
+            for s in sums[1:]:
+                total = total + s
+            a, b = nk.instance_norm_finalize(total, h * w, 1e-5)
+            for m, p in enumerate(parts):
+                acc[SPLIT[1]]["err"] = max(acc[SPLIT[1]]["err"], compare(
+                    f"instance_norm_apply {shape} M={M} m={m}",
+                    nk.instance_norm_apply(p, a, b),
+                    nk.instance_norm_apply_plain(p, a, b), 0.0, 0.0,
+                    quiet=True))
+            worst[M] = _ulps(a, a7)
+            if worst[M] > 1:
+                fail(f"instance norm split {shape} M={M}: the scale is "
+                     f"{worst[M]} ulps from #7's")
+        xs = x[..., :w // 2].contiguous()
+        n_el, planes = xs.numel(), B_ * C_
+        s = nk.instance_norm_moments(xs)
+        a, b = nk.instance_norm_finalize(s, h * w // 2, 1e-5)
+        a4, b4 = a[:, :, None, None], b[:, :, None, None]
+        t = dict(
+            moments=time_ms(lambda: nk.instance_norm_moments(xs)),
+            apply=time_ms(lambda: nk.instance_norm_apply(xs, a, b)),
+            fwd=time_ms(lambda: nk.instance_norm_fwd(xs, 1e-5)),
+            var_mean=time_ms(lambda: torch.var_mean(xs, dim=(2, 3))),
+            addcmul=time_ms(lambda: torch.addcmul(b4, xs, a4)),
+            moments_plain=time_ms(lambda: nk.instance_norm_moments_plain(xs),
+                                  reps=3, warmup=1),
+            apply_plain=time_ms(lambda: nk.instance_norm_apply_plain(xs, a,
+                                                                     b)))
+        # f64: a convert, an add, a multiply and an add an element (at the
+        # f32 rate, as the forward's row counts them); apply: a multiply
+        # and an add
+        cost = {SPLIT[0]: (n_el * 4 + planes * 16,
+                           n_el * 4.0 * PEAK_F32_FLOPS / PEAK_F64_FLOPS),
+                SPLIT[1]: (2 * n_el * 4 + planes * 8, 2.0 * n_el)}
+        for name, key, lib in ((SPLIT[0], "moments", "var_mean"),
+                               (SPLIT[1], "apply", "addcmul")):
+            r = acc[name]
+            r["ms"] += t[key]
+            r["plain_ms"] += t[key + "_plain"]
+            r["library_ms"] += t[lib]
+            r["bytes"] += cost[name][0]
+            r["ops"] += cost[name][1]
+        print(f"  {shape}: M=1 composition = #7 bit for bit; moments and "
+              f"apply = plain bit for bit at M=1, 2, 4; scale a vs #7's: "
+              + ", ".join(f"M={M} {u} ulp" for M, u in worst.items())
+              + f"; at the M=2 shard {tuple(xs.shape)} ms: moments "
+              f"{t['moments']:.4f} + apply {t['apply']:.4f} (#7 whole "
+              f"{t['fwd']:.4f}), var_mean {t['var_mean']:.4f}, addcmul "
+              f"{t['addcmul']:.4f}")
+    rows = {}
+    for name in SPLIT:
+        r = acc[name]
+        bnd, by = bound_ms(r["bytes"], r["ops"])
+        rows[name] = dict(
+            name=name, route="cuda",
+            source="rdfc_gan_torch/csrc/instance_norm.cu",
+            replaces="attic/norm_kernel.py:211", max_abs_err=r["err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=bnd, bound_by=by,
+            library_ms=r["library_ms"])
+        print(f"  {name}, the four planes at the M=2 shard: kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms ({'torch.var_mean' if name == SPLIT[0] else 'torch.addcmul'}), "
+              f"bound {bnd * 1e3:.2f} us ({by})")
+    return rows
+
+
+def _spatial_forward(engine, batch, grid, depth_only, device):
+    """One forward of ``engine`` on ``batch`` (this data row's rows, or the
+    whole batch without a grid); synchronized."""
+    out = engine.forward_test(rgb=batch["rgb"], raw_depth=batch["raw_depth"],
+                              depth_only=depth_only, grid=grid)
+    _sync(device)
+    return out
+
+
+def _spatial_measure(engine, batch, grid, depth_only, device):
+    """A warm-up forward, one counted (launches, bytes exchanged, peak
+    memory; its outputs on the host) and SPATIAL_REPS timed (host clock,
+    each synchronized)."""
+    import torch
+
+    from rdfc_gan_torch.ops.kernels import build
+    from rdfc_gan_torch.parallel import halo
+
+    on_card = torch.device(device).type == "cuda"
+    _spatial_forward(engine, batch, grid, depth_only, device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if on_card else 0
+    build.reset_launches()
+    halo.reset_stats()
+    out = _spatial_forward(engine, batch, grid, depth_only, device)
+    res = dict(out={k: v.float().cpu() for k, v in out.items()},
+               launches=dict(build.LAUNCHES), exchanged=dict(halo.STATS),
+               base=base,
+               peak=torch.cuda.max_memory_allocated() if on_card else 0)
+    ms = []
+    for _ in range(SPATIAL_REPS):
+        t0 = time.perf_counter()
+        _spatial_forward(engine, batch, grid, depth_only, device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    res["ms"] = ms
+    return res
+
+
+@contextlib.contextmanager
+def _block_inputs(G, seen: dict, use=None):
+    """Record the inputs of G's NLSPN block in ``seen`` (under a grid: the
+    row's gathered width), on the host; with ``use``, run the block on
+    those tensors instead of its own."""
+    block = G._nlspn_block
+
+    def recorded(*inputs):
+        if use is not None:
+            inputs = [t.to(inputs[0].device) for t in use]
+        seen["inputs"] = [t.float().cpu() for t in inputs]
+        return block(*inputs)
+
+    G._nlspn_block = recorded
+    try:
+        yield
+    finally:
+        del G._nlspn_block
+
+
+def _wait_for(path: str, timeout: float = 600):
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if time.perf_counter() - t0 > timeout:
+            raise RuntimeError(f"{path} did not appear within {timeout} s")
+        time.sleep(0.2)
+
+
+def _spatial_engines(spec, device):
+    """The flagship and NLSPN serving engines of ``spec``, loaded from its
+    seeded checkpoints."""
+    from rdfc_gan_torch.cli import parse_config
+    from rdfc_gan_torch.engines import build_engine
+    from rdfc_gan_torch.utils.checkpoint import load_checkpoint
+
+    engines = {}
+    for net in ("flagship", "nlspn"):
+        engines[net] = build_engine(parse_config(spec["args"][net]))
+        load_checkpoint(engines[net].modules, spec["pth"][net])
+    return engines
+
+
+def spatial_rank_main(rank: int, world: int, port: int, spec_path: str):
+    """One rank of ``spatial_phase``: a gloo group of ``world`` ranks on the
+    spec's device. Waits for its turn (a file), then runs its pool's grids
+    (``SPATIAL_GRIDS``): the flagship in full and ``--depth_only``, and
+    with the NLSPN config on a two-rank grid, each ``_spatial_measure``d;
+    the two-rank pool then serves ``rdfc_gan_torch.test`` with the spec's
+    sharded config. Writes its results beside the spec."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from rdfc_gan_torch import test as port_test
+    from rdfc_gan_torch.cli import parse_config
+    from rdfc_gan_torch.ops.kernels import build
+    from rdfc_gan_torch.parallel import rank_rows
+    from rdfc_gan_torch.parallel.grid import make_grid
+
+    spec = torch.load(spec_path, weights_only=False)
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    here = os.path.dirname(spec_path)
+    out = {}
+    try:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=False):
+            engines = _spatial_engines(spec, dev)
+            batch = {net: {k: v.to(dev) for k, v in b.items()}
+                     for net, b in spec["batch"].items()}
+            _wait_for(os.path.join(here, spec["after"][world]))
+            t0 = time.perf_counter()
+            for mesh in SPATIAL_GRIDS[world]:
+                grid = make_grid(mesh)
+                label = _mesh_label(mesh)
+                jobs = [("flagship", False), ("flagship", True)]
+                if world == 2:
+                    jobs.append(("nlspn", False))
+                for net, depth_only in jobs:
+                    rb = {k: rank_rows(v, grid.d, grid.D)
+                          for k, v in batch[net].items()}
+                    res = out[(label, net, depth_only)] = _spatial_measure(
+                        engines[net], rb, grid, depth_only, dev)
+                    if net == "nlspn":
+                        seen = {}
+                        with _block_inputs(engines[net].modules["G"], seen):
+                            _spatial_forward(engines[net], rb, grid, False,
+                                             dev)
+                        res["block_inputs"] = seen["inputs"]
+            del engines
+            if world == 2:
+                build.reset_launches()
+                res = port_test.run(parse_config(spec["cli"]))
+                out["cli"] = dict(metrics=res["metrics"],
+                                     forwards=res["forwards"],
+                                     launches=dict(build.LAUNCHES))
+            out["seconds"] = time.perf_counter() - t0
+        torch.save(out, os.path.join(here, f"w{world}_rank{rank}.pt"))
+    finally:
+        dist.barrier()
+        if rank == 0:
+            open(os.path.join(here, f"w{world}.done"), "w").close()
+        dist.destroy_process_group()
+
+
+def _nlspn_block_check(title, engine, inputs, ref, got, spec, device):
+    """The NLSPN block of a sharded forward: its inputs (the row's gathered
+    guide, confidence, initial depth and raw depth) against the unsharded
+    forward's at SERVE_RTOL / SERVE_ATOL; then the unsharded forward run
+    with its block fed those same inputs, which the sharded outputs must
+    match at that tolerance (returned as the reference). The seeded
+    affinities make the T-step chain amplify its input's rounding (its
+    output grows thousands-fold), so the plain unsharded forward's
+    depth_map_2 is printed beside it, not held."""
+    import torch
+
+    for name, a, b in zip(("guide", "confidence", "pred_init",
+                           "origin_depth"), inputs, ref["block_inputs"]):
+        compare(f"{title} NLSPN block input {name}", a, b, SERVE_RTOL,
+                SERVE_ATOL)
+    b = {k: v.to(device) for k, v in spec["batch"]["nlspn"].items()}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False), \
+            _block_inputs(engine.modules["G"], {}, use=inputs):
+        out = _spatial_forward(engine, b, None, False, device)
+    fed = dict(ref, out={k: v.float().cpu() for k, v in out.items()})
+    d_in = max(float((a - b_).abs().max()) for a, b_ in
+               zip(inputs, ref["block_inputs"]))
+    d_out = float((got["depth_map_2"] - ref["out"]["depth_map_2"]).abs()
+                  .max())
+    print(f"  {title}: the block's inputs within {d_in:.3e} of the "
+          f"unsharded forward's; depth_map_2 against the unsharded forward "
+          f"{d_out:.3e} (the chain's amplification, not held); held below "
+          f"against the unsharded forward with the same block inputs")
+    return fed
+
+
+def spatial_phase(workdir, device="cuda:0", flagship=None, nlspn=None,
+                  size=SPATIAL_SIZE):
+    """Width-sharded serving on the one card (the JAX spatial_sharding).
+    Ranks run on ``device`` in gloo groups the phase makes (NCCL refuses two
+    ranks on one card): a pool of 2 ranks and one of 4, started at once,
+    each a ``python -c "...spatial_rank_main(...)"`` process, taking turns
+    through files (this process's references first, then the 2-rank pool,
+    then the 4-rank one) so that their timed forwards do not overlap. The
+    flagship (seeded, f32, no TF32, deterministic cuDNN) at
+    ``SPATIAL_B`` x ``size`` on {model: 2}, {model: 4} and {data: 2, model:
+    2}, in full and ``--depth_only``, and the NLSPN config on {model: 2}:
+    each rank's shards assembled and held against the unsharded forward at
+    SERVE_RTOL / SERVE_ATOL; a sharded flagship forward launches the IN
+    split's moments and apply 4 times each and #7 never on every rank
+    (NLSPN: also #1 and #3 once), the unsharded one #7 4 times;
+    ``rdfc_gan_torch.test`` with mesh_shape {data: 1, model: 2} gives the
+    world-1 metrics. Prints the per-rank peak memory at M = 1, 2 and 4, the
+    bytes exchanged a forward, the median ms of SPATIAL_REPS forwards after
+    a warm-up (time-sliced ranks on one card: not a scaling result) and
+    the phase's seconds (a rank holds the flagship's and the NLSPN config's
+    weights). Returns rank 0's launch counts of one {model: 2} flagship
+    forward. ``flagship``, ``nlspn`` and ``size`` default to the
+    two published configs at 480x640."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    from rdfc_gan_torch import test as port_test
+    from rdfc_gan_torch.cli import parse_config
+    from rdfc_gan_torch.engines import build_engine
+    from rdfc_gan_torch.ops.kernels import build
+    from rdfc_gan_torch.utils import set_random_seed
+    from rdfc_gan_torch.utils.checkpoint import save_checkpoint
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        print(gpu_line())
+    flagship = flagship or os.path.join(ROOT, "configs",
+                                        "rdf_cycle_patchgan_config.yaml")
+    nlspn = nlspn or os.path.join(ROOT, "configs",
+                                  "rdf_gan_nlspn_config.yaml")
+    sp = os.path.join(workdir, "spatial")
+    os.makedirs(sp, exist_ok=True)
+
+    def args(config, work, bs=SPATIAL_B):
+        return ["--dataset", "synthetic", "--model_cfg_path", config,
+                "--work_dir", os.path.join(sp, work), "--out_height",
+                str(size[0]), "--out_width", str(size[1]), "--batch_size",
+                str(bs), "--num_workers", "2", "--device", device]
+
+    spec = dict(device=device, args=dict(flagship=args(flagship, "f"),
+                                         nlspn=args(nlspn, "n")),
+                pth={}, batch={}, after={2: "main.done", 4: "w2.done"})
+    cfg = parse_config(spec["args"]["flagship"])
+    set_random_seed(cfg.seed)
+    engine = build_engine(cfg)
+    spec["pth"]["flagship"] = os.path.join(sp, "flagship.pth")
+    save_checkpoint(engine.modules, spec["pth"]["flagship"])
+    del engine
+    cfgn = parse_config(spec["args"]["nlspn"])
+    spec["pth"]["nlspn"] = _seeded_nets(cfgn, sp, device)
+    for net in ("flagship", "nlspn"):
+        loader = port_test.build_val_loader(
+            parse_config(spec["args"][net]), torch.device("cpu"))
+        spec["batch"][net] = next(iter(loader))
+    # rdfc_gan_torch.test's config: the flagship's with a model axis of 2
+    sharded_yaml = os.path.join(sp, "sharded.yaml")
+    with open(flagship) as f, open(sharded_yaml, "w") as g:
+        g.write(f.read() + "\nmesh_shape: {data: 1, model: 2}\n")
+    cli_w1 = args(flagship, "cli1", 4) + ["--depth_only"]
+    spec["cli"] = args(sharded_yaml, "cli2", 4) + ["--depth_only"]
+    spec_path = os.path.join(sp, "spec.pt")
+    torch.save(spec, spec_path)
+    if on_card:
+        torch.cuda.empty_cache()
+
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    procs = []
+    for world in SPATIAL_GRIDS:
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            port = sk.getsockname()[1]
+        procs += [(world, r, subprocess.Popen(
+            [sys.executable, "-c",
+             f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+             f"chip_smoke.spatial_rank_main({r}, {world}, {port}, "
+             f"{spec_path!r})"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)) for r in range(world)]
+    try:
+        # meanwhile: the world-1 rdfc_gan_torch.test run and the unsharded
+        # references
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=False):
+            w1 = port_test.run(parse_config(cli_w1))
+            engines = _spatial_engines(spec, device)
+            refs = {}
+            for net, depth_only in (("flagship", False), ("flagship", True),
+                                    ("nlspn", False)):
+                b = {k: v.to(device) for k, v in spec["batch"][net].items()}
+                refs[(net, depth_only)] = _spatial_measure(
+                    engines[net], b, None, depth_only, device)
+            seen = {}
+            with _block_inputs(engines["nlspn"].modules["G"], seen):
+                _spatial_forward(engines["nlspn"], b, None, False, device)
+            refs[("nlspn", False)]["block_inputs"] = seen["inputs"]
+            nlspn_engine = engines["nlspn"]
+            del engines
+        if on_card:
+            torch.cuda.empty_cache()
+        open(os.path.join(sp, "main.done"), "w").close()
+        outs = []
+        for world, r, p in procs:
+            try:
+                outs.append(p.communicate(timeout=600))
+            except subprocess.TimeoutExpired:
+                fail("a width-sharding rank did not end within 600 s")
+        for (world, r, p), (_, err) in zip(procs, outs):
+            if p.returncode != 0:
+                fail(f"width-sharding world {world} rank {r} exited "
+                     f"{p.returncode}:\n{err[-4000:]}")
+    finally:
+        for _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    res = {world: [torch.load(os.path.join(sp, f"w{world}_rank{r}.pt"),
+                              weights_only=False) for r in range(world)]
+           for world in SPATIAL_GRIDS}
+
+    def mib(n):
+        return f"{n / 2**20:.1f}"
+
+    print(f"width-sharded serving (gloo ranks time-sliced on one card: "
+          f"times are not a scaling result), batch {SPATIAL_B} at "
+          f"{size[0]}x{size[1]}, f32, deterministic cuDNN, no TF32:")
+    want_unsharded = {"instance_norm_fwd": 4}
+    for (net, depth_only), r in refs.items():
+        want = dict(want_unsharded)
+        if net == "nlspn":
+            want.update(shift_mask_scatter=1, nlspn_propagate=1)
+        if on_card and r["launches"] != want:
+            fail(f"unsharded {net}: launches {r['launches']}, expected "
+                 f"{want}")
+        print(f"  M=1 {net}{' --depth_only' if depth_only else ''}: peak "
+              f"{mib(r['peak'])} MiB ({mib(r['base'])} resident before the "
+              f"forward), median {np.median(r['ms']):.3f} ms "
+              f"({', '.join(f'{v:.1f}' for v in r['ms'])}), launches "
+              f"{r['launches']}")
+    split_counts = None
+    for world, ranks in res.items():
+        for mesh in SPATIAL_GRIDS[world]:
+            label = _mesh_label(mesh)
+            D, M = mesh.get("data", 1), mesh["model"]
+            for key in [k for k in ranks[0] if isinstance(k, tuple)
+                        and k[0] == label]:
+                _, net, depth_only = key
+                ref = refs[(net, depth_only)]
+                title = (f"{label} {net}"
+                         f"{' --depth_only' if depth_only else ''}")
+                got = {k: torch.cat([torch.cat(
+                    [ranks[d * M + m][key]["out"][k] for m in range(M)], 3)
+                    if ranks[0][key]["out"][k].dim() == 4 else
+                    ranks[d * M][key]["out"][k] for d in range(D)])
+                    if ranks[0][key]["out"][k].dim() == 4 else
+                    ranks[0][key]["out"][k] for k in ranks[0][key]["out"]}
+                if set(got) != set(ref["out"]):
+                    fail(f"{title}: outputs {sorted(got)}, unsharded "
+                         f"{sorted(ref['out'])}")
+                if net == "nlspn":
+                    ref = _nlspn_block_check(title, nlspn_engine, ranks[0][
+                        key]["block_inputs"], ref, got, spec, device)
+                errs = []
+                for k, v in ref["out"].items():
+                    if v.dim() == 4:
+                        errs.append(f"{k} {compare(f'{title} {k}', got[k], v, SERVE_RTOL, SERVE_ATOL, quiet=True):.2e}")
+                want = {n: 4 for n in SPLIT}
+                if net == "nlspn":
+                    want.update(shift_mask_scatter=1, nlspn_propagate=1)
+                for r_, rk in enumerate(ranks):
+                    if on_card and rk[key]["launches"] != want:
+                        fail(f"{title}: rank {r_} launched "
+                             f"{rk[key]['launches']}, expected {want}")
+                if key == ("model2", "flagship", False):
+                    split_counts = ranks[0][key]["launches"]
+                x = ranks[0][key]["exchanged"]
+                med = [np.median(rk[key]["ms"]) for rk in ranks]
+                print(f"  {title}: max_abs_err vs unsharded {', '.join(errs)}"
+                      f" (rtol {SERVE_RTOL:g}, atol {SERVE_ATOL:g}); peak a "
+                      f"rank {', '.join(mib(rk[key]['peak']) for rk in ranks)}"
+                      f" MiB ({mib(ranks[0][key]['base'])} resident before "
+                      f"the forward); exchanged by rank 0 a forward: halo "
+                      f"{x.get('halo_bytes', 0) / 2**20:.3f} MiB in "
+                      f"{x.get('halo_calls', 0)} calls, gathered "
+                      f"{x.get('gather_bytes', 0) / 2**20:.3f} MiB in "
+                      f"{x.get('gather_calls', 0)}, reduced "
+                      f"{x.get('reduce_bytes', 0) / 2**10:.3f} KiB in "
+                      f"{x.get('reduce_calls', 0)}; median ms a rank "
+                      f"{', '.join(f'{v:.1f}' for v in med)}; launches a rank "
+                      f"{ranks[0][key]['launches']}")
+        print(f"  the {world}-rank pool's grids took "
+              f"{max(rk['seconds'] for rk in ranks):.2f} s")
+    d0, d1 = (r["cli"] for r in res[2])
+    if d0["metrics"] != d1["metrics"]:
+        fail(f"sharded rdfc_gan_torch.test: the ranks' metrics differ: "
+             f"{d0} / {d1}")
+    for k, v in w1["metrics"].items():
+        if not np.isclose(d0["metrics"][k], v, rtol=SERVE_RTOL,
+                          atol=SERVE_ATOL):
+            fail(f"sharded rdfc_gan_torch.test {k}={d0['metrics'][k]}, "
+                 f"world 1 {v}")
+    if on_card and d0["launches"] != {n: 4 * d0["forwards"] for n in SPLIT}:
+        fail(f"sharded rdfc_gan_torch.test: launches {d0['launches']} for "
+             f"{d0['forwards']} forwards")
+    print(f"  rdfc_gan_torch.test --depth_only, mesh_shape {{data: 1, model: "
+          f"2}}, {len(w1['batch_seconds'])} batches of 4 at {size[0]}x"
+          f"{size[1]}: " + ", ".join(f"{k}={v:.6g}" for k, v in
+                                    d0["metrics"].items())
+          + f" = world 1 within rtol {SERVE_RTOL:g}; launches a rank "
+          f"{d0['launches']} for {d0['forwards']} forwards")
+    print(f"  width-sharding phase wall {time.perf_counter() - t_phase:.2f} s")
+    return split_counts
+
+
 # the loading host of an exported program: torch and the kernels' ops,
 # nothing else of the port. argv: the .pt2, the inputs file, the outputs
 # file. One forward counted, then 20 timed (each synchronized), after 3
@@ -4248,6 +4792,7 @@ def main():
     rows = kernel_phase()
     train_rows = backward_kernel_phase()
     in_rows = instance_norm_phase()
+    split_rows = in_split_phase()
     conv_rows = conv_block_phase()
     batchnorm_rounding_check()
     with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=ROOT) as workdir:
@@ -4276,6 +4821,7 @@ def main():
         v1_family_phase(workdir, s2d_root)
         nlspn_repeat_check(workdir)
         data_parallel_phase(workdir)
+        split_counts = spatial_phase(workdir)
     # launches: the scatter and the served chain from the serve run, the
     # NLSPN backward kernels from the RDFGAN train run, the IN and conv
     # kernels from the flagship train run
@@ -4285,8 +4831,12 @@ def main():
         row["launches"] = train_counts[name]
     for name, row in {**in_rows, **conv_rows}.items():
         row["launches"] = flagship_train_counts[name]
+    # the IN split's: from one width-sharded flagship forward on a rank
+    for name, row in split_rows.items():
+        row["launches"] = split_counts[name]
     rows.update(train_rows)
     rows.update(in_rows)
+    rows.update(split_rows)
     rows.update(conv_rows)
     print(gpu_line())
     print(json.dumps({"kernels": list(rows.values())}))

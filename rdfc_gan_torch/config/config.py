@@ -144,9 +144,10 @@ def default_config() -> Config:
             test_only=False,
             init_disc=False,
             cal_fps=False,
-            # the ranks' mesh: None puts every rank on 'data'; {'data': N}
-            # must name the world size; a 'model' axis is not ported
-            # (parallel.check_mesh_shape)
+            # the ranks' mesh: None puts every rank on 'data'; {'data': D,
+            # 'model': M} with D x M the world size: rows over 'data', a
+            # served image's width over 'model' (parallel.check_mesh_shape,
+            # parallel.grid)
             mesh_shape=None,
             # deterministic cuDNN algorithms (utils.seed.set_random_seed)
             deterministic=False,

@@ -1,4 +1,5 @@
-// Instance norm forward and its output-residual backward, for sm_90a.
+// Instance norm forward and its output-residual backward, for sm_90a; and
+// the forward split in two (moments, apply) for a width-sharded plane.
 //
 // Replaces attic/norm_kernel.py:_in_fwd_kernel (instance_norm_fwd_pallas)
 // and :_in_bwd_kernel (instance_norm_bwd_pallas), which compute the JAX
@@ -337,6 +338,72 @@ __global__ void __launch_bounds__(kMaxTeam)
   }
 }
 
+// ------------------------------------------------ forward, split in two --
+//
+// For a plane whose width is sharded over ranks (parallel/spatial.py): the
+// forward's sums of the rank's columns (moments), then, once the ranks'
+// sums are added and finalized as the forward finalizes them, y from a and
+// b (apply). Over a whole plane the two equal the forward bit for bit.
+
+// sums[plane] = {sum x, sum x * x} in f64, in the forward's order (the
+// forward's plan and per-thread vectors, read straight from x: nothing is
+// staged for a second pass).
+template <typename B, int VEC>
+__global__ void __launch_bounds__(kMaxTeam)
+    instance_norm_moments_kernel(const B* __restrict__ x,
+                                 double* __restrict__ sums, int planes, int n,
+                                 int cluster, int cvec, int team,
+                                 size_t stage_bytes) {
+  using P = Pack<B, VEC>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Place q = place<VEC>(planes, n, cluster, cvec, team);
+  const P* src = reinterpret_cast<const P*>(x + q.base) + q.v0;
+  double a1[VEC], a2[VEC];
+#pragma unroll
+  for (int l = 0; l < VEC; ++l) a1[l] = a2[l] = 0.0;
+  for (int v = q.t; v < q.nv; v += team) {
+    const P p = src[v];
+#pragma unroll
+    for (int l = 0; l < VEC; ++l) {
+      const double f = (double)bits_f32(p.e[l]);
+      a1[l] = __dadd_rn(a1[l], f);
+      a2[l] = __fma_rn(f, f, a2[l]);
+    }
+  }
+  const double2 s = plan_sum<VEC>(
+      a1, a2, q, team, cluster,
+      reinterpret_cast<double*>(smem + stage_bytes));
+  if (!q.live || q.rank != 0 || q.t != 0) return;
+  sums[2 * (long long)q.plane] = s.x;
+  sums[2 * (long long)q.plane + 1] = s.y;
+}
+
+// y = x * T(a) + T(b) in T, the forward's rounding; one thread a vector.
+template <typename B, int VEC>
+__global__ void __launch_bounds__(kBlockThreads)
+    instance_norm_apply_kernel(const B* __restrict__ x,
+                               const float* __restrict__ af,
+                               const float* __restrict__ bf,
+                               B* __restrict__ y, long long nvec, int pvec) {
+  using P = Pack<B, VEC>;
+  const P* src = reinterpret_cast<const P*>(x);
+  P* dst = reinterpret_cast<P*>(y);
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < nvec; i += (long long)gridDim.x * blockDim.x) {
+    const long long plane = i / pvec;
+    const float at = round_to<B>(af[plane]);
+    const float bt = round_to<B>(bf[plane]);
+    const P p = src[i];
+    P o;
+#pragma unroll
+    for (int l = 0; l < VEC; ++l) {
+      const float prod = round_to<B>(__fmul_rn(bits_f32(p.e[l]), at));
+      o.e[l] = f32_bits<B>(__fadd_rn(prod, bt));
+    }
+    dst[i] = o;
+  }
+}
+
 // ------------------------------------------------------------ backward --
 
 // dx = T(a) ((dy - T(m1)) - y T(m2)) in T, each step rounded to T, from
@@ -504,6 +571,54 @@ int launch_bwd(const void* dy, const void* y, const float* af, void* dx,
   return (int)cudaErrorInvalidValue;
 }
 
+template <typename B, int VEC>
+int launch_moments_vec(const void* x, double* sums, int planes, int n,
+                       const Plan& p, cudaStream_t stream) {
+  // the forward's plan; no array staged (arrays = 0)
+  return launch_planned(instance_norm_moments_kernel<B, VEC>, p, 0,
+                        (int)sizeof(B) * VEC, planes, stream,
+                        static_cast<const B*>(x), sums, planes, n);
+}
+
+template <typename B>
+int launch_moments(const void* x, double* sums, int planes, int n,
+                   cudaStream_t stream) {
+  const Plan p = fwd_plan(n, (int)sizeof(B));
+  switch (p.vec) {
+    case 1: return launch_moments_vec<B, 1>(x, sums, planes, n, p, stream);
+    case 2: return launch_moments_vec<B, 2>(x, sums, planes, n, p, stream);
+    case 4: return launch_moments_vec<B, 4>(x, sums, planes, n, p, stream);
+  }
+  if constexpr (sizeof(B) == 2)
+    return launch_moments_vec<B, 8>(x, sums, planes, n, p, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename B, int VEC>
+int launch_apply_vec(const void* x, const float* a, const float* b, void* y,
+                     int planes, int n, cudaStream_t stream) {
+  const long long nvec = (long long)planes * (n / VEC);
+  const long long want = (nvec + kBlockThreads - 1) / kBlockThreads;
+  const unsigned blocks = (unsigned)(want < (1 << 20) ? want : (1 << 20));
+  instance_norm_apply_kernel<B, VEC><<<blocks, kBlockThreads, 0, stream>>>(
+      static_cast<const B*>(x), a, b, static_cast<B*>(y), nvec, n / VEC);
+  return (int)cudaGetLastError();
+}
+
+template <typename B>
+int launch_apply(const void* x, const float* a, const float* b, void* y,
+                 int planes, int n, cudaStream_t stream) {
+  if ((long long)planes * n == 0) return 0;
+  switch (fwd_plan(n, (int)sizeof(B)).vec) {
+    case 1: return launch_apply_vec<B, 1>(x, a, b, y, planes, n, stream);
+    case 2: return launch_apply_vec<B, 2>(x, a, b, y, planes, n, stream);
+    case 4: return launch_apply_vec<B, 4>(x, a, b, y, planes, n, stream);
+  }
+  if constexpr (sizeof(B) == 2)
+    return launch_apply_vec<B, 8>(x, a, b, y, planes, n, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 void put_plan(const Plan& p, int* out) {
   out[0] = p.vec;
   out[1] = p.cluster;
@@ -522,6 +637,30 @@ extern "C" int instance_norm_fwd(const void* x, void* y, void* af, int planes,
   float* a = static_cast<float*>(af);
   return bf16 ? launch_fwd<unsigned short>(x, y, a, planes, n, eps, st)
               : launch_fwd<unsigned int>(x, y, a, planes, n, eps, st);
+}
+
+// x: (planes, n) contiguous, 16-byte aligned, f32 (bf16 = 0) or bf16;
+// sums: (planes, 2) f64, each plane's {sum x, sum x * x} in the forward's
+// order. Returns the cudaError_t of the launch.
+extern "C" int instance_norm_moments(const void* x, void* sums, int planes,
+                                     int n, int bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  double* s = static_cast<double*>(sums);
+  return bf16 ? launch_moments<unsigned short>(x, s, planes, n, st)
+              : launch_moments<unsigned int>(x, s, planes, n, st);
+}
+
+// x, y: (planes, n) contiguous, x 16-byte aligned, one type; a, b: (planes,)
+// f32. y = x * T(a) + T(b) as the forward writes it. Returns the
+// cudaError_t of the launch.
+extern "C" int instance_norm_apply(const void* x, const void* a,
+                                   const void* b, void* y, int planes, int n,
+                                   int bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* af = static_cast<const float*>(a);
+  const float* bf = static_cast<const float*>(b);
+  return bf16 ? launch_apply<unsigned short>(x, af, bf, y, planes, n, st)
+              : launch_apply<unsigned int>(x, af, bf, y, planes, n, st);
 }
 
 // The forward's and the backward's plans for a plane of n elements of size

@@ -38,7 +38,8 @@ import torch
 
 from ..losses import GANLoss, gradient_penalty, l1_loss
 from ..losses.gan_loss import global_count
-from ..parallel import all_reduce_grads
+from ..models.rdf_generator import RDFGenerator
+from ..parallel import all_reduce_grads, spatial
 from ..registry import MODELS, build_discriminator, build_generator
 from ..utils import pretrained
 from .base import BaseEngine, clip_gradients, make_optimizer
@@ -96,13 +97,24 @@ class RDFGAN(BaseEngine):
 
     @torch.inference_mode()
     def forward_test(self, rgb: torch.Tensor, raw_depth: torch.Tensor,
-                     depth_only: bool = False) -> dict:
+                     depth_only: bool = False, grid=None,
+                     assemble: bool = False) -> dict:
         """rgb: (B,3,H,W); raw_depth: (B,1,H,W), on the engine's device.
         ``depth_only`` is accepted for the driver's interface: this engine
-        has no auxiliary heads to skip."""
+        has no auxiliary heads to skip. ``grid`` and ``assemble``: width
+        sharding as ``RDFCGAN.forward_test`` (an ``RDFGenerator`` G; its
+        NLSPN block runs on the row's gathered width)."""
         del depth_only
         self.n_forward += 1
-        return _as_ret_dict(self.modules["G"].eval()(rgb, raw_depth))
+        G = self.modules["G"].eval()
+        if grid is None:
+            return _as_ret_dict(G(rgb, raw_depth))
+        if grid.M > 1 and not isinstance(G, RDFGenerator):
+            raise NotImplementedError(
+                f"width sharding covers the RDFGenerator, not "
+                f"{type(G).__name__}")
+        return spatial.serve(lambda r, d: _as_ret_dict(G(r, d)), grid, rgb,
+                             raw_depth, assemble=assemble)
 
     __call__ = forward_test
 

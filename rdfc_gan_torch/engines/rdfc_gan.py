@@ -61,7 +61,7 @@ from ..losses import (GANLoss, l1_loss, manhattan_loss, nor_loss,
 from ..losses.gan_loss import global_count
 from ..models.label_net import PSPNet
 from ..models.normal_net import NNET
-from ..parallel import all_reduce_grads, rank_rows, world_size
+from ..parallel import all_reduce_grads, rank_rows, spatial, world_size
 from ..registry import MODELS, build_discriminator, build_generator
 from ..utils import pretrained
 from ..utils.image_ops import add_pepper_noise, pepper_draw
@@ -142,11 +142,25 @@ class RDFCGAN(BaseEngine):
 
     @torch.inference_mode()
     def forward_test(self, rgb: torch.Tensor, raw_depth: torch.Tensor,
-                     depth_only: bool = False) -> dict:
+                     depth_only: bool = False, grid=None,
+                     assemble: bool = False) -> dict:
         """rgb: (B,3,H,W); raw_depth: (B,1,H,W), on the engine's device.
         Returns pred_depth (B,1,H,W), pred_normal (B,3,H,W) and, unless
-        ``depth_only``, pred_label (B,num_classes,H,W) logits."""
+        ``depth_only``, pred_label (B,num_classes,H,W) logits.
+
+        ``grid`` (``parallel.grid``, a ``model`` axis over M ranks): rgb
+        and raw_depth are this data row's rows at the whole width W, a
+        multiple of 32 M; the rank serves its W / M columns and returns its
+        shards of the outputs, or with ``assemble`` the whole width
+        (``parallel.spatial.serve``)."""
         self.n_forward += 1
+        if grid is not None:
+            return spatial.serve(self._forward_test, grid, rgb, raw_depth,
+                                 depth_only, assemble=assemble)
+        return self._forward_test(rgb, raw_depth, depth_only)
+
+    def _forward_test(self, rgb: torch.Tensor, raw_depth: torch.Tensor,
+                      depth_only: bool) -> dict:
         mods = {k: m.eval() for k, m in self.modules.items()}
         if not depth_only:
             label = mods["G_label"](rgb)

@@ -9,7 +9,9 @@ and their ``sample_idx`` are gathered in rank order (``all_gather_object``,
 the JAX ``process_allgather``) and, as in JAX (evaluator.py:80-88), the
 shard padding's duplicates are dropped by ``np.unique`` on the indices,
 which also puts the rows in index order; every rank returns the same
-metrics."""
+metrics. With a grid whose ``model`` axis shards the width, every batch's
+predictions are assembled in the row first, so the ranks of a row hold
+the same rows, which the dedupe drops as it drops the padding's."""
 
 from __future__ import annotations
 
@@ -24,9 +26,13 @@ from ..parallel import all_gather_object
 
 
 class Eval:
-    def __init__(self, dataloader, depth_only: bool = False):
+    def __init__(self, dataloader, depth_only: bool = False, grid=None):
         self.dataloader = dataloader
         self.depth_only = depth_only
+        # a grid with a model axis: each batch served width-sharded and
+        # assembled in the row before the metrics (``parallel.spatial``)
+        self.sharded = ({} if grid is None or grid.M == 1 else
+                        dict(grid=grid, assemble=True))
         ds = dataloader.dataset
         self.depth_mean = float(getattr(ds, "depth_mean", 5.0))
         self.depth_std = float(getattr(ds, "depth_std", 5.0))
@@ -44,7 +50,8 @@ class Eval:
             t0 = time.perf_counter()
             ret = model.forward_test(rgb=data["rgb"],
                                      raw_depth=data["raw_depth"],
-                                     depth_only=self.depth_only)
+                                     depth_only=self.depth_only,
+                                     **self.sharded)
             pd_ = ret["pred_depth"][:, 0] * self.depth_std + self.depth_mean
             gt = data["gt_depth"][:, 0] * self.depth_std + self.depth_mean
             r = compute_depth_metrics(gt, pd_,

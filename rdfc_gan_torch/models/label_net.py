@@ -33,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..parallel import spatial
 from .layers import BatchNorm2d, bilinear_resize
 from .resnet import DeepStem, make_stages
 
@@ -71,17 +72,26 @@ def _pool_matrix(src: int, out: int) -> np.ndarray:
 class AdaptiveAvgPool(nn.Module):
     """``AdaptiveAvgPool2d(b)`` as one f32 contraction with the row and the
     column pooling matrices, rounded once to x's type: the same windows,
-    and a backward of matrix products, the same on every run."""
+    and a backward of matrix products, the same on every run. Under a
+    width-sharded forward each rank contracts its columns with theirs of
+    the global matrix and the sums are summed over the row."""
 
     def __init__(self, b: int):
         super().__init__()
         self.b = b
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        ph, pw = (torch.from_numpy(_pool_matrix(s, self.b)).to(x.device)
-                  for s in x.shape[2:])
-        return torch.einsum("ih,bchw,jw->bcij", ph, x.float(),
-                            pw).to(x.dtype)
+        H, W = spatial.plane_size(x)
+        ph, pw = _pool_matrix(H, self.b), _pool_matrix(W, self.b)
+        if spatial.active() is not None:
+            # this rank's columns, then the partial sums summed over the
+            # row: the bins come out whole on every rank
+            pw = spatial.width_matrix(pw)
+        ph, pw = (torch.from_numpy(m).to(x.device) for m in (ph, pw))
+        out = torch.einsum("ih,bchw,jw->bcij", ph, x.float(), pw)
+        if spatial.active() is not None:
+            out = spatial.width_sum(out)
+        return out.to(x.dtype)
 
 
 class PSPModule(nn.Module):
@@ -98,8 +108,10 @@ class PSPModule(nn.Module):
             BatchNorm2d(c, eps=1e-5), nn.ReLU(), Dropout2d(0.1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        size = (x.shape[2], x.shape[3])
-        pyramids = [x] + [bilinear_resize(s(x), size, align_corners=True)
+        size = spatial.plane_size(x)
+        # a bin's map is whole on every rank of a width-sharded forward
+        pyramids = [x] + [bilinear_resize(s(x), size, align_corners=True,
+                                          replicated=True)
                           for s in self.stages]
         return self.bottleneck(torch.cat(pyramids, dim=1))
 
@@ -144,7 +156,7 @@ class PSPNet(nn.Module):
                 d.keep = None
 
     def _forward(self, x: torch.Tensor, force_aux: bool):
-        size = (x.shape[2], x.shape[3])
+        size = spatial.plane_size(x)
         h = self.layer2(self.layer1(self.initial(x)))
         x_aux = self.layer3(h)
         out = bilinear_resize(self.master_branch(self.layer4(x_aux)), size,

@@ -42,7 +42,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.kernels.norm_kernel import instance_norm
-from ..parallel import all_reduce_sum, world_size
+from ..parallel import all_reduce_sum, spatial, world_size
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -277,7 +277,8 @@ def _half_pixel_matrix(src: int, dst: int) -> np.ndarray:
 
 
 def bilinear_resize(x: torch.Tensor, size: Tuple[int, int],
-                    align_corners: bool = False) -> torch.Tensor:
+                    align_corners: bool = False,
+                    replicated: bool = False) -> torch.Tensor:
     """Bilinear resize of (B, C, H, W) to ``size`` (layers.py:693-714), as
     interpolation matmuls (rows, then columns) summed in f32, each rounded
     to x's type with the weights in x's type, as the JAX package computes
@@ -292,20 +293,28 @@ def bilinear_resize(x: torch.Tensor, size: Tuple[int, int],
     align_corners=True)`` agrees to rounding. Both directions run the one
     code path, and the backward is two matrix products, free of the
     atomics of ``F.interpolate``'s CUDA backward, so a step repeats bit for
-    bit on the card."""
+    bit on the card.
+
+    Under a width-sharded forward (``parallel.spatial``) ``size`` is the
+    global size, and x a width shard, or with ``replicated`` the whole
+    width on every rank; the width step computes this rank's columns
+    (``spatial.resize_width``)."""
     B, C, H, W = x.shape
     h, w = size
-    if (H, W) == (h, w):
+    grid = spatial.active()
+    if grid is None and (H, W) == (h, w):
         return x
     mat = _interp_matrix if align_corners else _half_pixel_matrix
     out = x.reshape(B * C, H, W)
     if h != H:
         wy = torch.from_numpy(mat(H, h)).to(x.device, x.dtype).float()
         out = torch.matmul(wy, out.float()).to(x.dtype)
-    if w != W:
+    if grid is not None:
+        out = spatial.resize_width(out, mat, w, replicated)
+    elif w != W:
         wx = torch.from_numpy(mat(W, w)).to(x.device, x.dtype).float()
         out = torch.matmul(out.float(), wx.t()).to(x.dtype)
-    return out.reshape(B, C, h, w)
+    return out.reshape(B, C, h, out.shape[-1])
 
 
 class ConvBNAct(nn.Sequential):
@@ -386,7 +395,9 @@ class AdaIN(nn.Module):
     """Parameter-free AdaIN (layers.py:607-618; model_utils.py:102-116):
     the content's per-channel mean and std replaced by the style's, each
     std the square root of the unbiased (ddof=1) variance plus eps. Plain
-    torch: the JAX package has no kernel for it."""
+    torch: the JAX package has no kernel for it. Under a width-sharded
+    forward the statistics are the global plane's
+    (``spatial.plane_mean_var``)."""
 
     def __init__(self, eps: float = 1e-5):
         super().__init__()
@@ -394,6 +405,11 @@ class AdaIN(nn.Module):
 
     def forward(self, content: torch.Tensor,
                 style: torch.Tensor) -> torch.Tensor:
+        if spatial.active() is not None:
+            (sm, sv), (cm, cv) = (spatial.plane_mean_var(t)
+                                  for t in (style, content))
+            ss, cs = torch.sqrt(sv + self.eps), torch.sqrt(cv + self.eps)
+            return (content - cm) / cs * ss + sm
         dims = (2, 3)
         sm = style.mean(dim=dims, keepdim=True)
         ss = torch.sqrt(style.var(dim=dims, keepdim=True, correction=1)

@@ -28,6 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import spatial
 from .layers import BatchNorm2d, bilinear_resize
 
 
@@ -58,7 +59,8 @@ ENC_EPS, DEC_EPS = 1e-3, 1e-5
 
 
 class Conv2dSame(nn.Conv2d):
-    """Conv with TF "SAME" padding computed from the input size."""
+    """Conv with TF "SAME" padding computed from the input size (under a
+    width-sharded forward, the global width's pads; no shard is padded)."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
                  groups: int = 1):
@@ -66,10 +68,15 @@ class Conv2dSame(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pads = []
-        for size, k, s in ((x.shape[3], self.kernel_size[1], self.stride[1]),
+        for size, k, s in ((spatial.plane_size(x)[1], self.kernel_size[1],
+                            self.stride[1]),
                            (x.shape[2], self.kernel_size[0], self.stride[0])):
             total = max((-(-size // s) - 1) * s + k - size, 0)
             pads += [total // 2, total - total // 2]
+        if spatial.active() is not None:
+            return spatial.conv2d(x, self.weight, self.bias, self.stride,
+                                  self.dilation, self.groups,
+                                  (pads[2], pads[3]), (pads[0], pads[1]))
         return super().forward(F.pad(x, pads))
 
 
@@ -80,7 +87,7 @@ class SqueezeExcite(nn.Module):
         self.conv_expand = nn.Conv2d(reduced, chs, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = F.silu(self.conv_reduce(x.mean(dim=(2, 3), keepdim=True)))
+        s = F.silu(self.conv_reduce(spatial.plane_mean(x)))
         return x * torch.sigmoid(self.conv_expand(s))
 
 
@@ -180,8 +187,7 @@ class UpSampleBN(nn.Module):
             BatchNorm2d(features, eps=DEC_EPS), nn.LeakyReLU(0.01))
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        up = bilinear_resize(x, (skip.shape[2], skip.shape[3]),
-                             align_corners=True)
+        up = bilinear_resize(x, spatial.plane_size(skip), align_corners=True)
         return self._net(torch.cat([up, skip], dim=1))
 
 

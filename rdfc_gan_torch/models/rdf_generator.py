@@ -25,6 +25,7 @@ configured ``pretrained_resnet_path`` into both torsos
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -33,6 +34,7 @@ import torch.nn as nn
 from ..ops.kernels.nlspn_kernel import propagate_auto
 from ..ops.nlspn import NLSPNParamsSpec, nlspn_offset_affinity, nlspn_propagate
 from ..ops.nlspn_stencil import build_shift_masks, stencil_propagate
+from ..parallel import spatial
 from ..registry import GENERATORS
 from .encoder_decoder import SKIPS, EncoderDecoder, concat_skip
 from .layers import AdaIN, AdaptiveInstanceNorm, ConvBNAct, INFuse
@@ -224,7 +226,10 @@ class RDFGenerator(nn.Module):
         ret = {}
         if self.use_nlspn_refine:
             guide = self.gd_dec0(concat_skip(self.gd_dec1(d_fd), d_fe1))
-            depth_map_2, ret["nlspn_max_offset"] = self._nlspn_block(
+            block = self._nlspn_block
+            if spatial.active() is not None:
+                block = functools.partial(spatial.nlspn_block, block)
+            depth_map_2, ret["nlspn_max_offset"] = block(
                 guide, confidence, pred_init, origin_depth)
         else:
             depth_map_2 = pred_init

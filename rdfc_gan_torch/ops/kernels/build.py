@@ -11,7 +11,9 @@ import: the CPU tests import every module.
 to it right after a launch succeeds and nowhere else. One source may hold
 two kernels: ``nlspn_propagate.cu`` is counted as ``nlspn_propagate`` (the
 served chain) and ``nlspn_propagate_x`` (the chain that also stores X),
-``instance_norm.cu`` as ``instance_norm_fwd`` and ``instance_norm_bwd``,
+``instance_norm.cu`` as ``instance_norm_fwd`` and ``instance_norm_bwd`` (and
+the forward's split for a width-sharded plane, ``instance_norm_moments``
+and ``instance_norm_apply``),
 ``conv3x3_bf16.cu`` (the bf16 conv block) as ``conv3x3_fwd`` and
 ``conv3x3_bwd``, ``conv_block.cu`` (its f32 case) as ``conv3x3_fwd_f32`` and
 ``conv3x3_bwd_f32``.
@@ -81,7 +83,9 @@ _SIGNATURES = {
         "instance_norm_fwd": [_P, _P, _P, _I, _I, ctypes.c_float, _I, _P],
         "instance_norm_fwd_plan": [_I, _I, _P],
         "instance_norm_bwd_plan": [_I, _I, _P],
-        "instance_norm_bwd": [_P, _P, _P, _P, _I, _I, _I, _P]},
+        "instance_norm_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],
+        "instance_norm_moments": [_P, _P, _I, _I, _I, _P],
+        "instance_norm_apply": [_P, _P, _P, _P, _I, _I, _I, _P]},
     "conv_block": {
         "conv3x3_fwd": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
         "conv3x3_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,

@@ -27,6 +27,14 @@ clusters and several planes a block), the forward staging x
 (``fwd_plan``, ``_fwd_sum``), the backward dy and y (``bwd_plan``,
 ``_bwd_sum``). ``_block_sum`` (one block a plane, ``bwd_block_threads``)
 is the f32 conv-block kernels' order.
+
+The forward split for a plane whose width is sharded over ranks
+(``parallel.spatial``): ``instance_norm_moments`` (each plane's f64 sums in
+the forward's order) and ``instance_norm_apply`` (y from the (B, C) a and
+b, rounded as the forward rounds it), two kernels of the same source with
+their plain versions, and ``instance_norm_fwd_sharded``, which sums the
+moments over the ranks between them and finalizes as the forward does
+(``instance_norm_finalize``, shared with ``instance_norm_fwd_plain``).
 """
 
 from __future__ import annotations
@@ -35,13 +43,17 @@ import functools
 from typing import NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from ...parallel import spatial
 from . import build
 
 SOURCE = "instance_norm"
 FWD = "instance_norm_fwd"
 BWD = "instance_norm_bwd"
+MOMENTS = "instance_norm_moments"
+APPLY = "instance_norm_apply"
 _FLOATS = (torch.float32, torch.bfloat16)
 
 
@@ -191,15 +203,37 @@ def instance_norm_fwd_plain(x: torch.Tensor, eps: float
     """(y, a): the JAX ``_instance_norm_fwd_impl`` in torch, one-pass f32
     statistics in the forward kernel's order; a is the (B, C) f32
     scale."""
+    a, b = instance_norm_finalize(instance_norm_moments_plain(x),
+                                  x.shape[2] * x.shape[3], eps)
+    return instance_norm_apply_plain(x, a, b), a
+
+
+def instance_norm_moments_plain(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, 2) f64: the sum and the sum of squares of each (b, c) plane
+    of x, in the forward kernel's order (``fwd_plan``, ``_fwd_sum``)."""
     xf = x.double()
-    n, size = x.shape[2] * x.shape[3], x.element_size()
-    m = _mean(_fwd_sum(xf, size), n)
-    var = torch.clamp_min(_mean(_fwd_sum(xf * xf, size), n) - m * m,
-                          0.0) + eps
+    size = x.element_size()
+    return torch.stack([_fwd_sum(xf, size), _fwd_sum(xf * xf, size)], -1)
+
+
+def instance_norm_finalize(sums: torch.Tensor, n: int, eps: float
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(a, b), (B, C) f32 each, from the (B, C, 2) f64 sums over planes of
+    n values, as the forward kernel computes them: m = sum / n and
+    m2 = sum of squares / n rounded to f32, var = max(m2 - m m, 0),
+    a = rsqrt(var + eps) correctly rounded, b = -m a."""
+    m = _mean(sums[..., 0], n)
+    var = torch.clamp_min(_mean(sums[..., 1], n) - m * m, 0.0) + eps
     a = (1.0 / torch.sqrt(var.double())).float()
-    b = -m * a
-    y = x * a[:, :, None, None].to(x.dtype) + b[:, :, None, None].to(x.dtype)
-    return y, a
+    return a, -m * a
+
+
+def instance_norm_apply_plain(x: torch.Tensor, a: torch.Tensor,
+                              b: torch.Tensor) -> torch.Tensor:
+    """y = x * T(a) + T(b) in x's type T, the product and the sum rounded
+    apart; a, b (B, C) f32."""
+    return x * a[:, :, None, None].to(x.dtype) + b[:, :, None, None].to(
+        x.dtype)
 
 
 def instance_norm_bwd_plain(dy: torch.Tensor, y: torch.Tensor,
@@ -284,6 +318,71 @@ def instance_norm_fwd(x: torch.Tensor, eps: float
     return fwd_op(x, float(eps))
 
 
+def instance_norm_moments(x: torch.Tensor) -> torch.Tensor:
+    """x: (B, C, H, W) f32 or bf16. Returns (B, C, 2) f64: the sum and the
+    sum of squares of each plane, in the forward kernel's order; one
+    launch of ``instance_norm_moments`` on the card."""
+    if x.device.type == "cpu":
+        return instance_norm_moments_plain(x)
+    lib = build.library(SOURCE)
+    _check(MOMENTS, x)
+    B, C, H, W = x.shape
+    x = _aligned(x)
+    sums = torch.empty((B, C, 2), dtype=torch.float64, device=x.device)
+    rc = lib.instance_norm_moments(x.data_ptr(), sums.data_ptr(), B * C,
+                                   H * W, int(x.dtype == torch.bfloat16),
+                                   build.stream_handle())
+    build.check(lib, MOMENTS, rc)
+    build.LAUNCHES[MOMENTS] += 1
+    return sums
+
+
+def instance_norm_apply(x: torch.Tensor, a: torch.Tensor,
+                        b: torch.Tensor) -> torch.Tensor:
+    """x: (B, C, H, W) f32 or bf16; a, b: (B, C) f32. Returns y = x * T(a)
+    + T(b) in x's type, rounded as the forward kernel rounds it; one launch
+    of ``instance_norm_apply`` on the card."""
+    if x.device.type == "cpu":
+        return instance_norm_apply_plain(x, a, b)
+    lib = build.library(SOURCE)
+    _check(APPLY, x)
+    build.require_cuda(APPLY, a, b)
+    B, C, H, W = x.shape
+    for t in (a, b):
+        if tuple(t.shape) != (B, C) or t.dtype != torch.float32:
+            raise ValueError(f"{APPLY}: a and b must be (B, C) f32")
+    x = _aligned(x)
+    y = torch.empty_like(x)
+    rc = lib.instance_norm_apply(x.data_ptr(), a.data_ptr(), b.data_ptr(),
+                                 y.data_ptr(), B * C, H * W,
+                                 int(x.dtype == torch.bfloat16),
+                                 build.stream_handle())
+    build.check(lib, APPLY, rc)
+    build.LAUNCHES[APPLY] += 1
+    return y
+
+
+def instance_norm_fwd_sharded(x: torch.Tensor, eps: float, group=None,
+                              parts: int = 1
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The IN forward of a plane whose width is split over the ``parts``
+    ranks of ``group``, x this rank's columns (``parallel.spatial``): the
+    moments of its columns, their f64 sums summed over the group, the
+    forward's finalize over the global plane (``instance_norm_finalize``),
+    then y of its columns. Returns (y, a) as ``instance_norm_fwd``; at
+    ``parts`` 1 both equal its bit for bit. Serving only: raises where
+    autograd would need a gradient."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError("instance_norm_fwd_sharded has no backward: a "
+                           "width-sharded forward serves only")
+    sums = instance_norm_moments(x)
+    if parts > 1:
+        dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=group)
+    a, b = instance_norm_finalize(sums, x.shape[2] * x.shape[3] * parts,
+                                  eps)
+    return instance_norm_apply(x, a, b), a
+
+
 def instance_norm_bwd(dy: torch.Tensor, y: torch.Tensor,
                       a: torch.Tensor) -> torch.Tensor:
     """dy, y: (B, C, H, W), one type, f32 or bf16; a: (B, C) f32. Returns
@@ -327,5 +426,12 @@ class _InstanceNorm(torch.autograd.Function):
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Per-image, per-channel normalisation, biased variance, no affine:
-    (B, C, H, W) f32 or bf16 in, the same type out, differentiable in x."""
+    (B, C, H, W) f32 or bf16 in, the same type out, differentiable in x.
+    Under a width-sharded forward (``parallel.spatial``) the statistics
+    are the global plane's: ``instance_norm_fwd_sharded`` over the row."""
+    grid = spatial.active()
+    if grid is not None:
+        with spatial.suspended():
+            return instance_norm_fwd_sharded(x, eps, grid.model_group,
+                                             grid.M)[0]
     return _InstanceNorm.apply(x, eps)

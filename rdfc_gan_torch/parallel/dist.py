@@ -24,8 +24,12 @@ world size 1, where no process group is needed:
 
 Each rank's loss is its share of the global loss (its numerator over the
 global denominator), so the summed gradient is the gradient of the global
-batch. ``spatial_sharding`` and a ``model`` mesh axis (mesh.py:82-89) are
-not ported: ``init_distributed`` refuses a ``model`` axis larger than 1.
+batch. A ``model`` mesh axis (``mesh_shape`` ``{"data": D, "model": M}``,
+D x M the world) shards the width of a served image over M ranks
+(``parallel.grid``, ``parallel.spatial``: the JAX ``spatial_sharding``,
+mesh.py:82-89); a train step runs at world D x M as data parallelism, the
+global batch ``batch_size`` x D x M, as the JAX ``train.py`` computes it
+there (train.py:45-53).
 """
 
 from __future__ import annotations
@@ -55,24 +59,30 @@ def is_main() -> bool:
     return rank() == 0
 
 
+def mesh_axes(mesh_shape, world: int) -> Tuple[int, int]:
+    """(D, M) of ``mesh_shape``: ``model`` defaults to 1 and ``data`` to
+    the world over ``model``; None puts every rank on ``data``."""
+    axes = dict(mesh_shape or {})
+    M = int(axes.get("model", 1))
+    return int(axes.get("data", world // max(M, 1))), M
+
+
 def check_mesh_shape(mesh_shape, world: int):
-    """``mesh_shape`` None puts every rank on ``data``; ``{"data": N}``
-    must name the world size; a ``model`` axis larger than 1 (the JAX
-    ``spatial_sharding``) is not ported. Raises ValueError."""
+    """``mesh_shape`` None puts every rank on ``data``; otherwise its axes
+    are ``data`` and ``model`` (``parallel.grid``: rows over ``data``, the
+    width of a served image over ``model``) and data x model must be the
+    world size. Raises ValueError."""
     if not mesh_shape:
         return
     axes = dict(mesh_shape)
     unknown = sorted(set(axes) - {"data", "model"})
     if unknown:
         raise ValueError(f"mesh_shape {axes}: unknown axes {unknown}; the "
-                         f"port shards the batch over 'data' only")
-    if int(axes.get("model", 1)) > 1:
-        raise ValueError(f"mesh_shape {axes}: a 'model' axis (the JAX "
-                         f"spatial_sharding, mesh.py:82-89) is not ported; "
-                         f"use {{'data': {world}}}")
-    if int(axes.get("data", world)) != world:
-        raise ValueError(f"mesh_shape {axes}: 'data' must equal the world "
-                         f"size {world}")
+                         f"port's axes are 'data' and 'model'")
+    D, M = mesh_axes(axes, world)
+    if D < 1 or M < 1 or D * M != world:
+        raise ValueError(f"mesh_shape {axes}: data x model = {D} x {M} "
+                         f"must equal the world size {world}")
 
 
 def init_distributed(cfg) -> Tuple[torch.device, bool]:
@@ -192,15 +202,18 @@ def barrier():
         dist.barrier()
 
 
-def rank_rows(t: torch.Tensor) -> torch.Tensor:
+def rank_rows(t: torch.Tensor, index: Optional[int] = None,
+              count: Optional[int] = None) -> torch.Tensor:
     """This rank's rows of a global-batch tensor: block ``rank`` of
-    ``world`` equal blocks of dim 0."""
-    world = world_size()
-    if world == 1:
+    ``world`` equal blocks of dim 0, or block ``index`` of ``count`` (a
+    grid's data row, ``parallel.grid``)."""
+    if count is None:
+        index, count = rank(), world_size()
+    if count == 1:
         return t
     n = t.shape[0]
-    if n % world:
-        raise ValueError(f"global batch {n} does not split over {world} "
+    if n % count:
+        raise ValueError(f"global batch {n} does not split over {count} "
                          f"ranks")
-    b = n // world
-    return t[rank() * b:(rank() + 1) * b]
+    b = n // count
+    return t[index * b:(index + 1) * b]

@@ -29,7 +29,18 @@ batch over the mesh: where N divides ``--batch_size`` each rank serves its
 shard of the split at batch_size / N and the evaluator gathers the rows;
 otherwise every rank serves the whole split. Every rank probes its first
 batch and all take the max offset, so all rebuild alike. ``--cal_fps``
-runs on rank 0 alone; rank 0 alone writes the log.
+runs on rank 0 alone, unsharded; rank 0 alone writes the log.
+
+Width-sharded serving (the JAX ``spatial_sharding``): a ``mesh_shape``
+``{"data": D, "model": M}`` in the model config, D x M ranks. The rows go
+over the D data rows as above over N, and every image's width over the M
+ranks of its row (``parallel.spatial``; W a multiple of 32 M); each batch's
+predictions are assembled in the row before the metrics, which are those of
+one rank serving alone:
+
+    torchrun --nproc_per_node 4 -m rdfc_gan_torch.test \\
+        --model_cfg_path sharded.yaml ...   # its mesh_shape:
+                                            #   {data: 2, model: 2}
 """
 
 from __future__ import annotations
@@ -43,6 +54,8 @@ from .evaluator import Eval
 from .ops.nlspn_guard import guard_loaded_engine
 from .parallel import (broadcast_from_rank0, destroy, init_distributed,
                        is_main, rank, world_size)
+from .parallel.dist import mesh_axes
+from .parallel.grid import make_grid
 from .registry import build_dataset
 from .utils import Logger, set_random_seed
 from .utils.checkpoint import load_checkpoint
@@ -78,13 +91,13 @@ def build_split(cfg, mode: str):
 
 
 def build_val_loader(cfg, device, batch_size=None,
-                     shard: bool = False) -> DataLoader:
+                     rows=(0, 1)) -> DataLoader:
     """The val split in order, padded to whole batches of ``batch_size``
-    (default ``cfg.batch_size``); with ``shard``, this rank's shard."""
-    world = world_size() if shard else 1
+    (default ``cfg.batch_size``); ``rows`` (index, count): that shard of
+    it, (rank, world size) for this rank's."""
     return DataLoader(build_split(cfg, "val"), batch_size or cfg.batch_size,
                       device=device, num_workers=cfg.num_workers,
-                      rank=rank() if shard else 0, world=world)
+                      rank=rows[0], world=rows[1])
 
 
 def run(cfg) -> dict:
@@ -103,10 +116,16 @@ def _serve(cfg) -> dict:
     set_random_seed(cfg.seed, cfg.get("deterministic", False))
     logger = Logger(cfg.work_dir)
     engine = build_engine(cfg, is_train=False)
-    world = world_size()
-    if world > 1 and cfg.batch_size % world == 0:
+    # rows over the ranks, or over the data rows of a grid whose model axis
+    # shards the width
+    grid = None
+    rows = (rank(), world_size())
+    if mesh_axes(cfg.get("mesh_shape"), world_size())[1] > 1:
+        grid = make_grid(cfg.get("mesh_shape"))
+        rows = (grid.d, grid.D)
+    if rows[1] > 1 and cfg.batch_size % rows[1] == 0:
         loader = build_val_loader(cfg, engine.device,
-                                  cfg.batch_size // world, shard=True)
+                                  cfg.batch_size // rows[1], rows=rows)
     else:
         loader = build_val_loader(cfg, engine.device)
     forwards = 0
@@ -139,7 +158,7 @@ def _serve(cfg) -> dict:
             out["fps"] = cal_fps(engine, loader, logger=logger,
                                  depth_only=depth_only)
     else:
-        evaluator = Eval(loader, depth_only=depth_only)
+        evaluator = Eval(loader, depth_only=depth_only, grid=grid)
         out["metrics"] = evaluator.evaluate(engine, logger)
         out["batch_seconds"] = evaluator.batch_seconds
     out["forwards"] = forwards + engine.n_forward

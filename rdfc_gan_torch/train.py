@@ -149,7 +149,8 @@ def run(cfg) -> dict:
     logger = Logger(cfg.work_dir, filename="train.log")
     try:
         train_loader = build_train_loader(cfg, device)
-        val_loader = build_val_loader(cfg, device, shard=True)
+        val_loader = build_val_loader(cfg, device,
+                                      rows=(rank(), world_size()))
         try:
             return _train(cfg, logger, device, train_loader, val_loader)
         finally:

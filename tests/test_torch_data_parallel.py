@@ -23,8 +23,9 @@ references are computed here), each with its half of a global batch.
   that neither the batch nor the world divides.
 * ``python -m torch.distributed.run --nproc_per_node 2 -m
   rdfc_gan_torch.train --device cpu``: rank 0 alone writes, and a
-  ``--resume_from`` at world 2 continues; ``mesh_shape`` that names
-  another world size or a ``model`` axis raises ``ValueError``.
+  ``--resume_from`` at world 2 continues; ``mesh_shape`` whose data x
+  model is not the world size, or that names another axis, raises
+  ``ValueError``.
 * World 1 keeps the one-process forms: no collective, BatchNorm through
   torch's fused kernel.
 
@@ -365,7 +366,7 @@ def test_torchrun_two_ranks_train_and_resume(tmp_path):
 
 @pytest.mark.parametrize("mesh_shape,match", [
     ({"data": 3}, "world size 1"),
-    ({"data": 1, "model": 2}, "spatial_sharding"),
+    ({"data": 1, "model": 2}, "must equal the world size 1"),
     ({"data": 1, "seq": 1}, "unknown axes"),
 ])
 def test_mesh_shape_other_than_the_ranks_raises(mesh_shape, match):

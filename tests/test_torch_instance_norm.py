@@ -412,3 +412,31 @@ def test_bwd_plan_matches_the_kernel_on_card():
         for size in (2, 4):
             lib.instance_norm_bwd_plan(n, size, out)
             assert tuple(out) == tuple(nk.bwd_plan(n, size)), (n, size)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 512, 30, 40), (2, 768, 60, 40),
+                                   (2, 384, 120, 40), (2, 192, 240, 320),
+                                   (2, 192, 240, 80), (4, 3, 17, 23)])
+@pytest.mark.parametrize("dt", [F32, BF16])
+def test_split_kernels_match_plain_on_card(shape, dt):
+    """The forward's split for a width-sharded plane (the W-AdaIN planes
+    of 2x480x640, whole and as shards, and an odd plane): moments and apply
+    bit for bit against their plain versions, and their one-rank
+    composition bit for bit against the forward kernel."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = (torch.randn(shape, device="cuda", generator=g) * 3 + 1.5).to(dt)
+    s = nk.instance_norm_moments(x)
+    a, b = nk.instance_norm_finalize(s, shape[2] * shape[3], 1e-5)
+    y = nk.instance_norm_apply(x, a, b)
+    torch.cuda.synchronize()
+    assert s.dtype == torch.float64 and y.dtype == dt
+    torch.testing.assert_close(s, nk.instance_norm_moments_plain(x), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(y, nk.instance_norm_apply_plain(x, a, b),
+                               rtol=0, atol=0)
+    y1, a1 = nk.instance_norm_fwd_sharded(x, 1e-5)
+    y7, a7 = nk.instance_norm_fwd(x, 1e-5)
+    for got, want in ((a1, a7), (y1, y7)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)

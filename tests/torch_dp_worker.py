@@ -139,8 +139,134 @@ class _Quiet:
         pass
 
 
+def build_op(case):
+    """The op of a width-sharding case (``tests/test_torch_spatial.py``) as
+    a function of the case's inputs, its module's weights drawn from the
+    case's seed, so that the test and every rank build the same op."""
+    import torch.nn as nn
+
+    from rdfc_gan_torch.models.label_net import PSPModule
+    from rdfc_gan_torch.models.layers import AdaIN, bilinear_resize
+    from rdfc_gan_torch.models.normal_net import Conv2dSame, SqueezeExcite
+    from rdfc_gan_torch.ops.kernels.norm_kernel import instance_norm
+
+    torch.manual_seed(case.get("seed", 0))
+    kind, c = case["kind"], case.get("c", 4)
+    if kind == "conv":
+        k, s, d, p, dw = case["conv"]
+        return nn.Conv2d(c, c if dw else 5, k, s, p, d, c if dw else 1)
+    if kind == "same":
+        k, s, dw = case["conv"]
+        return Conv2dSame(c, c if dw else 5, k, s, c if dw else 1)
+    if kind == "convT":
+        return nn.ConvTranspose2d(c, 3, 3, 2, 1, 1)
+    if kind == "maxpool":
+        return nn.MaxPool2d(3, 2, 1)
+    if kind == "resize":
+        return lambda x: bilinear_resize(x, case["size"], case["align"],
+                                         replicated=case.get("whole", False))
+    if kind == "psp":
+        m = PSPModule(c).eval()
+        for bn in (mod for mod in m.modules()
+                   if isinstance(mod, nn.BatchNorm2d)):
+            bn.running_mean.uniform_(-0.2, 0.2)
+            bn.running_var.uniform_(0.5, 1.5)
+        return m
+    if kind == "se":
+        return SqueezeExcite(c, 2)
+    if kind == "adain":
+        return AdaIN()
+    if kind == "in":
+        return instance_norm
+    raise ValueError(kind)
+
+
+def spatial_ops(inp):
+    """Each case's op on this rank's columns of its inputs under the grid of
+    ``mesh`` (an input marked whole goes to every rank as it is); for the
+    instance norm also the scale a of ``instance_norm_fwd_sharded``.
+    Returns the output shards, in case order."""
+    from rdfc_gan_torch.ops.kernels.norm_kernel import \
+        instance_norm_fwd_sharded
+    from rdfc_gan_torch.parallel import spatial
+    from rdfc_gan_torch.parallel.grid import make_grid, shard_width
+
+    grid = make_grid(inp["mesh"])
+    outs = []
+    for case in inp["cases"]:
+        op = build_op(case)
+        args = [x if case.get("whole") else shard_width(x, grid)
+                for x in case["inputs"]]
+        with torch.inference_mode(), spatial.sharded(grid):
+            out = op(*args)
+        if case["kind"] == "in":
+            out = (out, instance_norm_fwd_sharded(
+                args[0], 1e-5, grid.model_group, grid.M)[1])
+        outs.append(out)
+    return outs
+
+
+def spatial_forward(inp):
+    """An engine of ``args`` loaded from ``pth``, serving the global batch
+    under each grid of ``meshes`` (this rank's rows; with ``depth_only``
+    both ways for the first grid): its output shards and the same forward
+    assembled (``assemble``), keyed (mesh label, depth_only)."""
+    from rdfc_gan_torch.cli import parse_config
+    from rdfc_gan_torch.engines import build_engine
+    from rdfc_gan_torch.parallel.grid import make_grid
+    from rdfc_gan_torch.utils.checkpoint import load_checkpoint
+
+    engine = build_engine(parse_config(inp["args"]))
+    load_checkpoint(engine.modules, inp["pth"])
+    out = {}
+    for i, mesh in enumerate(inp["meshes"]):
+        grid = make_grid(mesh)
+        rgb, raw = (rank_rows(inp["batch"][k], grid.d, grid.D)
+                    for k in ("rgb", "raw"))
+        for depth_only in ((False, True) if i == 0 and inp.get("depth_only")
+                           else (False,)):
+            kw = dict(depth_only=depth_only, grid=grid)
+            out[(str(mesh), depth_only)] = (
+                engine.forward_test(rgb, raw, **kw),
+                engine.forward_test(rgb, raw, assemble=True, **kw))
+    return out
+
+
+def serve_cli(inp):
+    """``rdfc_gan_torch.test.run`` of ``args`` (its model config names the
+    mesh): the metrics and the forwards."""
+    from rdfc_gan_torch import test as port_test
+    from rdfc_gan_torch.cli import parse_config
+
+    res = port_test.run(parse_config(inp["args"]))
+    return dict(metrics=res["metrics"], forwards=res["forwards"])
+
+
+def mesh_steps(inp):
+    """For each mesh of ``meshes``: ``init_distributed`` checks it against
+    the ranks, then an engine of ``args`` loaded from ``pth`` takes one
+    train step on this rank's rows of ``batch``: the losses and every net's
+    gradients and state."""
+    from rdfc_gan_torch.cli import parse_config
+    from rdfc_gan_torch.parallel import init_distributed
+
+    out = []
+    for mesh in inp["meshes"]:
+        cfg = parse_config(inp["args"])
+        cfg["mesh_shape"] = mesh
+        init_distributed(cfg)
+        engine = _engine(inp)
+        losses = engine.train_step(_rows(inp["batch"]))
+        out.append(dict(
+            losses={k: float(v) for k, v in losses.items()},
+            grads={k: _grads(m) for k, m in engine.modules.items()},
+            state={k: _state(m) for k, m in engine.modules.items()}))
+    return out
+
+
 JOBS = {f.__name__: f for f in (sync_bn, fused_block, train_steps,
-                                 evaluate)}
+                                 evaluate, spatial_ops, spatial_forward,
+                                 serve_cli, mesh_steps)}
 
 
 def start_ranks(jobs, work_dir, world: int = 2, timeout: float = 300):
