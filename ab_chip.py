@@ -1,7 +1,7 @@
 """Parent against change on one card, each tree running its own phases.
 
-    python3 ab_chip.py [--wrappers] PARENT_TREE [OTHER_TREE ...] CHANGE_TREE
-        LOG_DIR
+    python3 ab_chip.py [--wrappers | --split] PARENT_TREE [OTHER_TREE ...]
+        CHANGE_TREE LOG_DIR
 
 Each tree is a checkout of the repository (a ``git archive`` of the parent
 commit unpacked in a git-ignored directory, and this checkout). In turns,
@@ -15,13 +15,19 @@ step's shapes (bf16 stacks, dM in f32 and in bf16: a tree whose kernel
 writes only f32 casts after it, as its train step did), the RDF-GAN
 serve and train phases (latency, step times, launch counts), and the
 flagship train phase (16 bf16 steps at batch 4: step times, with each
-tree's own G_B2A reflect pad). With ``--wrappers`` a run only builds the
-kernels and times the served kernels' wrappers as the main path calls
-them, through the tree's own modules: the shift-mask scatter (#1) and the
-served chain (#3, T=18) at 4x224x304, S=8, and the instance norm's forward
-(#7) at the four W-AdaIN shapes, f32, beside ``F.instance_norm``; each as
-the CUDA events time a call over a burst of back-to-back calls, and the
-host's time to issue a call. More than two trees run in the order given,
+tree's own G_B2A reflect pad), and the instance norm's split for a
+width-sharded plane: the tree's own ``in_split_phase`` and, through its
+own wrappers, the events and device times of moments, apply, their M = 1
+composition and #7 at the four W-AdaIN planes of 2x480x640 as M = 2
+shards, f32 (a tree whose apply takes a and b finalizes between the two,
+as its sharded forward did). With ``--split`` a run only builds the
+instance norm's source and runs that last part. With ``--wrappers`` a
+run only builds the kernels and times the served kernels' wrappers as
+the main path calls them, through the tree's own modules: the shift-mask
+scatter (#1) and the served chain (#3, T=18) at 4x224x304, S=8, and the
+instance norm's forward (#7) at the four W-AdaIN shapes, f32, beside
+``F.instance_norm``; each as the CUDA events time a call over a burst of
+back-to-back calls, and the host's time to issue a call. More than two trees run in the order given,
 then in reverse (parent, other, change, change, other, parent). Each
 run's whole output goes to LOG_DIR/ab_<label>.log; the lines that compare
 the trees are printed. Needs one CUDA card, as ``chip_smoke.py``.
@@ -37,7 +43,57 @@ import tempfile
 import time
 
 # the printed lines of a run's log
-KEEP = ("[", "  nlspn_", "  per-request", "  step ms", "NVIDIA")
+KEEP = ("[", "  nlspn_", "  per-request", "  step ms", "NVIDIA",
+        "  instance_norm_", "  the M=1 split")
+
+
+def split_times(label: str):
+    """The instance norm split, from the current directory's tree: its own
+    ``in_split_phase``, then the events and device times a call of
+    moments, apply, the M = 1 composition (``instance_norm_fwd_sharded``
+    with no collective) and #7 at the M = 2 shards of the four W-AdaIN
+    planes of 2x480x640, f32, each summed over the four."""
+    import collections
+
+    import torch
+
+    import chip_smoke as c
+    from rdfc_gan_torch.ops.kernels import norm_kernel as nm
+
+    c.in_split_phase()
+    takes_sums = "sums" in inspect.signature(
+        nm.instance_norm_apply).parameters
+    g = torch.Generator(device="cuda").manual_seed(5)
+    total = collections.defaultdict(float)
+    for shape in c.fuse_in_shapes(*c.SPATIAL_SIZE):
+        shape = (c.SPATIAL_B,) + shape[1:]
+        x = torch.randn(shape, device="cuda", generator=g) * 3 + 1.5
+        xs = x[..., :shape[3] // 2].contiguous()
+        ns = shape[2] * shape[3] // 2
+        s = nm.instance_norm_moments(xs)
+        if takes_sums:
+            apply = (lambda xs=xs, s=s, ns=ns:
+                     nm.instance_norm_apply(xs, s, ns, 1e-5))
+        else:
+            a, b = nm.instance_norm_finalize(s, ns, 1e-5)
+            apply = lambda xs=xs, a=a, b=b: nm.instance_norm_apply(xs, a, b)
+        fns = (("moments", lambda xs=xs: nm.instance_norm_moments(xs)),
+               ("apply", apply),
+               ("split", lambda xs=xs: nm.instance_norm_fwd_sharded(xs,
+                                                                    1e-5)),
+               ("#7", lambda xs=xs: nm.instance_norm_fwd(xs, 1e-5)))
+        for name, fn in fns:
+            events, device = c.time_ms(fn), c._device_ms(fn, n=10)
+            total[name, "events"] += events
+            total[name, "device"] += device
+            print(f"[{label}] split {name} {tuple(xs.shape)}: events "
+                  f"{events:.4f} ms, device {device:.4f} ms")
+    for name in ("moments", "apply", "split", "#7"):
+        print(f"[{label}] split {name}, the four M=2 shards: events "
+              f"{total[name, 'events']:.4f} ms, device "
+              f"{total[name, 'device']:.4f} ms"
+              + ("" if takes_sums or name != "apply" else
+                 " (apply from a and b: the finalize's ops not in it)"))
 
 
 def run_tree(label: str):
@@ -98,6 +154,20 @@ def run_tree(label: str):
         flagship_counts = c.flagship_train_phase(wd)[0]
     print(f"[{label}] launches: serve {counts}; train {train_counts}; "
           f"flagship train {flagship_counts}")
+    split_times(label)
+    print(c.gpu_line())
+
+
+def split_run(label: str):
+    """Only the instance norm's split, from the current directory's tree."""
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as c
+    from rdfc_gan_torch.ops.kernels import build
+
+    t0 = time.time()
+    build.build_all(["instance_norm"])
+    print(f"[{label}] built in {time.time() - t0:.1f} s")
+    split_times(label)
     print(c.gpu_line())
 
 
@@ -150,10 +220,11 @@ def wrapper_times(label: str):
 
 def main():
     args = sys.argv[1:]
-    wrappers = "--wrappers" in args
-    args = [a for a in args if a != "--wrappers"]
+    mode = [a for a in args if a in ("--wrappers", "--split")]
+    args = [a for a in args if a not in mode]
     if len(args) == 2 and args[0] == "--run":
-        (wrapper_times if wrappers else run_tree)(args[1])
+        {"--wrappers": wrapper_times, "--split": split_run}.get(
+            mode[0] if mode else None, run_tree)(args[1])
         return
     if len(args) < 3:
         sys.exit(__doc__)
@@ -168,7 +239,7 @@ def main():
         log = os.path.join(log_dir, f"ab_{label}.log")
         with open(log, "w") as f:
             rc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                 "--run", label] + ["--wrappers"] * wrappers,
+                                 "--run", label] + mode[:1],
                                 cwd=trees[i], stdout=f,
                                 stderr=subprocess.STDOUT).returncode
         with open(log) as f:

@@ -1431,9 +1431,9 @@ def _plan_words(p, isz: int, staged: str) -> str:
 
 
 def _check_plan_mirrors(nk, shapes):
-    """The Python plans (``norm_kernel.fwd_plan`` and ``bwd_plan``) against
-    the ones the built kernel exports, at the phase's plane sizes and a
-    sweep, f32 and bf16."""
+    """The Python plans (``norm_kernel.fwd_plan`` and ``bwd_plan``) and the
+    split's TMA rule (``bulk_copy``) against the ones the built kernel
+    exports, at the phase's plane sizes and a sweep, f32 and bf16."""
     import ctypes
 
     from rdfc_gan_torch.ops.kernels import build
@@ -1452,8 +1452,14 @@ def _check_plan_mirrors(nk, shapes):
                     fail(f"norm_kernel.{kind}_plan({n}, {size}) = "
                          f"{tuple(mirror(n, size))}, the kernel's "
                          f"{tuple(out)}")
-    print(f"  fwd_plan and bwd_plan match the kernel's exported plans at "
-          f"{len(sizes)} plane sizes, f32 and bf16")
+    for n in sizes:
+        for size in (2, 4):
+            if bool(lib.instance_norm_bulk_copy(n, size)) != \
+                    nk.bulk_copy(n, size):
+                fail(f"norm_kernel.bulk_copy({n}, {size}) is "
+                     f"{nk.bulk_copy(n, size)}, the kernel's not")
+    print(f"  fwd_plan, bwd_plan and bulk_copy match the kernel's exports "
+          f"at {len(sizes)} plane sizes, f32 and bf16")
 
 
 def conv_block_phase():
@@ -3851,17 +3857,59 @@ def _ulps(a, b) -> int:
     return int((ia - ib).abs().max())
 
 
-def in_split_phase():
-    """The IN forward's split for width-sharded planes: the moments and
-    apply kernels bit for bit against their plain versions at the four
-    W-AdaIN planes of a 2x480x640 forward, whole and as M = 2 and M = 4
-    shards; their M = 1 composition bit for bit against the forward kernel
-    (#7); the statistics of the M-shard composition beside #7's; times at
-    the M = 2 shard (a rank's launch) beside #7 on that shard and
-    ``torch.var_mean`` / ``torch.addcmul``. Returns the two kernel rows,
-    each time summed over the four planes."""
+def _host_ms(fn, reps: int = 100) -> float:
+    """The host's time (ms) to issue one call of ``fn``, over ``reps``
+    calls issued back to back (the device runs behind)."""
     import torch
 
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t) / reps * 1e3
+    torch.cuda.synchronize()
+    return host
+
+
+def _device_kernels(fn):
+    """The names of the device kernels one call of ``fn`` runs, in order,
+    from the profiler (tried three times; None where every session came
+    back with no device events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in sorted(
+            prof.events(), key=lambda e: e.time_range.start)
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+    return None
+
+
+def in_split_phase():
+    """The IN forward's split for width-sharded planes: the moments and
+    apply kernels (y and the scale a) bit for bit against their plain
+    versions at the four W-AdaIN planes of a 2x480x640 forward, whole and
+    as M = 2 and M = 4 shards, f32 and bf16; their M = 1 composition bit
+    for bit against the forward kernel (#7); the M-shard scale beside #7's;
+    the M = 1 composition on a shard two launches and no other device
+    kernel (launch counts and the profiler). Times at the M = 2 shard (a
+    rank's launch), f32, per plane: CUDA events over a burst of one tensor
+    (the three smaller planes fit the 50 MB L2, so a device time under a
+    plane's HBM bound is marked L2), the profiler's device time and the
+    host's time to issue a call, beside #7 on that shard, the M = 1
+    composition and ``torch.var_mean`` / ``torch.addcmul``. Returns the
+    two kernel rows, each time summed over the four planes."""
+    import torch
+
+    from rdfc_gan_torch.ops.kernels import build
     from rdfc_gan_torch.ops.kernels import norm_kernel as nk
 
     shapes = tuple((SPATIAL_B,) + s[1:] for s in fuse_in_shapes(
@@ -3870,75 +3918,117 @@ def in_split_phase():
           f"{SPATIAL_B}x{SPATIAL_SIZE[0]}x{SPATIAL_SIZE[1]}: {shapes}")
     gen = torch.Generator(device="cuda").manual_seed(5)
     acc = {k: collections.defaultdict(float) for k in SPLIT}
+    whole = collections.defaultdict(float)
     for shape in shapes:
-        x = torch.randn(shape, device="cuda", generator=gen) * 3 + 1.5
+        x32 = torch.randn(shape, device="cuda", generator=gen) * 3 + 1.5
         B_, C_, h, w = shape
-        y7, a7 = nk.instance_norm_fwd(x, 1e-5)
-        y1, a1 = nk.instance_norm_fwd_sharded(x, 1e-5)
-        compare(f"M=1 composition y {shape} vs #7", y1, y7, 0.0, 0.0,
-                quiet=True)
-        compare(f"M=1 composition a {shape} vs #7", a1, a7, 0.0, 0.0,
-                quiet=True)
         worst = {}
-        for M in (1, 2, 4):
-            cols = w // M
-            parts = [x[..., m * cols:(m + 1) * cols].contiguous()
-                     for m in range(M)]
-            sums = [nk.instance_norm_moments(p) for p in parts]
-            for m, (p, s) in enumerate(zip(parts, sums)):
-                acc[SPLIT[0]]["err"] = max(acc[SPLIT[0]]["err"], compare(
-                    f"instance_norm_moments {shape} M={M} m={m}", s,
-                    nk.instance_norm_moments_plain(p), 0.0, 0.0, quiet=True))
-            total = sums[0]
-            for s in sums[1:]:
-                total = total + s
-            a, b = nk.instance_norm_finalize(total, h * w, 1e-5)
-            for m, p in enumerate(parts):
-                acc[SPLIT[1]]["err"] = max(acc[SPLIT[1]]["err"], compare(
-                    f"instance_norm_apply {shape} M={M} m={m}",
-                    nk.instance_norm_apply(p, a, b),
-                    nk.instance_norm_apply_plain(p, a, b), 0.0, 0.0,
-                    quiet=True))
-            worst[M] = _ulps(a, a7)
-            if worst[M] > 1:
-                fail(f"instance norm split {shape} M={M}: the scale is "
-                     f"{worst[M]} ulps from #7's")
-        xs = x[..., :w // 2].contiguous()
-        n_el, planes = xs.numel(), B_ * C_
+        for dt in (torch.float32, torch.bfloat16):
+            x = x32.to(dt)
+            y7, a7 = nk.instance_norm_fwd(x, 1e-5)
+            y1, a1 = nk.instance_norm_fwd_sharded(x, 1e-5)
+            compare(f"M=1 composition y {shape} {dt} vs #7", y1, y7, 0.0,
+                    0.0, quiet=True)
+            compare(f"M=1 composition a {shape} {dt} vs #7", a1, a7, 0.0,
+                    0.0, quiet=True)
+            for M in (1, 2, 4):
+                cols = w // M
+                parts = [x[..., m * cols:(m + 1) * cols].contiguous()
+                         for m in range(M)]
+                sums = [nk.instance_norm_moments(p) for p in parts]
+                for m, (p, s) in enumerate(zip(parts, sums)):
+                    acc[SPLIT[0]]["err"] = max(acc[SPLIT[0]]["err"], compare(
+                        f"instance_norm_moments {shape} {dt} M={M} m={m}", s,
+                        nk.instance_norm_moments_plain(p), 0.0, 0.0,
+                        quiet=True))
+                total = sums[0]
+                for s in sums[1:]:
+                    total = total + s
+                for m, p in enumerate(parts):
+                    y, a = nk.instance_norm_apply(p, total, h * w, 1e-5)
+                    py, pa = nk.instance_norm_apply_plain(p, total, h * w,
+                                                          1e-5)
+                    for what, got, want in (("y", y, py), ("a", a, pa)):
+                        acc[SPLIT[1]]["err"] = max(
+                            acc[SPLIT[1]]["err"], compare(
+                                f"instance_norm_apply {what} {shape} {dt} "
+                                f"M={M} m={m}", got, want, 0.0, 0.0,
+                                quiet=True))
+                    worst[M] = max(worst.get(M, 0), _ulps(a, a7))
+                if worst[M] > 1:
+                    fail(f"instance norm split {shape} {dt} M={M}: the "
+                         f"scale is {worst[M]} ulps from #7's")
+        # a rank's launches at the M = 2 shard, f32 (as served)
+        xs = x32[..., :w // 2].contiguous()
+        n_el, planes, ns = xs.numel(), B_ * C_, h * w // 2
         s = nk.instance_norm_moments(xs)
-        a, b = nk.instance_norm_finalize(s, h * w // 2, 1e-5)
+        a, b = nk.instance_norm_finalize(s, ns, 1e-5)
         a4, b4 = a[:, :, None, None], b[:, :, None, None]
-        t = dict(
-            moments=time_ms(lambda: nk.instance_norm_moments(xs)),
-            apply=time_ms(lambda: nk.instance_norm_apply(xs, a, b)),
-            fwd=time_ms(lambda: nk.instance_norm_fwd(xs, 1e-5)),
-            var_mean=time_ms(lambda: torch.var_mean(xs, dim=(2, 3))),
-            addcmul=time_ms(lambda: torch.addcmul(b4, xs, a4)),
-            moments_plain=time_ms(lambda: nk.instance_norm_moments_plain(xs),
-                                  reps=3, warmup=1),
-            apply_plain=time_ms(lambda: nk.instance_norm_apply_plain(xs, a,
-                                                                     b)))
+        build.reset_launches()
+        nk.instance_norm_fwd_sharded(xs, 1e-5)
+        counts = dict(build.LAUNCHES)
+        if counts != {SPLIT[0]: 1, SPLIT[1]: 1}:
+            fail(f"the M=1 split at {tuple(xs.shape)} launched {counts}")
+        names = _device_kernels(lambda: nk.instance_norm_fwd_sharded(xs,
+                                                                     1e-5))
+        if names is not None and (
+                len(names) != 2 or "instance_norm_moments_kernel" not in
+                names[0] or "instance_norm_apply_kernel" not in names[1]):
+            fail(f"the M=1 split at {tuple(xs.shape)} ran device kernels "
+                 f"{names}, not moments then apply")
+        fns = dict(moments=lambda: nk.instance_norm_moments(xs),
+                   apply=lambda: nk.instance_norm_apply(xs, s, ns, 1e-5),
+                   split=lambda: nk.instance_norm_fwd_sharded(xs, 1e-5),
+                   fwd=lambda: nk.instance_norm_fwd(xs, 1e-5),
+                   var_mean=lambda: torch.var_mean(xs, dim=(2, 3)),
+                   addcmul=lambda: torch.addcmul(b4, xs, a4))
+        t = {k: time_ms(f) for k, f in fns.items()}
+        d = {k: _device_ms(f, n=10) for k, f in fns.items()}
+        host = {k: _host_ms(fns[k]) for k in ("moments", "apply",
+                                              "var_mean", "addcmul")}
+        t["moments_plain"] = time_ms(
+            lambda: nk.instance_norm_moments_plain(xs), reps=3, warmup=1)
+        t["apply_plain"] = time_ms(
+            lambda: nk.instance_norm_apply_plain(xs, s, ns, 1e-5))
         # f64: a convert, an add, a multiply and an add an element (at the
         # f32 rate, as the forward's row counts them); apply: a multiply
-        # and an add
+        # and an add, reading each plane's two f64 sums and writing its a
         cost = {SPLIT[0]: (n_el * 4 + planes * 16,
                            n_el * 4.0 * PEAK_F32_FLOPS / PEAK_F64_FLOPS),
-                SPLIT[1]: (2 * n_el * 4 + planes * 8, 2.0 * n_el)}
+                SPLIT[1]: (2 * n_el * 4 + planes * (16 + 4), 2.0 * n_el)}
+        marks = {}
         for name, key, lib in ((SPLIT[0], "moments", "var_mean"),
                                (SPLIT[1], "apply", "addcmul")):
             r = acc[name]
             r["ms"] += t[key]
+            r["device_ms"] += d[key]
+            r["host_ms"] += host[key]
             r["plain_ms"] += t[key + "_plain"]
             r["library_ms"] += t[lib]
+            r["library_device_ms"] += d[lib]
+            r["library_host_ms"] += host[lib]
             r["bytes"] += cost[name][0]
             r["ops"] += cost[name][1]
+            hbm = cost[name][0] / PEAK_BYTES_S * 1e3
+            marks[key] = " (L2: under its HBM bound)" if d[key] < hbm else ""
+        for k in ("split", "fwd"):
+            whole[k] += t[k]
+            whole[k + "_device"] += d[k]
         print(f"  {shape}: M=1 composition = #7 bit for bit; moments and "
-              f"apply = plain bit for bit at M=1, 2, 4; scale a vs #7's: "
-              + ", ".join(f"M={M} {u} ulp" for M, u in worst.items())
-              + f"; at the M=2 shard {tuple(xs.shape)} ms: moments "
-              f"{t['moments']:.4f} + apply {t['apply']:.4f} (#7 whole "
-              f"{t['fwd']:.4f}), var_mean {t['var_mean']:.4f}, addcmul "
-              f"{t['addcmul']:.4f}")
+              f"apply (y, a) = plain bit for bit at M=1, 2, 4, f32 and "
+              f"bf16; scale a vs #7's: "
+              + ", ".join(f"M={M} {u} ulp" for M, u in worst.items()))
+        print(f"    M=2 shard {tuple(xs.shape)}, ms events / device / host "
+              f"a call: moments {t['moments']:.4f} / {d['moments']:.4f} / "
+              f"{host['moments']:.4f}{marks['moments']}, var_mean "
+              f"{t['var_mean']:.4f} / {d['var_mean']:.4f} / "
+              f"{host['var_mean']:.4f}; apply {t['apply']:.4f} / "
+              f"{d['apply']:.4f} / {host['apply']:.4f}{marks['apply']}, "
+              f"addcmul {t['addcmul']:.4f} / {d['addcmul']:.4f} / "
+              f"{host['addcmul']:.4f}; the M=1 split (launches {counts}, "
+              f"device kernels {names or 'not seen by the profiler'}) "
+              f"{t['split']:.4f} / {d['split']:.4f}, #7 {t['fwd']:.4f} / "
+              f"{d['fwd']:.4f}")
     rows = {}
     for name in SPLIT:
         r = acc[name]
@@ -3947,12 +4037,20 @@ def in_split_phase():
             name=name, route="cuda",
             source="rdfc_gan_torch/csrc/instance_norm.cu",
             replaces="attic/norm_kernel.py:211", max_abs_err=r["err"],
-            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=bnd, bound_by=by,
-            library_ms=r["library_ms"])
-        print(f"  {name}, the four planes at the M=2 shard: kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-              f"{r['library_ms']:.4f} ms ({'torch.var_mean' if name == SPLIT[0] else 'torch.addcmul'}), "
-              f"bound {bnd * 1e3:.2f} us ({by})")
+            ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
+            bound_ms=bnd, bound_by=by, library_ms=r["library_ms"])
+        lib = "torch.var_mean" if name == SPLIT[0] else "torch.addcmul"
+        print(f"  {name}, the four planes at the M=2 shard: kernel events "
+              f"{r['ms']:.4f} ms, device {r['device_ms']:.4f} "
+              f"({_pct(bnd, r['device_ms'])} of the bound), host "
+              f"{r['host_ms']:.4f}; plain {r['plain_ms']:.4f} ms; library "
+              f"({lib}) events {r['library_ms']:.4f}, device "
+              f"{r['library_device_ms']:.4f}, host "
+              f"{r['library_host_ms']:.4f}; bound {bnd:.4f} ms ({by})")
+    print(f"  the M=1 split on the four shards (moments + apply, no "
+          f"collective): events {whole['split']:.4f} ms, device "
+          f"{whole['split_device']:.4f}; #7 on the same shards: events "
+          f"{whole['fwd']:.4f}, device {whole['fwd_device']:.4f}")
     return rows
 
 

@@ -70,6 +70,25 @@
 // so the conversions weigh more than the bytes: the second pass rounds two
 // values a conversion (__floats2bfloat162_rn, round to nearest even as
 // each single rounding).
+//
+// The split (a plane sharded over ranks by width, parallel/spatial.py).
+// moments: the forward's sums of the rank's columns, f64 out; the ranks
+// all-reduce them; apply: the forward's finalize from the added sums
+// (mean_f32, fmaxf, __frsqrt_rn, -m a), the scale af, and y. Both keep
+// fwd_plan's partition, its stage and moments keeps the forward's order of
+// summation (plan_sum, the cluster's ranks through DSMEM), so at one rank
+// the two are the forward bit for bit. Both are bound by bytes too (moments
+// reads x; apply reads x and writes y), so both put a block's whole chunk
+// in flight before they touch it: where the plane's vector is 16 bytes
+// (every chunk then starts and ends on 16 bytes; bulk_copy) the team's first
+// thread issues one TMA bulk copy of the team's chunk
+// (cp.async.bulk...mbarrier::complete_tx::bytes), armed on the team's
+// mbarrier with expect_tx, and the team waits on it; elsewhere (the 14x19
+// and odd planes) each thread copies its vectors with cp.async, as the
+// forward. apply needs no sum across blocks: a clustered plane's chunks run
+// as independent blocks, each finalizing from the sums while its copy is in
+// flight, the plane and the chunk from blockIdx (no division a vector), and
+// y leaves as whole vectors from registers.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -342,12 +361,91 @@ __global__ void __launch_bounds__(kMaxTeam)
 //
 // For a plane whose width is sharded over ranks (parallel/spatial.py): the
 // forward's sums of the rank's columns (moments), then, once the ranks'
-// sums are added and finalized as the forward finalizes them, y from a and
-// b (apply). Over a whole plane the two equal the forward bit for bit.
+// sums are added, the forward's finalize and y (apply). Over a whole plane
+// the two equal the forward bit for bit (the header says how they stage x).
 
-// sums[plane] = {sum x, sum x * x} in f64, in the forward's order (the
-// forward's plan and per-thread vectors, read straight from x: nothing is
-// staged for a second pass).
+// The rule for which chunks take the TMA: every chunk of a plane of n
+// elements of size bytes whose vector is 16 bytes. Such a plane, and every
+// chunk of it, starts and ends on 16 bytes (x itself starting on 16);
+// norm_kernel.py:bulk_copy is its mirror.
+bool bulk_copy(int n, int size) { return fwd_plan(n, size).vec * size == 16; }
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// The block's `teams` mbarriers, one arrival each (the team's first
+// thread, which also arms it with the chunk's bytes). Every thread of the
+// block calls it.
+__device__ __forceinline__ void init_bars(unsigned long long* bars,
+                                          int teams) {
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < teams; ++k)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                       smem_addr(bars + k)),
+                   "r"(1u)
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// Start the copy of the team's chunk, vectors [0, nv) of src, into stage:
+// the TMA's bulk copy where VB is 16 (armed and issued by the team's first
+// thread), else each thread's vectors v = t, t + team, ... by copy_async.
+template <int VB, typename P>
+__device__ __forceinline__ void stage_issue(P* stage, const P* src,
+                                            const Place& q, int team,
+                                            unsigned long long* bar) {
+  if constexpr (VB == 16) {
+    if (q.t == 0 && q.nv > 0) {
+      const unsigned bytes = (unsigned)q.nv * 16u;
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+              smem_addr(bar)),
+          "r"(bytes)
+          : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(stage)),
+          "l"(src), "r"(bytes), "r"(smem_addr(bar))
+          : "memory");
+    }
+  } else {
+    for (int v = q.t; v < q.nv; v += team) copy_async<VB>(stage + v, src + v);
+  }
+}
+
+// Wait for the chunk: the whole of it (the TMA) or the thread's own
+// vectors (copy_async), which are all a thread reads back.
+template <int VB>
+__device__ __forceinline__ void stage_wait(const Place& q,
+                                           unsigned long long* bar) {
+  if constexpr (VB == 16) {
+    if (q.nv <= 0) return;
+    const unsigned a = smem_addr(bar);
+    unsigned done = 0;
+    while (!done)
+      asm volatile(
+          "{\n .reg .pred p;\n"
+          " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          " selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(a), "r"(0u)
+          : "memory");
+  } else {
+    copy_wait_all();
+  }
+}
+
+// plan_sum's doubles for a block of `teams` teams of `team` threads
+__host__ __device__ __forceinline__ int red_doubles(int teams, int team) {
+  return 2 * teams * (team / 32) + 4;
+}
+
+// sums[plane] = {sum x, sum x * x} in f64, in the forward's order: its
+// plan, its stage, its per-thread vectors and plan_sum (the cluster's ranks
+// through distributed shared memory where the plan makes a cluster).
 template <typename B, int VEC>
 __global__ void __launch_bounds__(kMaxTeam)
     instance_norm_moments_kernel(const B* __restrict__ x,
@@ -355,14 +453,23 @@ __global__ void __launch_bounds__(kMaxTeam)
                                  int cluster, int cvec, int team,
                                  size_t stage_bytes) {
   using P = Pack<B, VEC>;
+  constexpr int VB = (int)sizeof(P);
   extern __shared__ __align__(16) unsigned char smem[];
   const Place q = place<VEC>(planes, n, cluster, cvec, team);
-  const P* src = reinterpret_cast<const P*>(x + q.base) + q.v0;
+  double* red = reinterpret_cast<double*>(smem + stage_bytes);
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(
+                                red + red_doubles(q.teams, team)) + q.tm;
+  if constexpr (VB == 16) init_bars(bar - q.tm, q.teams);
+  P* stage = reinterpret_cast<P*>(smem) + (size_t)q.tm * cvec;
+  stage_issue<VB>(stage, reinterpret_cast<const P*>(x + q.base) + q.v0, q,
+                  team, bar);
+  stage_wait<VB>(q, bar);
+
   double a1[VEC], a2[VEC];
 #pragma unroll
   for (int l = 0; l < VEC; ++l) a1[l] = a2[l] = 0.0;
   for (int v = q.t; v < q.nv; v += team) {
-    const P p = src[v];
+    const P p = stage[v];
 #pragma unroll
     for (int l = 0; l < VEC; ++l) {
       const double f = (double)bits_f32(p.e[l]);
@@ -370,37 +477,57 @@ __global__ void __launch_bounds__(kMaxTeam)
       a2[l] = __fma_rn(f, f, a2[l]);
     }
   }
-  const double2 s = plan_sum<VEC>(
-      a1, a2, q, team, cluster,
-      reinterpret_cast<double*>(smem + stage_bytes));
+  const double2 s = plan_sum<VEC>(a1, a2, q, team, cluster, red);
   if (!q.live || q.rank != 0 || q.t != 0) return;
   sums[2 * (long long)q.plane] = s.x;
   sums[2 * (long long)q.plane + 1] = s.y;
 }
 
-// y = x * T(a) + T(b) in T, the forward's rounding; one thread a vector.
+// From the ranks' added sums over planes of total elements: the forward's
+// finalize (a, b), af[plane] = a from the chunk that holds the plane's
+// first vector, and y = x * T(a) + T(b) in T, the forward's rounding. The
+// plan's chunks are independent blocks here (no sum crosses them), each
+// staging its chunk and finalizing while the copy is in flight.
 template <typename B, int VEC>
-__global__ void __launch_bounds__(kBlockThreads)
+__global__ void __launch_bounds__(kMaxTeam)
     instance_norm_apply_kernel(const B* __restrict__ x,
-                               const float* __restrict__ af,
-                               const float* __restrict__ bf,
-                               B* __restrict__ y, long long nvec, int pvec) {
+                               const double* __restrict__ sums,
+                               B* __restrict__ y, float* __restrict__ af,
+                               int planes, int n, int total, float eps,
+                               int cluster, int cvec, int team,
+                               size_t stage_bytes) {
   using P = Pack<B, VEC>;
-  const P* src = reinterpret_cast<const P*>(x);
-  P* dst = reinterpret_cast<P*>(y);
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < nvec; i += (long long)gridDim.x * blockDim.x) {
-    const long long plane = i / pvec;
-    const float at = round_to<B>(af[plane]);
-    const float bt = round_to<B>(bf[plane]);
-    const P p = src[i];
+  constexpr int VB = (int)sizeof(P);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Place q = place<VEC>(planes, n, cluster, cvec, team);
+  unsigned long long* bar =
+      reinterpret_cast<unsigned long long*>(smem + stage_bytes) + q.tm;
+  if constexpr (VB == 16) init_bars(bar - q.tm, q.teams);
+  if (!q.live) return;
+  P* stage = reinterpret_cast<P*>(smem) + (size_t)q.tm * cvec;
+  stage_issue<VB>(stage, reinterpret_cast<const P*>(x + q.base) + q.v0, q,
+                  team, bar);
+  const float m = mean_f32(sums[2 * (long long)q.plane], total);
+  const float var = fmaxf(
+      __fsub_rn(mean_f32(sums[2 * (long long)q.plane + 1], total),
+                __fmul_rn(m, m)),
+      0.f);
+  const float a = __frsqrt_rn(__fadd_rn(var, eps));
+  const float b = -__fmul_rn(m, a);
+  if (q.rank == 0 && q.t == 0) af[q.plane] = a;
+  const float at = round_to<B>(a);
+  const float bt = round_to<B>(b);
+  stage_wait<VB>(q, bar);
+  P* dst = reinterpret_cast<P*>(y + q.base) + q.v0;
+  for (int v = q.t; v < q.nv; v += team) {
+    const P p = stage[v];
     P o;
 #pragma unroll
     for (int l = 0; l < VEC; ++l) {
       const float prod = round_to<B>(__fmul_rn(bits_f32(p.e[l]), at));
       o.e[l] = f32_bits<B>(__fadd_rn(prod, bt));
     }
-    dst[i] = o;
+    dst[v] = o;
   }
 }
 
@@ -483,24 +610,26 @@ __global__ void __launch_bounds__(kMaxTeam)
 // ------------------------------------------------------------- launches --
 
 // The launch of a planned kernel k whose block stages `arrays` arrays of
-// [teams][cvec] vectors of VB bytes: the grid, the cluster, the dynamic
-// shared memory (the stage, then plan_sum's doubles). No fallback: a
-// refused launch (too much shared memory, a cluster the card will not
-// schedule) is returned to the wrapper.
+// [teams][cvec] vectors of VB bytes: the grid, the cluster (where
+// `clusters` and the plan makes one; else a plane's chunks are independent
+// blocks), the dynamic shared memory (the stage, then `tail` bytes). No
+// fallback: a refused launch (too much shared memory, a cluster the card
+// will not schedule) is returned to the wrapper.
 template <typename K, typename... Args>
 int launch_planned(K k, const Plan& p, int arrays, int vb, int planes,
-                   cudaStream_t stream, Args... args) {
+                   size_t tail, bool clusters, cudaStream_t stream,
+                   Args... args) {
   const size_t stage =
       ((size_t)arrays * p.teams * p.cvec * vb + 15) / 16 * 16;
   if (stage > (size_t)kMaxStageBytes) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      stage + (2 * (size_t)p.teams * (p.team / 32) + 4) * sizeof(double);
+  const size_t smem = stage + tail;
+  const bool cl = clusters && p.cluster > 1;
   if (smem > 48 * 1024) {
     const int e = (int)cudaFuncSetAttribute(
         k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != 0) return e;
   }
-  if (p.cluster > kMaxCluster) {
+  if (cl && p.cluster > kMaxCluster) {
     const int e = (int)cudaFuncSetAttribute(
         k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != 0) return e;
@@ -518,29 +647,35 @@ int launch_planned(K k, const Plan& p, int arrays, int vb, int planes,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = p.cluster > 1 ? 1 : 0;
+  cfg.numAttrs = cl ? 1 : 0;
   const int e = (int)cudaLaunchKernelEx(&cfg, k, args..., p.cluster, p.cvec,
                                         p.team, stage);
   if (e != 0) return e;
   return (int)cudaGetLastError();
 }
 
+// plan_sum's doubles after the stage
+size_t red_bytes(const Plan& p) {
+  return (size_t)red_doubles(p.teams, p.team) * sizeof(double);
+}
+
 template <typename B, int VEC>
 int launch_fwd_vec(const void* x, void* y, float* af, int planes, int n,
                    float eps, const Plan& p, cudaStream_t stream) {
   return launch_planned(instance_norm_fwd_kernel<B, VEC>, p, 1,
-                        (int)sizeof(B) * VEC, planes, stream,
-                        static_cast<const B*>(x), static_cast<B*>(y), af,
-                        planes, n, eps);
+                        (int)sizeof(B) * VEC, planes, red_bytes(p), true,
+                        stream, static_cast<const B*>(x),
+                        static_cast<B*>(y), af, planes, n, eps);
 }
 
 template <typename B, int VEC>
 int launch_bwd_vec(const void* dy, const void* y, const float* af, void* dx,
                    int planes, int n, const Plan& p, cudaStream_t stream) {
   return launch_planned(instance_norm_bwd_kernel<B, VEC>, p, 2,
-                        (int)sizeof(B) * VEC, planes, stream,
-                        static_cast<const B*>(dy), static_cast<const B*>(y),
-                        af, static_cast<B*>(dx), planes, n);
+                        (int)sizeof(B) * VEC, planes, red_bytes(p), true,
+                        stream, static_cast<const B*>(dy),
+                        static_cast<const B*>(y), af, static_cast<B*>(dx),
+                        planes, n);
 }
 
 template <typename B>
@@ -571,13 +706,26 @@ int launch_bwd(const void* dy, const void* y, const float* af, void* dx,
   return (int)cudaErrorInvalidValue;
 }
 
+// The split's launches: the forward's plan and stage; the TMA's chunks
+// after the stage (and plan_sum's doubles) one mbarrier a team. A TMA copy
+// needs x on 16 bytes: a tensor that is not is refused.
+template <typename B, int VEC>
+size_t bar_bytes(const Plan& p, const void* x, int* e) {
+  if (sizeof(B) * VEC != 16) return 0;
+  if ((size_t)x % 16) *e = (int)cudaErrorMisalignedAddress;
+  return (size_t)p.teams * sizeof(unsigned long long);
+}
+
 template <typename B, int VEC>
 int launch_moments_vec(const void* x, double* sums, int planes, int n,
                        const Plan& p, cudaStream_t stream) {
-  // the forward's plan; no array staged (arrays = 0)
-  return launch_planned(instance_norm_moments_kernel<B, VEC>, p, 0,
-                        (int)sizeof(B) * VEC, planes, stream,
-                        static_cast<const B*>(x), sums, planes, n);
+  int e = 0;
+  const size_t bars = bar_bytes<B, VEC>(p, x, &e);
+  if (e != 0) return e;
+  return launch_planned(instance_norm_moments_kernel<B, VEC>, p, 1,
+                        (int)sizeof(B) * VEC, planes, red_bytes(p) + bars,
+                        true, stream, static_cast<const B*>(x), sums, planes,
+                        n);
 }
 
 template <typename B>
@@ -595,27 +743,38 @@ int launch_moments(const void* x, double* sums, int planes, int n,
 }
 
 template <typename B, int VEC>
-int launch_apply_vec(const void* x, const float* a, const float* b, void* y,
-                     int planes, int n, cudaStream_t stream) {
-  const long long nvec = (long long)planes * (n / VEC);
-  const long long want = (nvec + kBlockThreads - 1) / kBlockThreads;
-  const unsigned blocks = (unsigned)(want < (1 << 20) ? want : (1 << 20));
-  instance_norm_apply_kernel<B, VEC><<<blocks, kBlockThreads, 0, stream>>>(
-      static_cast<const B*>(x), a, b, static_cast<B*>(y), nvec, n / VEC);
-  return (int)cudaGetLastError();
+int launch_apply_vec(const void* x, const double* sums, void* y, float* af,
+                     int planes, int n, int total, float eps, const Plan& p,
+                     cudaStream_t stream) {
+  int e = 0;
+  const size_t bars = bar_bytes<B, VEC>(p, x, &e);
+  if (e != 0) return e;
+  return launch_planned(instance_norm_apply_kernel<B, VEC>, p, 1,
+                        (int)sizeof(B) * VEC, planes, bars, false, stream,
+                        static_cast<const B*>(x), sums, static_cast<B*>(y),
+                        af, planes, n, total, eps);
 }
 
 template <typename B>
-int launch_apply(const void* x, const float* a, const float* b, void* y,
-                 int planes, int n, cudaStream_t stream) {
+int launch_apply(const void* x, const double* sums, void* y, float* af,
+                 int planes, int n, int total, float eps,
+                 cudaStream_t stream) {
   if ((long long)planes * n == 0) return 0;
-  switch (fwd_plan(n, (int)sizeof(B)).vec) {
-    case 1: return launch_apply_vec<B, 1>(x, a, b, y, planes, n, stream);
-    case 2: return launch_apply_vec<B, 2>(x, a, b, y, planes, n, stream);
-    case 4: return launch_apply_vec<B, 4>(x, a, b, y, planes, n, stream);
+  const Plan p = fwd_plan(n, (int)sizeof(B));
+  switch (p.vec) {
+    case 1:
+      return launch_apply_vec<B, 1>(x, sums, y, af, planes, n, total, eps, p,
+                                    stream);
+    case 2:
+      return launch_apply_vec<B, 2>(x, sums, y, af, planes, n, total, eps, p,
+                                    stream);
+    case 4:
+      return launch_apply_vec<B, 4>(x, sums, y, af, planes, n, total, eps, p,
+                                    stream);
   }
   if constexpr (sizeof(B) == 2)
-    return launch_apply_vec<B, 8>(x, a, b, y, planes, n, stream);
+    return launch_apply_vec<B, 8>(x, sums, y, af, planes, n, total, eps, p,
+                                  stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -650,17 +809,27 @@ extern "C" int instance_norm_moments(const void* x, void* sums, int planes,
               : launch_moments<unsigned int>(x, s, planes, n, st);
 }
 
-// x, y: (planes, n) contiguous, x 16-byte aligned, one type; a, b: (planes,)
-// f32. y = x * T(a) + T(b) as the forward writes it. Returns the
-// cudaError_t of the launch.
-extern "C" int instance_norm_apply(const void* x, const void* a,
-                                   const void* b, void* y, int planes, int n,
-                                   int bf16, void* stream) {
+// x, y: (planes, n) contiguous, x 16-byte aligned, one type; sums:
+// (planes, 2) f64, the ranks' added moments of planes of total elements;
+// af: (planes,) f32. The forward's finalize, af = a, and y = x * T(a) +
+// T(b) as the forward writes it. Returns the cudaError_t of the launch.
+extern "C" int instance_norm_apply(const void* x, const void* sums, void* y,
+                                   void* af, int planes, int n, int total,
+                                   float eps, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* af = static_cast<const float*>(a);
-  const float* bf = static_cast<const float*>(b);
-  return bf16 ? launch_apply<unsigned short>(x, af, bf, y, planes, n, st)
-              : launch_apply<unsigned int>(x, af, bf, y, planes, n, st);
+  const double* s = static_cast<const double*>(sums);
+  float* a = static_cast<float*>(af);
+  return bf16 ? launch_apply<unsigned short>(x, s, y, a, planes, n, total,
+                                             eps, st)
+              : launch_apply<unsigned int>(x, s, y, a, planes, n, total, eps,
+                                           st);
+}
+
+// 1 where the split's kernels copy a chunk of a plane of n elements of size
+// bytes with the TMA, else 0 (norm_kernel.py checks its mirror against it
+// on the card).
+extern "C" int instance_norm_bulk_copy(int n, int size) {
+  return bulk_copy(n, size) ? 1 : 0;
 }
 
 // The forward's and the backward's plans for a plane of n elements of size

@@ -85,7 +85,9 @@ _SIGNATURES = {
         "instance_norm_bwd_plan": [_I, _I, _P],
         "instance_norm_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],
         "instance_norm_moments": [_P, _P, _I, _I, _I, _P],
-        "instance_norm_apply": [_P, _P, _P, _P, _I, _I, _I, _P]},
+        "instance_norm_apply":
+            [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P],
+        "instance_norm_bulk_copy": [_I, _I]},
     "conv_block": {
         "conv3x3_fwd": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
         "conv3x3_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
@@ -194,8 +196,12 @@ def check(lib: ctypes.CDLL, name: str, code: int):
         raise RuntimeError(f"kernel {name!r} failed to launch: {msg} ({code})")
 
 
-def stream_handle() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def stream_handle() -> int:
+    """The current CUDA stream of the current device, as the handle the
+    kernels' C entry points take. The raw query: building the
+    ``torch.cuda.Stream`` that ``torch.cuda.current_stream()`` returns costs
+    microseconds of host time a launch."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
 def define_op(schema: str, cuda, cpu, fake):

@@ -29,12 +29,17 @@ clusters and several planes a block), the forward staging x
 is the f32 conv-block kernels' order.
 
 The forward split for a plane whose width is sharded over ranks
-(``parallel.spatial``): ``instance_norm_moments`` (each plane's f64 sums in
-the forward's order) and ``instance_norm_apply`` (y from the (B, C) a and
-b, rounded as the forward rounds it), two kernels of the same source with
-their plain versions, and ``instance_norm_fwd_sharded``, which sums the
-moments over the ranks between them and finalizes as the forward does
-(``instance_norm_finalize``, shared with ``instance_norm_fwd_plain``).
+(``parallel.spatial``), two kernels of the same source with their plain
+versions: ``instance_norm_moments`` (each plane's f64 sums in the forward's
+order) and ``instance_norm_apply`` (from the ranks' added sums, the
+forward's finalize, the (B, C) scale a and y, rounded as the forward rounds
+them). ``instance_norm_fwd_sharded`` runs moments, the all-reduce of the
+sums over the row and apply: no other op runs between the two launches.
+Both cut a plane by ``fwd_plan`` and stage a block's chunk of x in shared
+memory, with the TMA's bulk copy where the plane's vector is 16 bytes
+(``bulk_copy``), else with ``cp.async``; both refuse a plane the forward
+refuses (a stage past ``MAX_STAGE_BYTES``). The plain ``apply`` is
+``instance_norm_finalize`` and the elementwise pass.
 """
 
 from __future__ import annotations
@@ -203,9 +208,8 @@ def instance_norm_fwd_plain(x: torch.Tensor, eps: float
     """(y, a): the JAX ``_instance_norm_fwd_impl`` in torch, one-pass f32
     statistics in the forward kernel's order; a is the (B, C) f32
     scale."""
-    a, b = instance_norm_finalize(instance_norm_moments_plain(x),
-                                  x.shape[2] * x.shape[3], eps)
-    return instance_norm_apply_plain(x, a, b), a
+    return instance_norm_apply_plain(x, instance_norm_moments_plain(x),
+                                     x.shape[2] * x.shape[3], eps)
 
 
 def instance_norm_moments_plain(x: torch.Tensor) -> torch.Tensor:
@@ -228,12 +232,15 @@ def instance_norm_finalize(sums: torch.Tensor, n: int, eps: float
     return a, -m * a
 
 
-def instance_norm_apply_plain(x: torch.Tensor, a: torch.Tensor,
-                              b: torch.Tensor) -> torch.Tensor:
-    """y = x * T(a) + T(b) in x's type T, the product and the sum rounded
-    apart; a, b (B, C) f32."""
-    return x * a[:, :, None, None].to(x.dtype) + b[:, :, None, None].to(
-        x.dtype)
+def instance_norm_apply_plain(x: torch.Tensor, sums: torch.Tensor, n: int,
+                              eps: float
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y, a): the finalize of the (B, C, 2) f64 sums over planes of n
+    values (``instance_norm_finalize``), then y = x * T(a) + T(b) in x's
+    type T, the product and the sum rounded apart; a (B, C) f32."""
+    a, b = instance_norm_finalize(sums, n, eps)
+    dt = x.dtype
+    return x * a[:, :, None, None].to(dt) + b[:, :, None, None].to(dt), a
 
 
 def instance_norm_bwd_plain(dy: torch.Tensor, y: torch.Tensor,
@@ -318,6 +325,14 @@ def instance_norm_fwd(x: torch.Tensor, eps: float
     return fwd_op(x, float(eps))
 
 
+def bulk_copy(n: int, itemsize: int) -> bool:
+    """Whether the split's kernels stage a plane of n values of
+    ``itemsize`` bytes with the TMA's bulk copy (instance_norm.cu:bulk_copy):
+    where its vector is 16 bytes, so that every chunk starts and ends on 16
+    bytes; else each thread copies its vectors with ``cp.async``."""
+    return fwd_plan(n, itemsize).vec * itemsize == 16
+
+
 def instance_norm_moments(x: torch.Tensor) -> torch.Tensor:
     """x: (B, C, H, W) f32 or bf16. Returns (B, C, 2) f64: the sum and the
     sum of squares of each plane, in the forward kernel's order; one
@@ -328,7 +343,7 @@ def instance_norm_moments(x: torch.Tensor) -> torch.Tensor:
     _check(MOMENTS, x)
     B, C, H, W = x.shape
     x = _aligned(x)
-    sums = torch.empty((B, C, 2), dtype=torch.float64, device=x.device)
+    sums = x.new_empty((B, C, 2), dtype=torch.float64)
     rc = lib.instance_norm_moments(x.data_ptr(), sums.data_ptr(), B * C,
                                    H * W, int(x.dtype == torch.bfloat16),
                                    build.stream_handle())
@@ -337,29 +352,32 @@ def instance_norm_moments(x: torch.Tensor) -> torch.Tensor:
     return sums
 
 
-def instance_norm_apply(x: torch.Tensor, a: torch.Tensor,
-                        b: torch.Tensor) -> torch.Tensor:
-    """x: (B, C, H, W) f32 or bf16; a, b: (B, C) f32. Returns y = x * T(a)
-    + T(b) in x's type, rounded as the forward kernel rounds it; one launch
+def instance_norm_apply(x: torch.Tensor, sums: torch.Tensor, n: int,
+                        eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, C, H, W) f32 or bf16; sums: (B, C, 2) f64, the moments of
+    planes of n values (x's columns of them, summed over the ranks).
+    Returns (y in x's type, a (B, C) f32): the forward's finalize and y =
+    x * T(a) + T(b), rounded as the forward kernel rounds them; one launch
     of ``instance_norm_apply`` on the card."""
     if x.device.type == "cpu":
-        return instance_norm_apply_plain(x, a, b)
+        return instance_norm_apply_plain(x, sums, n, eps)
     lib = build.library(SOURCE)
     _check(APPLY, x)
-    build.require_cuda(APPLY, a, b)
     B, C, H, W = x.shape
-    for t in (a, b):
-        if tuple(t.shape) != (B, C) or t.dtype != torch.float32:
-            raise ValueError(f"{APPLY}: a and b must be (B, C) f32")
+    if sums.shape != (B, C, 2) or sums.dtype != torch.float64 or \
+            not sums.is_cuda or not sums.is_contiguous():
+        raise ValueError(f"{APPLY}: sums must be (B, C, 2) f64 on the card, "
+                         f"contiguous")
     x = _aligned(x)
     y = torch.empty_like(x)
-    rc = lib.instance_norm_apply(x.data_ptr(), a.data_ptr(), b.data_ptr(),
-                                 y.data_ptr(), B * C, H * W,
-                                 int(x.dtype == torch.bfloat16),
+    a = x.new_empty((B, C), dtype=torch.float32)
+    rc = lib.instance_norm_apply(x.data_ptr(), sums.data_ptr(), y.data_ptr(),
+                                 a.data_ptr(), B * C, H * W, int(n),
+                                 float(eps), int(x.dtype == torch.bfloat16),
                                  build.stream_handle())
     build.check(lib, APPLY, rc)
     build.LAUNCHES[APPLY] += 1
-    return y
+    return y, a
 
 
 def instance_norm_fwd_sharded(x: torch.Tensor, eps: float, group=None,
@@ -367,9 +385,9 @@ def instance_norm_fwd_sharded(x: torch.Tensor, eps: float, group=None,
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The IN forward of a plane whose width is split over the ``parts``
     ranks of ``group``, x this rank's columns (``parallel.spatial``): the
-    moments of its columns, their f64 sums summed over the group, the
-    forward's finalize over the global plane (``instance_norm_finalize``),
-    then y of its columns. Returns (y, a) as ``instance_norm_fwd``; at
+    moments of its columns, their f64 sums summed over the group, then the
+    forward's finalize over the global plane and y of its columns
+    (``instance_norm_apply``). Returns (y, a) as ``instance_norm_fwd``; at
     ``parts`` 1 both equal its bit for bit. Serving only: raises where
     autograd would need a gradient."""
     if torch.is_grad_enabled() and x.requires_grad:
@@ -378,9 +396,7 @@ def instance_norm_fwd_sharded(x: torch.Tensor, eps: float, group=None,
     sums = instance_norm_moments(x)
     if parts > 1:
         dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=group)
-    a, b = instance_norm_finalize(sums, x.shape[2] * x.shape[3] * parts,
-                                  eps)
-    return instance_norm_apply(x, a, b), a
+    return instance_norm_apply(x, sums, x.shape[2] * x.shape[3] * parts, eps)
 
 
 def instance_norm_bwd(dy: torch.Tensor, y: torch.Tensor,

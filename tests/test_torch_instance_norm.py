@@ -378,8 +378,10 @@ def test_kernels_match_plain_on_card(shape, dt):
 
 @pytest.mark.gpu
 def test_fwd_plan_matches_the_kernel_on_card():
-    """``fwd_plan`` mirrors instance_norm.cu:fwd_plan, at the plans of
-    ``FWD_PLANS`` and at every plane size up to 3000 and a sweep past."""
+    """``fwd_plan`` mirrors instance_norm.cu:fwd_plan, and ``bulk_copy``
+    (which planes the split's kernels stage with the TMA) its bulk_copy, at
+    the plans of ``FWD_PLANS`` and at every plane size up to 3000 and a
+    sweep past."""
     import ctypes
 
     from rdfc_gan_torch.ops.kernels import build
@@ -393,6 +395,8 @@ def test_fwd_plan_matches_the_kernel_on_card():
         for size in (2, 4):
             lib.instance_norm_fwd_plan(n, size, out)
             assert tuple(out) == tuple(nk.fwd_plan(n, size)), (n, size)
+            assert bool(lib.instance_norm_bulk_copy(n, size)) == \
+                nk.bulk_copy(n, size), (n, size)
 
 
 @pytest.mark.gpu
@@ -421,22 +425,35 @@ def test_bwd_plan_matches_the_kernel_on_card():
 @pytest.mark.parametrize("dt", [F32, BF16])
 def test_split_kernels_match_plain_on_card(shape, dt):
     """The forward's split for a width-sharded plane (the W-AdaIN planes
-    of 2x480x640, whole and as shards, and an odd plane): moments and apply
-    bit for bit against their plain versions, and their one-rank
-    composition bit for bit against the forward kernel."""
+    of 2x480x640, whole and as shards, and an odd plane): moments, and
+    apply's y and scale a, bit for bit against their plain versions, and
+    their one-rank composition bit for bit against the forward kernel."""
     _card()
     g = torch.Generator(device="cuda").manual_seed(1)
     x = (torch.randn(shape, device="cuda", generator=g) * 3 + 1.5).to(dt)
+    n = shape[2] * shape[3]
     s = nk.instance_norm_moments(x)
-    a, b = nk.instance_norm_finalize(s, shape[2] * shape[3], 1e-5)
-    y = nk.instance_norm_apply(x, a, b)
+    y, a = nk.instance_norm_apply(x, s, n, 1e-5)
     torch.cuda.synchronize()
-    assert s.dtype == torch.float64 and y.dtype == dt
+    assert s.dtype == torch.float64 and y.dtype == dt and a.dtype == F32
     torch.testing.assert_close(s, nk.instance_norm_moments_plain(x), rtol=0,
                                atol=0)
-    torch.testing.assert_close(y, nk.instance_norm_apply_plain(x, a, b),
-                               rtol=0, atol=0)
+    py, pa = nk.instance_norm_apply_plain(x, s, n, 1e-5)
+    for got, want in ((y, py), (a, pa)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
     y1, a1 = nk.instance_norm_fwd_sharded(x, 1e-5)
     y7, a7 = nk.instance_norm_fwd(x, 1e-5)
-    for got, want in ((a1, a7), (y1, y7)):
+    for got, want in ((a1, a7), (y1, y7), (a, a7), (y, y7)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,size,bulk", [
+    (600, 4, True), (2400, 4, True), (9600, 4, True), (38400, 4, True),
+    (600, 2, True), (266, 4, False), (266, 2, False), (391, 4, False),
+    (391, 2, False), (4, 4, True), (8, 2, True), (12, 2, False)])
+def test_bulk_copy_takes_whole_16_byte_vectors(n, size, bulk):
+    """The TMA stages a plane where its vector is 16 bytes: the W-AdaIN
+    planes of 2x480x640 as M = 2 shards (600 .. 38400 values), f32 and
+    bf16; not the 14x19 planes (8-byte f32 or 4-byte bf16 vectors), an odd
+    17x23 plane, or 12 bf16 values (8-byte vectors)."""
+    assert nk.bulk_copy(n, size) is bulk

@@ -295,6 +295,29 @@ def test_instance_norm_split_at_one_rank_is_the_forward():
         assert s.dtype == torch.float64 and tuple(s.shape) == (2, 5, 2)
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,M", [((2, 5, 14, 19), 1), ((4, 3, 17, 23), 1),
+                                     ((2, 6, 12, 32), 2)])
+def test_instance_norm_apply_plain_is_finalize_then_elementwise(shape, M, dt):
+    """``instance_norm_apply_plain(x, sums, n, eps)`` equals
+    ``instance_norm_finalize`` followed by the elementwise y = x T(a) +
+    T(b), bit for bit, at a served, an odd and an M = 2 sharded plane (each
+    shard's apply from the two shards' moments added)."""
+    x = (_x(51, shape) * 3 + 1.5).to(dt)
+    w = shape[3] // M
+    parts = [x[..., m * w:(m + 1) * w].contiguous() for m in range(M)]
+    sums = nk.instance_norm_moments_plain(parts[0])
+    for p in parts[1:]:
+        sums = sums + nk.instance_norm_moments_plain(p)
+    n = shape[2] * shape[3]
+    a, b = nk.instance_norm_finalize(sums, n, 1e-5)
+    for p in parts:
+        y, got_a = nk.instance_norm_apply_plain(p, sums, n, 1e-5)
+        want = p * a[:, :, None, None].to(dt) + b[:, :, None, None].to(dt)
+        assert y.dtype == dt and got_a.dtype == torch.float32
+        assert torch.equal(y, want) and torch.equal(got_a, a)
+
+
 def test_conv_cases_cover_the_served_nets():
     """Every convolution and pool of the flagship's three served nets (full
     widths) has its configuration among the cases above."""
@@ -463,7 +486,7 @@ def test_split_wrappers_never_take_plain_on_cuda(monkeypatch):
         monkeypatch.setattr(nk, name, _never)
     x = _OnCard()
     for call in (lambda: nk.instance_norm_moments(x),
-                 lambda: nk.instance_norm_apply(x, x, x),
+                 lambda: nk.instance_norm_apply(x, x, 4, 1e-5),
                  lambda: nk.instance_norm_fwd_sharded(x, 1e-5)):
         with pytest.raises(RuntimeError, match="needs a CUDA device"), \
                 torch.no_grad():
