@@ -1,7 +1,7 @@
 """Parent against change on one card, each tree running its own phases.
 
-    python3 ab_chip.py [--wrappers | --split] PARENT_TREE [OTHER_TREE ...]
-        CHANGE_TREE LOG_DIR
+    python3 ab_chip.py [--wrappers | --split | --spatial] PARENT_TREE
+        [OTHER_TREE ...] CHANGE_TREE LOG_DIR
 
 Each tree is a checkout of the repository (a ``git archive`` of the parent
 commit unpacked in a git-ignored directory, and this checkout). In turns,
@@ -27,7 +27,11 @@ the main path calls them, through the tree's own modules: the shift-mask
 scatter (#1) and the served chain (#3, T=18) at 4x224x304, S=8, and the
 instance norm's forward (#7) at the four W-AdaIN shapes, f32, beside
 ``F.instance_norm``; each as the CUDA events time a call over a burst of
-back-to-back calls, and the host's time to issue a call. More than two trees run in the order given,
+back-to-back calls, and the host's time to issue a call. With
+``--spatial`` a run builds the kernels and runs the tree's own
+``spatial_phase`` (width-sharded serving: gloo ranks on the one card, the
+bytes each forward exchanges and its median ms a rank on each grid).
+More than two trees run in the order given,
 then in reverse (parent, other, change, change, other, parent). Each
 run's whole output goes to LOG_DIR/ab_<label>.log; the lines that compare
 the trees are printed. Needs one CUDA card, as ``chip_smoke.py``.
@@ -44,7 +48,8 @@ import time
 
 # the printed lines of a run's log
 KEEP = ("[", "  nlspn_", "  per-request", "  step ms", "NVIDIA",
-        "  instance_norm_", "  the M=1 split")
+        "  instance_norm_", "  the M=1 split", "  model", "  data",
+        "  M=1 ", "  the 2-rank", "  the 4-rank", "  width-sharding")
 
 
 def split_times(label: str):
@@ -171,6 +176,21 @@ def split_run(label: str):
     print(c.gpu_line())
 
 
+def spatial_run(label: str):
+    """Only width-sharded serving, from the current directory's tree."""
+    tree = os.getcwd()
+    sys.path.insert(0, tree)
+    import chip_smoke as c
+    from rdfc_gan_torch.ops.kernels import build
+
+    t0 = time.time()
+    build.build_all()
+    print(f"[{label}] built in {time.time() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=tree) as wd:
+        c.spatial_phase(wd)
+    print(c.gpu_line())
+
+
 def wrapper_times(label: str):
     """The served kernels' wrappers, from the current directory's tree."""
     tree = os.getcwd()
@@ -220,10 +240,11 @@ def wrapper_times(label: str):
 
 def main():
     args = sys.argv[1:]
-    mode = [a for a in args if a in ("--wrappers", "--split")]
+    mode = [a for a in args if a in ("--wrappers", "--split", "--spatial")]
     args = [a for a in args if a not in mode]
     if len(args) == 2 and args[0] == "--run":
-        {"--wrappers": wrapper_times, "--split": split_run}.get(
+        {"--wrappers": wrapper_times, "--split": split_run,
+         "--spatial": spatial_run}.get(
             mode[0] if mode else None, run_tree)(args[1])
         return
     if len(args) < 3:

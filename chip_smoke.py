@@ -108,9 +108,12 @@ and PyTorch built for CUDA. It
 13. serves width-sharded (``spatial_phase``, the JAX ``spatial_sharding``):
    after the IN forward's split for a sharded plane is held against its
    plain versions and its M = 1 composition against the forward kernel
-   (``in_split_phase``, with the kernel phases), gloo ranks on the one card
-   serve the flagship at 2x480x640 on three ``data`` x ``model`` grids in
-   full and ``--depth_only``, and the NLSPN config on two ranks, each held
+   (``in_split_phase``, with the kernel phases; also at the uneven shards
+   of the published 224x304), gloo ranks on the one card serve the
+   flagship at 2x480x640 on three ``data`` x ``model`` grids in full and
+   ``--depth_only``, and the NLSPN config on two ranks, then the published
+   4x224x304, whose deeper levels split unevenly, with the flagship on
+   {model: 2} and {model: 4} and the NLSPN config on {model: 2}, each held
    against the unsharded forward with its launches counted, and
    ``rdfc_gan_torch.test`` serves with a ``model`` axis, its metrics held to
    world 1's; peak memory a rank, bytes exchanged and times printed;
@@ -3835,11 +3838,20 @@ def data_parallel_phase(workdir, device="cuda:0", flagship=None, nlspn=None,
              + "; ".join(problems))
 
 
-# width-sharded serving (spatial_phase): the served batch and plane, the
-# grids each pool of ranks runs (by world size), the timed forwards
+# width-sharded serving (spatial_phase): the served batch and plane; the
+# published NYUv2 crop at the served batch, whose deeper levels (152, 76,
+# 38, 19, 10 columns) do not split evenly over 2 or 4 ranks; the forwards
+# each pool of ranks runs (by world size): (grid, net, --depth_only
+# settings), a net's "_crop" serving the crop; the timed forwards
 SPATIAL_B, SPATIAL_SIZE = 2, (480, 640)
-SPATIAL_GRIDS = {2: ({"model": 2},), 4: ({"model": 4},
-                                         {"data": 2, "model": 2})}
+CROP_B, CROP_SIZE = 4, (224, 304)
+SPATIAL_JOBS = {2: (({"model": 2}, "flagship", (False, True)),
+                    ({"model": 2}, "nlspn", (False,)),
+                    ({"model": 2}, "flagship_crop", (False, True)),
+                    ({"model": 2}, "nlspn_crop", (False,))),
+                4: (({"model": 4}, "flagship", (False, True)),
+                    ({"data": 2, "model": 2}, "flagship", (False, True)),
+                    ({"model": 4}, "flagship_crop", (False,)))}
 SPATIAL_REPS = 5
 SPLIT = ("instance_norm_moments", "instance_norm_apply")
 
@@ -4051,7 +4063,70 @@ def in_split_phase():
           f"collective): events {whole['split']:.4f} ms, device "
           f"{whole['split_device']:.4f}; #7 on the same shards: events "
           f"{whole['fwd']:.4f}, device {whole['fwd_device']:.4f}")
+    _in_split_uneven(gen, acc)
+    for name in SPLIT:
+        rows[name]["max_abs_err"] = acc[name]["err"]
     return rows
+
+
+def _in_split_uneven(gen, acc):
+    """Moments and apply at the shards the published crop's W-AdaIN planes
+    (``CROP_B`` x ``CROP_SIZE``) give over M = 2 and 4, in the layout of
+    uneven shards (ceil(w / M) columns a rank; 19 columns over 4 are 5, 5,
+    5 and 4): bit for bit against their plain versions, f32 and bf16, the
+    edge rank's padded columns zeroed before its moments as
+    ``instance_norm_fwd_sharded`` zeroes them, and the scale within one
+    ulp of #7's on the whole plane. The worst differences go into
+    ``acc``."""
+    import torch
+    import torch.nn.functional as F
+
+    from rdfc_gan_torch.ops.kernels import norm_kernel as nk
+
+    shapes = tuple((CROP_B,) + s[1:] for s in fuse_in_shapes(*CROP_SIZE))
+    worst = {}
+    for shape in shapes:
+        x32 = torch.randn(shape, device="cuda", generator=gen) * 3 + 1.5
+        h, w = shape[2:]
+        for dt in (torch.float32, torch.bfloat16):
+            x = x32.to(dt)
+            a7 = nk.instance_norm_fwd(x, 1e-5)[1]
+            for M in (2, 4):
+                c = -(-w // M)
+                parts = []
+                for m in range(M):
+                    own = x[..., m * c:(m + 1) * c]
+                    parts.append(F.pad(own, (0, c - own.shape[3])))
+                sums = [nk.instance_norm_moments(p) for p in parts]
+                total = sums[0]
+                for p, s in zip(parts, sums):
+                    acc[SPLIT[0]]["err"] = max(acc[SPLIT[0]]["err"], compare(
+                        f"instance_norm_moments {shape} {dt} M={M} shard "
+                        f"{tuple(p.shape)}", s,
+                        nk.instance_norm_moments_plain(p), 0.0, 0.0,
+                        quiet=True))
+                for s in sums[1:]:
+                    total = total + s
+                for m, p in enumerate(parts):
+                    y, a = nk.instance_norm_apply(p, total, h * w, 1e-5)
+                    py, pa = nk.instance_norm_apply_plain(p, total, h * w,
+                                                          1e-5)
+                    for what, got, want in (("y", y, py), ("a", a, pa)):
+                        acc[SPLIT[1]]["err"] = max(
+                            acc[SPLIT[1]]["err"], compare(
+                                f"instance_norm_apply {what} {shape} {dt} "
+                                f"M={M} m={m}", got, want, 0.0, 0.0,
+                                quiet=True))
+                    u = _ulps(a, a7)
+                    if u > 1:
+                        fail(f"instance norm split {shape} {dt} M={M}: the "
+                             f"scale is {u} ulps from #7's")
+                    worst[M] = max(worst.get(M, 0), u)
+    print(f"  uneven shards of the W-AdaIN planes of {CROP_B}x"
+          f"{CROP_SIZE[0]}x{CROP_SIZE[1]} {shapes} (ceil(w / M) columns a "
+          f"rank, the edge rank's padding zeroed): moments and apply (y, a) "
+          f"= plain bit for bit at M=2, 4, f32 and bf16; scale a vs #7's: "
+          + ", ".join(f"M={M} {u} ulp" for M, u in worst.items()))
 
 
 def _spatial_forward(engine, batch, grid, depth_only, device):
@@ -4121,27 +4196,24 @@ def _wait_for(path: str, timeout: float = 600):
         time.sleep(0.2)
 
 
-def _spatial_engines(spec, device):
-    """The flagship and NLSPN serving engines of ``spec``, loaded from its
-    seeded checkpoints."""
+def _spatial_engine(spec, net):
+    """The serving engine of ``spec``'s ``net`` (its size in its args),
+    loaded from the seeded checkpoint of its config."""
     from rdfc_gan_torch.cli import parse_config
     from rdfc_gan_torch.engines import build_engine
     from rdfc_gan_torch.utils.checkpoint import load_checkpoint
 
-    engines = {}
-    for net in ("flagship", "nlspn"):
-        engines[net] = build_engine(parse_config(spec["args"][net]))
-        load_checkpoint(engines[net].modules, spec["pth"][net])
-    return engines
+    engine = build_engine(parse_config(spec["args"][net]))
+    load_checkpoint(engine.modules, spec["pth"][net.split("_")[0]])
+    return engine
 
 
 def spatial_rank_main(rank: int, world: int, port: int, spec_path: str):
     """One rank of ``spatial_phase``: a gloo group of ``world`` ranks on the
-    spec's device. Waits for its turn (a file), then runs its pool's grids
-    (``SPATIAL_GRIDS``): the flagship in full and ``--depth_only``, and
-    with the NLSPN config on a two-rank grid, each ``_spatial_measure``d;
-    the two-rank pool then serves ``rdfc_gan_torch.test`` with the spec's
-    sharded config. Writes its results beside the spec."""
+    spec's device. Waits for its turn (a file), then runs its pool's
+    forwards (``SPATIAL_JOBS``), each ``_spatial_measure``d; the two-rank
+    pool then serves ``rdfc_gan_torch.test`` with the spec's sharded
+    config. Writes its results beside the spec."""
     import datetime
 
     import torch
@@ -4167,29 +4239,29 @@ def spatial_rank_main(rank: int, world: int, port: int, spec_path: str):
     try:
         with torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                         deterministic=True, allow_tf32=False):
-            engines = _spatial_engines(spec, dev)
-            batch = {net: {k: v.to(dev) for k, v in b.items()}
-                     for net, b in spec["batch"].items()}
+            grids = {}
+            engine, engine_net = None, None
             _wait_for(os.path.join(here, spec["after"][world]))
             t0 = time.perf_counter()
-            for mesh in SPATIAL_GRIDS[world]:
-                grid = make_grid(mesh)
+            for mesh, net, depth_onlys in SPATIAL_JOBS[world]:
                 label = _mesh_label(mesh)
-                jobs = [("flagship", False), ("flagship", True)]
-                if world == 2:
-                    jobs.append(("nlspn", False))
-                for net, depth_only in jobs:
-                    rb = {k: rank_rows(v, grid.d, grid.D)
-                          for k, v in batch[net].items()}
+                if label not in grids:
+                    grids[label] = make_grid(mesh)
+                grid = grids[label]
+                if net != engine_net:
+                    engine = None
+                    engine, engine_net = _spatial_engine(spec, net), net
+                rb = {k: rank_rows(v, grid.d, grid.D).to(dev)
+                      for k, v in spec["batch"][net].items()}
+                for depth_only in depth_onlys:
                     res = out[(label, net, depth_only)] = _spatial_measure(
-                        engines[net], rb, grid, depth_only, dev)
-                    if net == "nlspn":
-                        seen = {}
-                        with _block_inputs(engines[net].modules["G"], seen):
-                            _spatial_forward(engines[net], rb, grid, False,
-                                             dev)
-                        res["block_inputs"] = seen["inputs"]
-            del engines
+                        engine, rb, grid, depth_only, dev)
+                if net.startswith("nlspn"):
+                    seen = {}
+                    with _block_inputs(engine.modules["G"], seen):
+                        _spatial_forward(engine, rb, grid, False, dev)
+                    res["block_inputs"] = seen["inputs"]
+            del engine
             if world == 2:
                 build.reset_launches()
                 res = port_test.run(parse_config(spec["cli"]))
@@ -4205,7 +4277,7 @@ def spatial_rank_main(rank: int, world: int, port: int, spec_path: str):
         dist.destroy_process_group()
 
 
-def _nlspn_block_check(title, engine, inputs, ref, got, spec, device):
+def _nlspn_block_check(title, engine, net, inputs, ref, got, spec, device):
     """The NLSPN block of a sharded forward: its inputs (the row's gathered
     guide, confidence, initial depth and raw depth) against the unsharded
     forward's at SERVE_RTOL / SERVE_ATOL; then the unsharded forward run
@@ -4220,7 +4292,7 @@ def _nlspn_block_check(title, engine, inputs, ref, got, spec, device):
                            "origin_depth"), inputs, ref["block_inputs"]):
         compare(f"{title} NLSPN block input {name}", a, b, SERVE_RTOL,
                 SERVE_ATOL)
-    b = {k: v.to(device) for k, v in spec["batch"]["nlspn"].items()}
+    b = {k: v.to(device) for k, v in spec["batch"][net].items()}
     with torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                     deterministic=True, allow_tf32=False), \
             _block_inputs(engine.modules["G"], {}, use=inputs):
@@ -4238,7 +4310,7 @@ def _nlspn_block_check(title, engine, inputs, ref, got, spec, device):
 
 
 def spatial_phase(workdir, device="cuda:0", flagship=None, nlspn=None,
-                  size=SPATIAL_SIZE):
+                  size=SPATIAL_SIZE, crop=CROP_SIZE):
     """Width-sharded serving on the one card (the JAX spatial_sharding).
     Ranks run on ``device`` in gloo groups the phase makes (NCCL refuses two
     ranks on one card): a pool of 2 ranks and one of 4, started at once,
@@ -4247,7 +4319,11 @@ def spatial_phase(workdir, device="cuda:0", flagship=None, nlspn=None,
     then the 4-rank one) so that their timed forwards do not overlap. The
     flagship (seeded, f32, no TF32, deterministic cuDNN) at
     ``SPATIAL_B`` x ``size`` on {model: 2}, {model: 4} and {data: 2, model:
-    2}, in full and ``--depth_only``, and the NLSPN config on {model: 2}:
+    2}, in full and ``--depth_only``, and the NLSPN config on {model: 2};
+    at ``CROP_B`` x ``crop`` (the published 224x304, whose deeper levels
+    split unevenly: the last rank's columns past a level's width are
+    padding) the flagship on {model: 2} in full and ``--depth_only`` and
+    on {model: 4}, and the NLSPN config on {model: 2} (``SPATIAL_JOBS``):
     each rank's shards assembled and held against the unsharded forward at
     SERVE_RTOL / SERVE_ATOL; a sharded flagship forward launches the IN
     split's moments and apply 4 times each and #7 never on every rank
@@ -4258,8 +4334,8 @@ def spatial_phase(workdir, device="cuda:0", flagship=None, nlspn=None,
     a warm-up (time-sliced ranks on one card: not a scaling result) and
     the phase's seconds (a rank holds the flagship's and the NLSPN config's
     weights). Returns rank 0's launch counts of one {model: 2} flagship
-    forward. ``flagship``, ``nlspn`` and ``size`` default to the
-    two published configs at 480x640."""
+    forward. ``flagship``, ``nlspn``, ``size`` and ``crop`` default to the
+    two published configs at 480x640 and 224x304."""
     import socket
 
     import numpy as np
@@ -4283,15 +4359,17 @@ def spatial_phase(workdir, device="cuda:0", flagship=None, nlspn=None,
     sp = os.path.join(workdir, "spatial")
     os.makedirs(sp, exist_ok=True)
 
-    def args(config, work, bs=SPATIAL_B):
+    def args(config, work, bs=SPATIAL_B, hw=size):
         return ["--dataset", "synthetic", "--model_cfg_path", config,
                 "--work_dir", os.path.join(sp, work), "--out_height",
-                str(size[0]), "--out_width", str(size[1]), "--batch_size",
+                str(hw[0]), "--out_width", str(hw[1]), "--batch_size",
                 str(bs), "--num_workers", "2", "--device", device]
 
-    spec = dict(device=device, args=dict(flagship=args(flagship, "f"),
-                                         nlspn=args(nlspn, "n")),
-                pth={}, batch={}, after={2: "main.done", 4: "w2.done"})
+    spec = dict(device=device, args=dict(
+        flagship=args(flagship, "f"), nlspn=args(nlspn, "n"),
+        flagship_crop=args(flagship, "fc", CROP_B, crop),
+        nlspn_crop=args(nlspn, "nc", CROP_B, crop)),
+        pth={}, batch={}, after={2: "main.done", 4: "w2.done"})
     cfg = parse_config(spec["args"]["flagship"])
     set_random_seed(cfg.seed)
     engine = build_engine(cfg)
@@ -4300,7 +4378,7 @@ def spatial_phase(workdir, device="cuda:0", flagship=None, nlspn=None,
     del engine
     cfgn = parse_config(spec["args"]["nlspn"])
     spec["pth"]["nlspn"] = _seeded_nets(cfgn, sp, device)
-    for net in ("flagship", "nlspn"):
+    for net in spec["args"]:
         loader = port_test.build_val_loader(
             parse_config(spec["args"][net]), torch.device("cpu"))
         spec["batch"][net] = next(iter(loader))
@@ -4317,7 +4395,7 @@ def spatial_phase(workdir, device="cuda:0", flagship=None, nlspn=None,
 
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     procs = []
-    for world in SPATIAL_GRIDS:
+    for world in SPATIAL_JOBS:
         with socket.socket() as sk:
             sk.bind(("localhost", 0))
             port = sk.getsockname()[1]
@@ -4333,19 +4411,22 @@ def spatial_phase(workdir, device="cuda:0", flagship=None, nlspn=None,
         with torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                         deterministic=True, allow_tf32=False):
             w1 = port_test.run(parse_config(cli_w1))
-            engines = _spatial_engines(spec, device)
-            refs = {}
-            for net, depth_only in (("flagship", False), ("flagship", True),
-                                    ("nlspn", False)):
+            refs, nlspn_engines = {}, {}
+            for net in spec["args"]:
+                engine = _spatial_engine(spec, net)
                 b = {k: v.to(device) for k, v in spec["batch"][net].items()}
-                refs[(net, depth_only)] = _spatial_measure(
-                    engines[net], b, None, depth_only, device)
-            seen = {}
-            with _block_inputs(engines["nlspn"].modules["G"], seen):
-                _spatial_forward(engines["nlspn"], b, None, False, device)
-            refs[("nlspn", False)]["block_inputs"] = seen["inputs"]
-            nlspn_engine = engines["nlspn"]
-            del engines
+                for depth_only in sorted({d for jobs in SPATIAL_JOBS.values()
+                                          for _, n, ds in jobs if n == net
+                                          for d in ds}):
+                    refs[(net, depth_only)] = _spatial_measure(
+                        engine, b, None, depth_only, device)
+                if net.startswith("nlspn"):
+                    seen = {}
+                    with _block_inputs(engine.modules["G"], seen):
+                        _spatial_forward(engine, b, None, False, device)
+                    refs[(net, False)]["block_inputs"] = seen["inputs"]
+                    nlspn_engines[net] = engine
+                del engine
         if on_card:
             torch.cuda.empty_cache()
         open(os.path.join(sp, "main.done"), "w").close()
@@ -4366,18 +4447,19 @@ def spatial_phase(workdir, device="cuda:0", flagship=None, nlspn=None,
                 p.communicate()
     res = {world: [torch.load(os.path.join(sp, f"w{world}_rank{r}.pt"),
                               weights_only=False) for r in range(world)]
-           for world in SPATIAL_GRIDS}
+           for world in SPATIAL_JOBS}
 
     def mib(n):
         return f"{n / 2**20:.1f}"
 
     print(f"width-sharded serving (gloo ranks time-sliced on one card: "
           f"times are not a scaling result), batch {SPATIAL_B} at "
-          f"{size[0]}x{size[1]}, f32, deterministic cuDNN, no TF32:")
+          f"{size[0]}x{size[1]} and (the nets named _crop) batch {CROP_B} "
+          f"at {crop[0]}x{crop[1]}, f32, deterministic cuDNN, no TF32:")
     want_unsharded = {"instance_norm_fwd": 4}
     for (net, depth_only), r in refs.items():
         want = dict(want_unsharded)
-        if net == "nlspn":
+        if net.startswith("nlspn"):
             want.update(shift_mask_scatter=1, nlspn_propagate=1)
         if on_card and r["launches"] != want:
             fail(f"unsharded {net}: launches {r['launches']}, expected "
@@ -4389,12 +4471,11 @@ def spatial_phase(workdir, device="cuda:0", flagship=None, nlspn=None,
               f"{r['launches']}")
     split_counts = None
     for world, ranks in res.items():
-        for mesh in SPATIAL_GRIDS[world]:
+        for mesh, net, depth_onlys in SPATIAL_JOBS[world]:
             label = _mesh_label(mesh)
             D, M = mesh.get("data", 1), mesh["model"]
-            for key in [k for k in ranks[0] if isinstance(k, tuple)
-                        and k[0] == label]:
-                _, net, depth_only = key
+            for key in [(label, net, d) for d in depth_onlys]:
+                depth_only = key[2]
                 ref = refs[(net, depth_only)]
                 title = (f"{label} {net}"
                          f"{' --depth_only' if depth_only else ''}")
@@ -4407,15 +4488,17 @@ def spatial_phase(workdir, device="cuda:0", flagship=None, nlspn=None,
                 if set(got) != set(ref["out"]):
                     fail(f"{title}: outputs {sorted(got)}, unsharded "
                          f"{sorted(ref['out'])}")
-                if net == "nlspn":
-                    ref = _nlspn_block_check(title, nlspn_engine, ranks[0][
-                        key]["block_inputs"], ref, got, spec, device)
+                if net.startswith("nlspn"):
+                    ref = _nlspn_block_check(
+                        title, nlspn_engines[net], net,
+                        ranks[0][key]["block_inputs"], ref, got, spec,
+                        device)
                 errs = []
                 for k, v in ref["out"].items():
                     if v.dim() == 4:
                         errs.append(f"{k} {compare(f'{title} {k}', got[k], v, SERVE_RTOL, SERVE_ATOL, quiet=True):.2e}")
                 want = {n: 4 for n in SPLIT}
-                if net == "nlspn":
+                if net.startswith("nlspn"):
                     want.update(shift_mask_scatter=1, nlspn_propagate=1)
                 for r_, rk in enumerate(ranks):
                     if on_card and rk[key]["launches"] != want:

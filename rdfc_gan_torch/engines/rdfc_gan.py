@@ -149,8 +149,8 @@ class RDFCGAN(BaseEngine):
         ``depth_only``, pred_label (B,num_classes,H,W) logits.
 
         ``grid`` (``parallel.grid``, a ``model`` axis over M ranks): rgb
-        and raw_depth are this data row's rows at the whole width W, a
-        multiple of 32 M; the rank serves its W / M columns and returns its
+        and raw_depth are this data row's rows at the whole width W, which
+        M must divide; the rank serves its W / M columns and returns its
         shards of the outputs, or with ``assemble`` the whole width
         (``parallel.spatial.serve``)."""
         self.n_forward += 1

@@ -45,17 +45,14 @@ class EncoderDecoder(nn.Module):
 def concat_skip(fd: torch.Tensor, fe: torch.Tensor) -> torch.Tensor:
     """Trim the decoder's padding overhang to the skip's size, then
     channel-concat (reference _concat, rdf_generator.py:244-262)."""
-    spatial.check_trim(fd, fe)
-    fd = fd[:, :, : fe.shape[2], : fe.shape[3]]
-    return torch.cat([fd, fe], dim=1)
+    return torch.cat([spatial.trim(fd, fe), fe], dim=1)
 
 
 def add_skip(fd: torch.Tensor, fe: torch.Tensor) -> torch.Tensor:
     """Trim the decoder's overhang, then add the skip
     (encoder_decoder.py:61-63): the decoder's width must equal the
     skip's."""
-    spatial.check_trim(fd, fe)
-    return fd[:, :, : fe.shape[2], : fe.shape[3]] + fe
+    return spatial.trim(fd, fe) + fe
 
 
 SKIPS = {"concat": concat_skip, "add": add_skip}

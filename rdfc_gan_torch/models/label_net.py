@@ -73,8 +73,8 @@ class AdaptiveAvgPool(nn.Module):
     """``AdaptiveAvgPool2d(b)`` as one f32 contraction with the row and the
     column pooling matrices, rounded once to x's type: the same windows,
     and a backward of matrix products, the same on every run. Under a
-    width-sharded forward each rank contracts its columns with theirs of
-    the global matrix and the sums are summed over the row."""
+    width-sharded forward each rank contracts its image columns with
+    theirs of the global matrix and the sums are summed over the row."""
 
     def __init__(self, b: int):
         super().__init__()
@@ -84,9 +84,9 @@ class AdaptiveAvgPool(nn.Module):
         H, W = spatial.plane_size(x)
         ph, pw = _pool_matrix(H, self.b), _pool_matrix(W, self.b)
         if spatial.active() is not None:
-            # this rank's columns, then the partial sums summed over the
-            # row: the bins come out whole on every rank
-            pw = spatial.width_matrix(pw)
+            # this rank's image columns, then the partial sums summed over
+            # the row: the bins come out whole on every rank
+            x, pw = spatial.width_matrix(pw, x)
         ph, pw = (torch.from_numpy(m).to(x.device) for m in (ph, pw))
         out = torch.einsum("ih,bchw,jw->bcij", ph, x.float(), pw)
         if spatial.active() is not None:

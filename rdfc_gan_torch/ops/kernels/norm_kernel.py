@@ -34,7 +34,9 @@ versions: ``instance_norm_moments`` (each plane's f64 sums in the forward's
 order) and ``instance_norm_apply`` (from the ranks' added sums, the
 forward's finalize, the (B, C) scale a and y, rounded as the forward rounds
 them). ``instance_norm_fwd_sharded`` runs moments, the all-reduce of the
-sums over the row and apply: no other op runs between the two launches.
+sums over the row and apply: no other op runs between the two launches on
+a rank whose columns all lie inside the image; the rank whose shard
+reaches past the plane's width zeroes its padded columns first.
 Both cut a plane by ``fwd_plan`` and stage a block's chunk of x in shared
 memory, with the TMA's bulk copy where the plane's vector is 16 bytes
 (``bulk_copy``), else with ``cp.async``; both refuse a plane the forward
@@ -381,22 +383,34 @@ def instance_norm_apply(x: torch.Tensor, sums: torch.Tensor, n: int,
 
 
 def instance_norm_fwd_sharded(x: torch.Tensor, eps: float, group=None,
-                              parts: int = 1
+                              parts: int = 1, width: int = None,
+                              part: int = 0
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The IN forward of a plane whose width is split over the ``parts``
     ranks of ``group``, x this rank's columns (``parallel.spatial``): the
     moments of its columns, their f64 sums summed over the group, then the
     forward's finalize over the global plane and y of its columns
-    (``instance_norm_apply``). Returns (y, a) as ``instance_norm_fwd``; at
-    ``parts`` 1 both equal its bit for bit. Serving only: raises where
-    autograd would need a gradient."""
+    (``instance_norm_apply``). ``width``: the plane's global width W (by
+    default all the shards' columns), laid out in shards of x's width c,
+    rank ``part`` holding [part c, (part + 1) c); a rank whose columns
+    reach past W zeroes those before its moments (0.0 adds exactly to the
+    f64 sums), and its y there is padding. Returns (y, a) as
+    ``instance_norm_fwd``; at ``parts`` 1 both equal its bit for bit.
+    Serving only: raises where autograd would need a gradient."""
     if torch.is_grad_enabled() and x.requires_grad:
         raise RuntimeError("instance_norm_fwd_sharded has no backward: a "
                            "width-sharded forward serves only")
-    sums = instance_norm_moments(x)
+    image = x
+    if width is not None:
+        c = x.shape[3]
+        n = min(max(width - part * c, 0), c)
+        if n < c:
+            image = F.pad(x[..., :n], (0, c - n))
+    sums = instance_norm_moments(image)
     if parts > 1:
         dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=group)
-    return instance_norm_apply(x, sums, x.shape[2] * x.shape[3] * parts, eps)
+    W = x.shape[3] * parts if width is None else width
+    return instance_norm_apply(x, sums, x.shape[2] * W, eps)
 
 
 def instance_norm_bwd(dy: torch.Tensor, y: torch.Tensor,
@@ -447,7 +461,9 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     are the global plane's: ``instance_norm_fwd_sharded`` over the row."""
     grid = spatial.active()
     if grid is not None:
+        W = spatial.valid_width(x)
         with spatial.suspended():
-            return instance_norm_fwd_sharded(x, eps, grid.model_group,
-                                             grid.M)[0]
+            y = instance_norm_fwd_sharded(x, eps, grid.model_group, grid.M,
+                                          W, grid.m)[0]
+        return spatial.with_width(y, W)
     return _InstanceNorm.apply(x, eps)

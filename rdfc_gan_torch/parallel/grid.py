@@ -6,9 +6,15 @@ A ``mesh_shape`` ``{"data": D, "model": M}`` lays the D * M ranks out as
 ``make_mesh`` lays out devices, row-major: rank (d, m) is ``d * M + m``
 (mesh.py:22-33). Rank (d, m) holds rows ``d`` of the global batch (block d
 of D, as ``rank_rows`` takes them over the world) and columns
-[m W / M, (m + 1) W / M) of every activation: ``spatial_sharding``'s
-``P(None, None, "model", None)`` on NHWC arrays (mesh.py:82-89), here the
-last axis of NCHW ones. A ``model`` process group holds each data row (the
+[m W / M, (m + 1) W / M) of the input and the outputs:
+``spatial_sharding``'s ``P(None, None, "model", None)`` on NHWC arrays
+(mesh.py:82-89), here the last axis of NCHW ones; W must be a multiple of
+M, as ``device_put`` requires. Inside the nets an activation of global
+width W_l is laid out as XLA lays out an uneven shard: every rank holds
+c_l = ceil(W_l / M) columns (``shard_cols``), rank m the global columns
+[m c_l, (m + 1) c_l) (``owned``), and the columns at or past W_l, on the
+last ranks, are padding (``valid_cols`` counts a rank's image columns; a
+rank may hold none). A ``model`` process group holds each data row (the
 ranks that share rows and split the width), a ``data`` group each column;
 every rank makes every group, in the same order, as ``dist.new_group``
 requires.
@@ -23,7 +29,7 @@ before, each data row on its rows.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -68,6 +74,24 @@ def make_grid(mesh_shape=None) -> Grid:
                 data_group = g
     return Grid(D, M, d, m, model_group if M > 1 else None,
                 data_group if D > 1 else None)
+
+
+def shard_cols(W: int, M: int) -> int:
+    """c = ceil(W / M): the columns every rank holds of a width W."""
+    return -(-W // M)
+
+
+def owned(W: int, M: int, m: int) -> Tuple[int, int]:
+    """Rank m's global columns [m c, (m + 1) c) of a width W."""
+    c = shard_cols(W, M)
+    return m * c, (m + 1) * c
+
+
+def valid_cols(W: int, M: int, m: int) -> int:
+    """How many of rank m's columns of a width W lie inside the image (its
+    first ones; the rest are padding)."""
+    c = shard_cols(W, M)
+    return min(max(W - m * c, 0), c)
 
 
 def shard_width(x: torch.Tensor, grid: Grid) -> torch.Tensor:

@@ -34,7 +34,7 @@ runs on rank 0 alone, unsharded; rank 0 alone writes the log.
 Width-sharded serving (the JAX ``spatial_sharding``): a ``mesh_shape``
 ``{"data": D, "model": M}`` in the model config, D x M ranks. The rows go
 over the D data rows as above over N, and every image's width over the M
-ranks of its row (``parallel.spatial``; W a multiple of 32 M); each batch's
+ranks of its row (``parallel.spatial``; M must divide W); each batch's
 predictions are assembled in the row before the metrics, which are those of
 one rank serving alone:
 

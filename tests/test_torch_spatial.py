@@ -30,8 +30,10 @@ are computed here.
 * ``rdfc_gan_torch.test`` with ``mesh_shape`` {data: 1, model: 2} gives the
   world-1 metrics; a train step at {data: 1, model: 2} equals one at
   {data: 2} bit for bit (a ``model`` axis trains as data parallelism).
-* The refusals: a width that 32 M does not divide, a sharded forward that
+* The refusals: a width that M does not divide, a sharded forward that
   would record a gradient, and mesh shapes that are not the world.
+  ``tests/test_torch_spatial_uneven.py`` serves the widths whose deeper
+  levels do not split evenly.
 """
 
 import os
@@ -423,14 +425,23 @@ def test_model_axis_trains_as_data_parallelism(spatial_run):
 
 
 def test_width_that_does_not_split_raises(tmp_path):
-    """W = 96 over M = 2 (64 divides it not): refused before any rank
-    computes or exchanges."""
+    """W = 97 over M = 2 (what ``spatial_sharding``'s ``device_put``
+    refuses: M does not divide W): refused before any rank computes or
+    exchanges."""
+    import torch.distributed as dist
+
     eng = build_engine(parse_config(_args(tmp_path, os.path.join(
         ROOT, "configs", "rdfc_gan_tiny.yaml"), "w")))
+    ran = []
+    for k in SERVED:
+        eng.modules[k].register_forward_pre_hook(
+            lambda m, a, k=k: ran.append(k))
     grid = Grid(1, 2, 0, 0, None, None)
-    x = torch.zeros(1, 3, 32, 96)
-    with pytest.raises(ValueError, match=r"W divisible by 32 x M = 64"):
+    x = torch.zeros(1, 3, 32, 97)
+    with pytest.raises(ValueError, match="should be divisible by 2, but it "
+                                         "is equal to 97"):
         eng.forward_test(x, x[:, :1], grid=grid)
+    assert ran == [] and not dist.is_initialized()
 
 
 def test_sharded_forward_that_needs_a_gradient_raises():

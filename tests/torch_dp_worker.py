@@ -160,6 +160,11 @@ def build_op(case):
         return Conv2dSame(c, c if dw else 5, k, s, c if dw else 1)
     if kind == "convT":
         return nn.ConvTranspose2d(c, 3, 3, 2, 1, 1)
+    if kind == "convT_trim":
+        from rdfc_gan_torch.models.encoder_decoder import concat_skip
+
+        convt = nn.ConvTranspose2d(c, 3, 3, 2, 1, 1)
+        return lambda x, skip: concat_skip(convt(x), skip)
     if kind == "maxpool":
         return nn.MaxPool2d(3, 2, 1)
     if kind == "resize":
@@ -181,27 +186,43 @@ def build_op(case):
     raise ValueError(kind)
 
 
+def shard_image(x, grid):
+    """This rank's shard of a (..., W) activation in the uneven layout of
+    ``parallel.spatial`` (ceil(W / M) columns a rank; the columns past W
+    NaN, which no rule may read), marked with its image width."""
+    from rdfc_gan_torch.parallel import spatial
+    from rdfc_gan_torch.parallel.grid import owned
+
+    W = x.shape[-1]
+    lo, hi = owned(W, grid.M, grid.m)
+    own = x[..., lo:min(hi, W)]
+    pad = torch.full((*x.shape[:-1], hi - lo - own.shape[-1]), float("nan"))
+    return spatial.with_width(torch.cat([own, pad], -1).contiguous(), W)
+
+
 def spatial_ops(inp):
     """Each case's op on this rank's columns of its inputs under the grid of
-    ``mesh`` (an input marked whole goes to every rank as it is); for the
-    instance norm also the scale a of ``instance_norm_fwd_sharded``.
-    Returns the output shards, in case order."""
+    ``mesh`` (``shard_image``; an input marked whole goes to every rank as
+    it is); for the instance norm also the scale a of
+    ``instance_norm_fwd_sharded``. Returns the output shards, in case
+    order."""
     from rdfc_gan_torch.ops.kernels.norm_kernel import \
         instance_norm_fwd_sharded
     from rdfc_gan_torch.parallel import spatial
-    from rdfc_gan_torch.parallel.grid import make_grid, shard_width
+    from rdfc_gan_torch.parallel.grid import make_grid
 
     grid = make_grid(inp["mesh"])
     outs = []
     for case in inp["cases"]:
         op = build_op(case)
-        args = [x if case.get("whole") else shard_width(x, grid)
+        args = [x if case.get("whole") else shard_image(x, grid)
                 for x in case["inputs"]]
         with torch.inference_mode(), spatial.sharded(grid):
             out = op(*args)
         if case["kind"] == "in":
             out = (out, instance_norm_fwd_sharded(
-                args[0], 1e-5, grid.model_group, grid.M)[1])
+                args[0], 1e-5, grid.model_group, grid.M,
+                spatial.valid_width(args[0]), grid.m)[1])
         outs.append(out)
     return outs
 
