@@ -1912,6 +1912,220 @@ def flagship_step_compare_phase(workdir, pth):
     _hold_to_control("flagship step", out)
 
 
+def _resumed_step(cfg, path, batch):
+    """A train engine seeded as the train entry point seeds it, resumed
+    from ``path`` (either format), then one step on ``batch`` with
+    deterministic cuDNN. Returns (losses, the nets' state dicts, launch
+    counts, the engine)."""
+    import torch
+
+    from rdfc_gan_torch.engines import build_engine
+    from rdfc_gan_torch.ops.kernels import build
+    from rdfc_gan_torch.utils import set_random_seed
+    from rdfc_gan_torch.utils.checkpoint import resume_from
+
+    set_random_seed(cfg.seed)
+    engine = build_engine(cfg, is_train=True, steps_per_epoch=2)
+    epoch = resume_from(engine, path)
+    if epoch != 1 or engine.n_step != 2:
+        fail(f"resume from {os.path.basename(path)}: epoch {epoch}, step "
+             f"{engine.n_step}, expected 1 and 2")
+    build.reset_launches()
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        losses = engine.train_step(batch)
+        _sync(cfg.device)
+    counts = dict(build.LAUNCHES)
+    state = {f"{net}.{k}": v.detach().clone()
+             for net, m in engine.modules.items()
+             for k, v in m.state_dict().items()
+             if not k.endswith("num_batches_tracked")}
+    return losses, state, counts, engine
+
+
+def jax_ckpt_phase(workdir, device="cuda", flagship=None, nlspn=None,
+                   size=(H, W)):
+    """The JAX drivers' .ckpt on the card, written by the port (the smoke
+    imports no JAX). The seeded flagship takes 2 bf16 steps; the same
+    state goes to x.ckpt (save_jax_checkpoint) and x.pth;
+    rdfc_gan_torch.test serves each (4 IN launches a forward) to the same
+    metrics and bit-equal outputs; a resume from each takes one step under
+    deterministic cuDNN to bit-equal losses and nets (the launch counts of
+    one flagship step); the NLSPN config is served from a .ckpt (#1 and #3
+    once a forward) to the outputs of the generator that wrote it. Prints
+    the file's size and its write and read seconds. ``flagship``,
+    ``nlspn`` and ``size`` default to the two published configs at
+    224x304; off the card the launch counts are not checked."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from rdfc_gan_torch import test as port_test
+    from rdfc_gan_torch.cli import parse_config
+    from rdfc_gan_torch.engines import build_engine
+    from rdfc_gan_torch.ops.kernels import build
+    from rdfc_gan_torch.ops.nlspn_guard import escalate_nlspn_cfg
+    from rdfc_gan_torch.train import build_train_loader
+    from rdfc_gan_torch.utils import jax_checkpoint, set_random_seed
+    from rdfc_gan_torch.utils.checkpoint import (save_checkpoint,
+                                                 save_jax_checkpoint)
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    flagship = flagship or os.path.join(ROOT, "configs",
+                                        "rdf_cycle_patchgan_config.yaml")
+    nlspn = nlspn or os.path.join(ROOT, "configs",
+                                  "rdf_gan_nlspn_config.yaml")
+    tmp = tempfile.mkdtemp(prefix="jax_ckpt-", dir=workdir)
+
+    def args(config, work, extra=()):
+        return ["--dataset", "synthetic", "--model_cfg_path", config,
+                "--work_dir", os.path.join(tmp, work), "--batch_size",
+                str(B), "--out_height", str(size[0]), "--out_width",
+                str(size[1]), "--device", device, *extra]
+
+    def counted(want, got, title):
+        if on_card and got != want:
+            fail(f"{title}: launches {got}, expected {want}")
+
+    cfg = parse_config(args(flagship, "flagship"))
+    set_random_seed(cfg.seed)
+    engine = build_engine(cfg, is_train=True, steps_per_epoch=2)
+    loader = build_train_loader(cfg, engine.device)
+    batches = []
+    for batch in loader:
+        batches.append(batch)
+        if len(batches) == 3:
+            break
+    loader.close()
+    for batch in batches[:2]:
+        engine.train_step(batch)
+    _sync(device)
+    dtype = str(engine.compute_dtype or torch.float32).replace("torch.", "")
+    ckpt, pth = os.path.join(tmp, "x.ckpt"), os.path.join(tmp, "x.pth")
+    t0 = time.perf_counter()
+    save_jax_checkpoint(engine, ckpt, meta=dict(epoch=1))
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_checkpoint(engine.modules, pth, meta=dict(epoch=1),
+                    train_state=engine.train_state())
+    t_pth = time.perf_counter() - t0
+    del engine
+    t0 = time.perf_counter()
+    tree, meta = jax_checkpoint.read_state(ckpt)
+    t_read = time.perf_counter() - t0
+    n_leaves = len(_flat_leaves(tree))
+    del tree
+    n_bytes = os.path.getsize(ckpt)
+    print(f"jax .ckpt: {os.path.basename(flagship)} after 2 {dtype} steps at "
+          f"{size[0]}x{size[1]}, batch {B}: {n_bytes} bytes "
+          f"({n_bytes / 2**30:.3f} GiB, {n_leaves} leaves); "
+          f"save_jax_checkpoint {t_write:.2f} s, read_state {t_read:.2f} s; "
+          f"the .pth of the same state {os.path.getsize(pth)} bytes, "
+          f"torch.save {t_pth:.2f} s"
+          + (f"; {gpu_line()}" if on_card else ""))
+    if meta != {"epoch": 1}:
+        fail(f"the .ckpt's meta {meta}")
+
+    served = {}
+    for path in (ckpt, pth):
+        _sync(device)
+        build.reset_launches()
+        res = port_test.run(parse_config(args(
+            flagship, "serve", ["--load_from", path])))
+        _sync(device)
+        counts, fwd = dict(build.LAUNCHES), res["forwards"]
+        counted({"instance_norm_fwd": 4 * fwd}, counts,
+                f"flagship served from {os.path.basename(path)}")
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=False):
+            out = res["engine"].forward_test(
+                rgb=batches[2]["rgb"], raw_depth=batches[2]["raw_depth"])
+        served[path] = (res["metrics"], out, counts)
+        del res
+    (m_c, o_c, n_c), (m_p, o_p, _) = served[ckpt], served[pth]
+    if m_c != m_p or not all(np.isfinite(v) for v in m_c.values()):
+        fail(f"flagship metrics from the .ckpt {m_c}, from the .pth {m_p}")
+    for k in o_p:
+        if not torch.equal(o_c[k], o_p[k]):
+            fail(f"flagship {k} served from the .ckpt differs from the .pth")
+    print("  served from x.ckpt and x.pth: the same metrics ("
+          + ", ".join(f"{k}={v:.6g}" for k, v in m_c.items())
+          + f") and bit-equal {sorted(o_p)} (deterministic cuDNN); "
+          f"launches {n_c}")
+    del served, o_c, o_p
+
+    t0 = time.perf_counter()
+    l_c, s_c, n_c, engine = _resumed_step(cfg, ckpt, batches[2])
+    t_resume = time.perf_counter() - t0
+    blocks = fused_blocks(engine.modules["G_A2B"])
+    n_in = sum(1 for m in engine.modules["G_B2A"].modules()
+               if type(m).__name__ == "InstanceNorm")
+    del engine
+    l_p, s_p, n_p, engine = _resumed_step(cfg, pth, batches[2])
+    del engine
+    want = {"conv3x3_fwd": 2 * 2 * blocks, "conv3x3_bwd": 2 * 2 * blocks,
+            "instance_norm_fwd": 2 * 4 + n_in,
+            "instance_norm_bwd": 2 * 4 + n_in}
+    for path, counts in ((ckpt, n_c), (pth, n_p)):
+        counted(want, counts,
+                f"the step resumed from {os.path.basename(path)}")
+    bad = [k for k in l_p if not torch.equal(l_c[k], l_p[k])]
+    bad += [k for k in s_p if not torch.equal(s_c[k], s_p[k])]
+    if set(l_c) != set(l_p) or set(s_c) != set(s_p) or bad:
+        fail(f"the steps resumed from the .ckpt and the .pth differ: "
+             f"{len(bad)} tensors, first {bad[:8]}")
+    print(f"  resumed from x.ckpt (resume and step {t_resume:.2f} s) and "
+          f"from x.pth, one {dtype} step each (deterministic cuDNN): "
+          f"{len(l_p)} losses and {len(s_p)} net tensors bit-equal; "
+          f"launches {n_c}")
+    del s_c, s_p, batches
+
+    n_args = args(nlspn, "nlspn")
+    ncfg = parse_config(n_args)
+    first = next(iter(port_test.build_val_loader(ncfg,
+                                                 torch.device(device))))
+    set_random_seed(ncfg.seed)
+    nengine = build_engine(ncfg, is_train=True, steps_per_epoch=2)
+    g = _seeded_generator(ncfg, device, first, train=True)
+    nengine.modules["G"].load_state_dict(g.state_dict())
+    nckpt = os.path.join(tmp, "nlspn.ckpt")
+    save_jax_checkpoint(nengine, nckpt, meta=dict(epoch=0))
+    with torch.no_grad(), torch.backends.cudnn.flags(
+            enabled=True, benchmark=False, deterministic=True,
+            allow_tf32=False):
+        want_out = g.eval()(first["rgb"], first["raw_depth"])
+    del nengine, g
+    build.reset_launches()
+    res = port_test.run(parse_config(n_args + ["--load_from", nckpt]))
+    counts, fwd = dict(build.LAUNCHES), res["forwards"]
+    want, impl = _served_nlspn_counts(ncfg.model.G.to_dict(),
+                                      res["max_offset"], fwd)
+    print(f"  NLSPN served from a .ckpt ({os.path.getsize(nckpt)} bytes): "
+          + ", ".join(f"{k}={v:.6g}" for k, v in res["metrics"].items())
+          + f"; max offset {res['max_offset']:.4f}, forwards {fwd}, impl "
+          f"{impl!r}, launches {counts}")
+    counted(want, counts, "NLSPN served from a .ckpt")
+    if not all(np.isfinite(v) for v in res["metrics"].values()):
+        fail(f"NLSPN served from a .ckpt: metrics {res['metrics']}")
+    _, escalated = escalate_nlspn_cfg(ncfg.model.G.to_dict(),
+                                      res["max_offset"])
+    if not escalated:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=False):
+            got = res["engine"].forward_test(rgb=first["rgb"],
+                                             raw_depth=first["raw_depth"])
+        for k in ("depth_map_1", "depth_map_2", "pred_depth"):
+            if not torch.equal(got[k], want_out[k]):
+                fail(f"NLSPN {k} from the .ckpt differs from the generator "
+                     f"that wrote it")
+        print("  its outputs bit-equal to the generator that wrote it")
+    del res
+    shutil.rmtree(tmp)
+    print(f"  jax_ckpt_phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def _bf16_ulp(v) -> float:
     """One bf16 ulp at the largest magnitude in v."""
     import math
@@ -4996,6 +5210,7 @@ def main():
         train_profile_phase(engine, batch, title="flagship train profile")
         del engine
         flagship_step_compare_phase(workdir, fpth)
+        jax_ckpt_phase(workdir)
         file_dataset_phase(workdir)
         s2d_root = s2d_phase(workdir)
         v1_variants_phase(workdir, s2d_root)

@@ -87,6 +87,8 @@ def _frozen(*modules: torch.nn.Module):
 
 
 class RDFCGAN(BaseEngine):
+    OPT_NETS = OPT_NETS
+
     def __init__(self, cfg, is_train: bool = False, steps_per_epoch: int = 1):
         super().__init__(cfg, is_train, steps_per_epoch)
         ncfg = cfg.model.get("Normal_G") or {}

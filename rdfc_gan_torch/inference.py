@@ -81,7 +81,7 @@ def run(argv=None) -> dict:
     set_random_seed(cfg.seed)
     engine = build_engine(cfg, is_train=False)
     if args.load_from:
-        load_checkpoint(engine.modules, args.load_from)
+        load_checkpoint(engine.modules, args.load_from, cfg=cfg)
     ret = engine.forward_test(rgb=rgb.to(device), raw_depth=depth.to(device),
                               depth_only=args.depth_only)
     pred = ret["pred_depth"][0, 0].float().cpu().numpy() * 5.0 + 5.0  # m

@@ -14,9 +14,10 @@ reference RDFC-GAN/test.py:1-92).
 Builds the engine of ``model.type`` (RDFGAN, or the flagship RDFCGAN) on
 ``--device`` (default cuda, which raises without a card) and the val split
 of ``--dataset`` (a file dataset needs ``--data_root``), optionally loads
-a reference ``.pth`` (the nets the engine has; the others are logged as
-left unread), runs the val split through ``forward_test`` and prints the 8
-depth metrics. ``--depth_only`` skips the RDFCGAN's G_label, whose labels
+a reference ``.pth`` or a JAX driver's ``.ckpt`` (the nets the engine
+has; the others are logged as left unread; the format is told by the
+file's first bytes), runs the val split through ``forward_test`` and
+prints the 8 depth metrics. ``--depth_only`` skips the RDFCGAN's G_label, whose labels
 pred_depth never reads. After a load, one probe batch checks an RDFGAN's
 NLSPN offsets against the stencil radius and rebuilds the generator with a
 larger radius or the gather path when needed.
@@ -131,12 +132,13 @@ def _serve(cfg) -> dict:
     forwards = 0
     max_offset = None
     if cfg.load_from:
-        meta = load_checkpoint(engine.modules, cfg.load_from, logger.log)
+        meta = load_checkpoint(engine.modules, cfg.load_from, logger.log,
+                               cfg=cfg)
         logger.log(f"loaded {cfg.load_from} (epoch {meta.get('epoch')})")
 
         def rebuild():
             fresh = build_engine(cfg, is_train=False)
-            load_checkpoint(fresh.modules, cfg.load_from)
+            load_checkpoint(fresh.modules, cfg.load_from, cfg=cfg)
             return fresh
 
         probed = engine

@@ -53,8 +53,9 @@ def parse_args(argv=None):
                                 description=__doc__.splitlines()[0])
     p.add_argument("--model_cfg_path", required=True)
     p.add_argument("--load_from", default="",
-                   help="a port .pth whose nets the program carries; omit "
-                        "to export the seeded random init")
+                   help="a port .pth or a JAX driver's .ckpt whose nets "
+                        "the program carries; omit to export the seeded "
+                        "random init")
     p.add_argument("--out", required=True, help="output .pt2 path")
     p.add_argument("--batch_size", type=int, default=1)
     p.add_argument("--out_height", type=int, default=224)
@@ -106,12 +107,13 @@ def build(args):
     rgb, depth = sample_inputs(args.batch_size, args.out_height,
                                args.out_width, args.seed, device)
     if args.load_from:
-        meta = load_checkpoint(engine.modules, args.load_from, print)
+        meta = load_checkpoint(engine.modules, args.load_from, print,
+                               cfg=cfg)
         print(f"loaded {args.load_from} (epoch {meta.get('epoch')})")
 
         def rebuild():
             fresh = build_engine(cfg, is_train=False)
-            load_checkpoint(fresh.modules, args.load_from)
+            load_checkpoint(fresh.modules, args.load_from, cfg=cfg)
             return fresh
 
         engine, max_offset, changed = guard_loaded_engine(

@@ -16,9 +16,10 @@ an ``EvalV1`` evaluation (predictions resized back to the ground truth's
 origin size) every ``--val_interval``. ``--inference`` evaluates and exits;
 ``--cal_fps`` runs ``rdfc_gan_torch.test.cal_fps`` (300 images after 5
 warm-up forwards) and exits. ``--resume_from`` continues from a
-checkpoint this driver wrote (nets, optimizers, schedulers, global step);
-``--load_from`` loads the nets of a ``.pth``. The JAX driver's orbax
-``.ckpt`` pair is not ported.
+checkpoint this driver or the JAX driver wrote (nets, optimizers,
+schedulers, global step); ``--load_from`` loads the nets of a ``.pth`` or
+of the JAX driver's ``.ckpt`` (told apart by their first bytes,
+``utils.checkpoint``). This driver writes ``.pth``.
 
 Every flag of the JAX driver's ``build_parser`` is here with its default,
 aliases and choices, plus ``--device`` (cuda by default, which raises
@@ -314,7 +315,8 @@ def _run(cfg, device) -> dict:
             logger.log(f"resumed from {cfg.resume_from} at epoch "
                        f"{start_epoch}")
         elif cfg.load_from:
-            meta = load_checkpoint(engine.modules, cfg.load_from, logger.log)
+            meta = load_checkpoint(engine.modules, cfg.load_from, logger.log,
+                                   cfg=cfg)
             logger.log(f"loaded {cfg.load_from} (epoch {meta.get('epoch')})")
         broadcast_from_rank0([t for m in engine.modules.values()
                               for t in (*m.parameters(), *m.buffers())])

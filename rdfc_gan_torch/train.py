@@ -41,7 +41,9 @@ optimizer's and scheduler's state, ``meta`` {epoch, batch_size}), which
 ``python -m rdfc_gan_torch.test --load_from`` serves and ``--resume_from``
 continues: the nets, optimizers, schedulers and the global step (the
 per-step draws are seeded by it) are restored, so a resumed run gives the
-straight run's checkpoint.
+straight run's checkpoint. ``--resume_from`` and ``--load_from`` also take
+the JAX ``train.py``'s ``.ckpt`` (nets, optax states, step; told apart from
+a ``.pth`` by its first bytes); what this driver trains goes to ``.pth``.
 """
 
 from __future__ import annotations
@@ -178,7 +180,7 @@ def _train(cfg, logger, device, train_loader, val_loader) -> dict:
         start_epoch = resume_from(engine, cfg.resume_from)
         logger.log(f"resumed from {cfg.resume_from} at epoch {start_epoch}")
     elif cfg.load_from:
-        meta = load_checkpoint(engine.modules, cfg.load_from)
+        meta = load_checkpoint(engine.modules, cfg.load_from, cfg=cfg)
         logger.log(f"loaded {cfg.load_from} (epoch {meta.get('epoch')})")
     # replicate_state (train.py:89): every rank starts from rank 0's nets
     broadcast_from_rank0([t for m in engine.modules.values()

@@ -54,10 +54,17 @@ the JAX tree has no parameters for it: the returned dict leaves it out, so
 load with ``strict=False`` and it keeps its init values. The frozen NLSPN
 dummies (w, b, w_conf) and BatchNorm's ``num_batches_tracked`` are filled
 with their constant values.
+
+``net_state_dict_from_jax`` picks the converter of an engine's net by the
+module's class and takes its options from the engine's config, as the JAX
+``tools/convert_torch_ckpt.py`` takes them (``use_nlspn_refine``,
+``adain_weighting``, ``fuse_depth_in_rgb_decoder``, NNET's ``depth``; an
+option the config leaves out is the module's default).
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Any, Dict
 
 import numpy as np
@@ -395,6 +402,72 @@ def rdfcgan_state_dicts_from_jax(params: Dict[str, Any],
         out["G_label"] = pspnet_state_dict_from_jax(params["G_label"],
                                                     batch_stats["G_label"])
     return out
+
+
+# the config section of an engine net whose name differs from it
+# (``cfg.model.<section>``)
+_SECTION_OF = {"disc_A": "D_A", "disc_B": "D_B", "G_normal": "Normal_G",
+               "G_label": "Label_G"}
+
+
+def model_options(cfg, name: str) -> dict:
+    """``cfg.model``'s section of the engine net ``name`` as a dict."""
+    sec = cfg.model.get(_SECTION_OF.get(name, name)) or {}
+    return dict(sec.to_dict() if hasattr(sec, "to_dict") else sec)
+
+
+def generator_options(cfg, name: str, module) -> dict:
+    """The converter options of an RDFGenerator-cored net: the module's
+    NLSPN switch, and ``adain_weighting`` and ``fuse`` from the config or,
+    where it leaves them out, the module class's defaults."""
+    opts = model_options(cfg, name)
+    sig = inspect.signature(type(module)).parameters
+    core = getattr(module, "core", module)
+
+    def opt(key):
+        return opts.get(key, sig[key].default)
+
+    out = dict(adain_weighting=bool(opt("adain_weighting")),
+               fuse=opt("fuse_depth_in_rgb_decoder"))
+    if hasattr(core, "use_nlspn_refine"):
+        out["use_nlspn_refine"] = bool(core.use_nlspn_refine)
+    return out
+
+
+def net_state_dict_from_jax(cfg, name: str, module, params: Dict[str, Any],
+                            batch_stats: Dict[str, Any]
+                            ) -> Dict[str, torch.Tensor]:
+    """The state dict of an engine's net ``name`` (``module``) from its
+    Flax trees, through the converter of the module's class."""
+    from ..models import (NNET, DCVGANGenerator, DCVGANGeneratorVanilla,
+                          PatchGANDiscriminator, PixelGANDiscriminator,
+                          PointNetDiscriminator, PSPNet, RDFGenerator,
+                          ResnetGenerator)
+
+    if isinstance(module, RDFGenerator):
+        return rdf_generator_state_dict_from_jax(
+            params, batch_stats, **generator_options(cfg, name, module))
+    if isinstance(module, DCVGANGenerator):
+        return dcv_gan_generator_state_dict_from_jax(
+            params, batch_stats, **generator_options(cfg, name, module))
+    if isinstance(module, DCVGANGeneratorVanilla):
+        return dcv_gan_generator_vanilla_state_dict_from_jax(
+            params, batch_stats, adain_weighting=generator_options(
+                cfg, name, module)["adain_weighting"])
+    if isinstance(module, ResnetGenerator):
+        return resnet_generator_state_dict_from_jax(params)
+    if isinstance(module, NNET):
+        return nnet_state_dict_from_jax(
+            params, batch_stats, model_options(cfg, name).get("depth", 2.2))
+    if isinstance(module, PSPNet):
+        return pspnet_state_dict_from_jax(params, batch_stats)
+    for cls, fn in ((PatchGANDiscriminator, patchgan_state_dict_from_jax),
+                    (PixelGANDiscriminator, pixelgan_state_dict_from_jax),
+                    (PointNetDiscriminator, pointnet_state_dict_from_jax)):
+        if isinstance(module, cls):
+            return fn(params, batch_stats)
+    raise NotImplementedError(f"{name}: no converter from the JAX tree of "
+                              f"{type(module).__name__}")
 
 
 # ------------------------------------------------------------ v1 family --

@@ -22,8 +22,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_port_imports_no_jax():
     """Every module of the package, walked, and chip_smoke: none imports
-    JAX, the JAX package, its tools, or an image library the card's
-    machine lacks (OpenCV, PIL, imageio, h5py, scikit-image)."""
+    JAX, flax, optax, msgpack (the card's machine has none of them), the
+    JAX package, its tools, or an image library the card's machine lacks
+    (OpenCV, PIL, imageio, h5py, scikit-image)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import chip_smoke, rdfc_gan_torch\n"
@@ -65,9 +66,15 @@ def test_port_imports_no_jax():
         "        'rdfc_gan_torch.ops.deform',\n"
         "        'rdfc_gan_torch.ops.deform_roi',\n"
         "        'rdfc_gan_torch.tools.export_model',\n"
-        "        'rdfc_gan_torch.utils.image_pool'} <= set(names)\n"
+        "        'rdfc_gan_torch.utils.image_pool',\n"
+        "        'rdfc_gan_torch.utils.msgpack_codec',\n"
+        "        'rdfc_gan_torch.utils.jax_checkpoint',\n"
+        "        'rdfc_gan_torch.utils.torch_convert',\n"
+        "        'rdfc_gan_torch.engines.optax_state',\n"
+        "        'rdfc_gan_torch.tools.convert_torch_ckpt'} <= set(names)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'optax', 'rdfc_gan_tpu',\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'msgpack',\n"
+        "              'rdfc_gan_tpu',\n"
         "              'tools', 'attic', 'cv2', 'PIL', 'imageio', 'h5py',\n"
         "              'skimage'))\n"
         "assert not bad, bad\n")
