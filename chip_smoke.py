@@ -1912,11 +1912,11 @@ def flagship_step_compare_phase(workdir, pth):
     _hold_to_control("flagship step", out)
 
 
-def _resumed_step(cfg, path, batch):
+def _resumed_step(cfg, path, batch, steps_per_epoch: int = 2):
     """A train engine seeded as the train entry point seeds it, resumed
-    from ``path`` (either format), then one step on ``batch`` with
-    deterministic cuDNN. Returns (losses, the nets' state dicts, launch
-    counts, the engine)."""
+    from ``path`` (either format; epoch 1 of ``steps_per_epoch`` steps),
+    then one step on ``batch`` with deterministic cuDNN. Returns (losses,
+    the nets' state dicts, launch counts, the engine)."""
     import torch
 
     from rdfc_gan_torch.engines import build_engine
@@ -1925,11 +1925,12 @@ def _resumed_step(cfg, path, batch):
     from rdfc_gan_torch.utils.checkpoint import resume_from
 
     set_random_seed(cfg.seed)
-    engine = build_engine(cfg, is_train=True, steps_per_epoch=2)
+    engine = build_engine(cfg, is_train=True,
+                          steps_per_epoch=steps_per_epoch)
     epoch = resume_from(engine, path)
-    if epoch != 1 or engine.n_step != 2:
+    if epoch != 1 or engine.n_step != steps_per_epoch:
         fail(f"resume from {os.path.basename(path)}: epoch {epoch}, step "
-             f"{engine.n_step}, expected 1 and 2")
+             f"{engine.n_step}, expected 1 and {steps_per_epoch}")
     build.reset_launches()
     with torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                     deterministic=True, allow_tf32=False):
@@ -3255,10 +3256,15 @@ def v1_family_phase(workdir, s2d_root):
     batch 4, 228x304, deterministic cuDNN) with every kernel's launches a
     step checked, G and D moved, step times and peak memory; EvalV1 with
     the predictions resized back to 480x640; ``--inference`` from
-    epoch_1.pth and ``--cal_fps``, launches counted a forward; one f32
-    guided step through the kernels against the step with their plain
-    versions; the driver-default AdaIN build and a vanilla build served,
-    and one vanilla train step with its #9 / #10 launches."""
+    epoch_1.pth and ``--cal_fps``, launches counted a forward; the same
+    engine state written as the JAX driver's epoch_1.ckpt
+    (``save_jax_checkpoint``: its size, write and read seconds), served by
+    ``--inference --load_from`` to the .pth's metrics and bit-equal
+    outputs, and resumed for one bf16 step bit-equal to the .pth's resume
+    (every kernel launched: #9 / #10 30 times); one f32 guided step
+    through the kernels against the step with their plain versions; the
+    driver-default AdaIN build and a vanilla build served, and one vanilla
+    train step with its #9 / #10 launches."""
     import numpy as np
     import torch
 
@@ -3267,7 +3273,9 @@ def v1_family_phase(workdir, s2d_root):
     from rdfc_gan_torch.evaluator import EvalV1
     from rdfc_gan_torch.ops.kernels import build
     from rdfc_gan_torch.tools import main_v1
-    from rdfc_gan_torch.utils.checkpoint import load_checkpoint
+    from rdfc_gan_torch.utils import jax_checkpoint
+    from rdfc_gan_torch.utils.checkpoint import (load_checkpoint,
+                                                 save_jax_checkpoint)
 
     t_phase = time.perf_counter()
     print(f"v1 family ({gpu_line()}):")
@@ -3336,24 +3344,63 @@ def v1_family_phase(workdir, s2d_root):
           + f"; launches {counts}; expected {want}")
     if counts != want or not all(np.isfinite(list(m.values()))):
         fail(f"EvalV1 at 480x640: launches {counts}, metrics {m}")
-    del engine, res
+    val_batch = next(iter(loader))
     pth = os.path.join(workdir, "v1_train", "epoch_1.pth")
 
-    # --inference and --cal_fps from epoch_1.pth
-    build.reset_launches()
-    inf = main_v1.run(_v1_cfg(workdir, s2d_root, "v1_inf", V1_FLAGS + [
-        "--inference", "--load_from", pth]))
-    counts = dict(build.LAUNCHES)
-    fwd = inf["engine"].n_forward
-    want = _served_counts(fwd)
-    print(f"  --inference from epoch_1.pth: " + ", ".join(
-        f"{k}={v:.6g}" for k, v in inf["metrics"].items())
-        + f"; {fwd} forwards, launches {counts}; expected {want}")
-    if counts != want:
-        fail(f"--inference launches {counts} are not {want}")
-    for k, v in inf["metrics"].items():
+    # the same state as the JAX driver's epoch_1.ckpt, by the port's writer
+    t_v1ckpt = time.perf_counter()
+    ckpt = os.path.join(workdir, "v1_train", "epoch_1.ckpt")
+    t0 = time.perf_counter()
+    save_jax_checkpoint(engine, ckpt, meta=dict(epoch=1))
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree, meta = jax_checkpoint.read_state(ckpt)
+    t_read = time.perf_counter() - t0
+    n_leaves = len(_flat_leaves(tree))
+    del tree, engine, res
+    print(f"  v1 .ckpt (the guided model after {steps} {B}x{S2D_H}x{S2D_W} "
+          f"bf16 steps, nets and Adam states): {os.path.getsize(ckpt)} bytes "
+          f"({os.path.getsize(ckpt) / 2**30:.3f} GiB, {n_leaves} leaves); "
+          f"save_jax_checkpoint {t_write:.2f} s, read_state {t_read:.2f} s; "
+          f"epoch_1.pth {os.path.getsize(pth)} bytes ({gpu_line()})")
+    if meta != {"epoch": 1}:
+        fail(f"the v1 .ckpt's meta {meta}")
+
+    # --inference from epoch_1.pth and from epoch_1.ckpt, --cal_fps
+    served = {}
+    for path in (pth, ckpt):
+        icfg = _v1_cfg(workdir, s2d_root, "v1_inf", V1_FLAGS + [
+            "--inference", "--load_from", path])
+        icfg.deterministic = True
+        build.reset_launches()
+        inf = main_v1.run(icfg)
+        counts = dict(build.LAUNCHES)
+        fwd = inf["engine"].n_forward
+        want = _served_counts(fwd)
+        print(f"  --inference from {os.path.basename(path)}: " + ", ".join(
+            f"{k}={v:.6g}" for k, v in inf["metrics"].items())
+            + f"; {fwd} forwards, launches {counts}; expected {want}")
+        if counts != want:
+            fail(f"--inference launches {counts} are not {want}")
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=False):
+            out = inf["engine"].forward_test(
+                rgb=val_batch["rgb"], raw_depth=val_batch["raw_depth"])
+        served[path] = (inf["metrics"], out)
+        del inf
+    (m_p, o_p), (m_c, o_c) = served[pth], served[ckpt]
+    for k, v in m_p.items():
         if not np.isclose(v, trained[k], rtol=SERVE_RTOL, atol=SERVE_ATOL):
             fail(f"--inference {k}={v}, the epoch's evaluation {trained[k]}")
+    if m_c != m_p:
+        fail(f"v1 metrics from the .ckpt {m_c}, from the .pth {m_p}")
+    bad = [k for k in o_p if not torch.equal(o_c[k], o_p[k])]
+    if set(o_c) != set(o_p) or bad:
+        fail(f"v1 outputs served from the .ckpt differ from the .pth: {bad}")
+    print(f"  served from epoch_1.ckpt and epoch_1.pth: the same metrics and "
+          f"bit-equal {sorted(o_p)} (deterministic cuDNN)")
+    del served, o_p, o_c
+    t_v1ckpt = time.perf_counter() - t_v1ckpt
     build.reset_launches()
     fps = main_v1.run(_v1_cfg(workdir, s2d_root, "v1_fps", V1_FLAGS + [
         "--cal_fps", "--load_from", pth]))
@@ -3364,7 +3411,7 @@ def v1_family_phase(workdir, s2d_root):
           f"{counts}; expected {want}")
     if counts != want or not fps["fps"] > 0:
         fail(f"--cal_fps launches {counts} are not {want}")
-    del inf, fps
+    del fps
 
     # one f32 guided step through the kernels against the plain step
     from rdfc_gan_torch.ops import nlspn_stencil as st
@@ -3414,6 +3461,37 @@ def v1_family_phase(workdir, s2d_root):
             or worst > STEP_RTOL or errs[0][0] > STEP_RTOL:
         fail("the f32 guided step through the kernels disagrees with the "
              "plain step")
+    del out
+
+    # one bf16 step resumed from epoch_1.ckpt and from epoch_1.pth
+    t0 = time.perf_counter()
+    rcfg = _v1_cfg(workdir, s2d_root, "v1_resume", V1_FLAGS)
+    spe = S2D_TRAIN // B
+    l_c, s_c, n_c, engine = _resumed_step(rcfg, ckpt, batch, spe)
+    want = {k: v for k, v in _rdfgan_counts(engine, 1).items() if v}
+    dtype = engine.compute_dtype
+    del engine
+    l_p, s_p, n_p, engine = _resumed_step(rcfg, pth, batch, spe)
+    del engine
+    # fuse_layer5 is built and never used: the JAX tree has no entry for
+    # it, so a .ckpt resume keeps the engine's own
+    for st in (s_c, s_p):
+        for k in [k for k in st if ".fuse_layer5." in k]:
+            del st[k]
+    print(f"  one {dtype} guided step resumed from epoch_1.ckpt and from "
+          f"epoch_1.pth (deterministic cuDNN): launches {n_c} and {n_p}; "
+          f"expected {want}")
+    if n_c != want or n_p != want:
+        fail(f"the v1 resumed step's launches {n_c}, {n_p}, not {want}")
+    bad = [k for k in l_p if not torch.equal(l_c[k], l_p[k])]
+    bad += [k for k in s_p if not torch.equal(s_c[k], s_p[k])]
+    if set(l_c) != set(l_p) or set(s_c) != set(s_p) or bad:
+        fail(f"the v1 steps resumed from the .ckpt and the .pth differ: "
+             f"{len(bad)} tensors, first {bad[:8]}")
+    t_v1ckpt += time.perf_counter() - t0
+    print(f"    {len(l_p)} losses and {len(s_p)} net tensors bit-equal; the "
+          f"v1 .ckpt's write, read, serve and resume took {t_v1ckpt:.2f} s")
+    del s_c, s_p
 
     # the driver-default AdaIN build and a vanilla build served; one
     # vanilla train step
@@ -3462,6 +3540,154 @@ def v1_family_phase(workdir, s2d_root):
         del engine
     print(f"  v1 family phase wall {time.perf_counter() - t_phase:.2f} s "
           f"({gpu_line()})")
+
+
+def _palette_png(path: str, index: "np.ndarray", palette: bytes):
+    """An 8-bit palette PNG (colour type 3) of ``index``, rows unfiltered:
+    PIL writes the test suite's; the card's machine has no PIL."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    h, w = index.shape
+    rows = np.zeros((h, w + 1), np.uint8)
+    rows[:, 1:] = index
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 3, 0, 0, 0))
+                + chunk(b"PLTE", palette)
+                + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+                + chunk(b"IEND", b""))
+
+
+def augmentation_phase(workdir):
+    """The sensor-corruption library (``utils/data_augmentation.py``) on
+    the card's host with OpenCV and PIL made unimportable for the phase
+    (None in ``sys.modules``; the port imports neither): each of its 18
+    functions once at 228x304, twice from the same seed to the same array,
+    with its motion blur (filter2d), HLS jitter, cubic resize, colour map,
+    PNG writer and palette reader in numpy; a save_uint16_png ->
+    image_io.imread round trip exact; a palette PNG read back as its
+    indices; EXR refused."""
+    import importlib.util
+
+    t0 = time.perf_counter()
+    present = [m for m in ("cv2", "PIL") if importlib.util.find_spec(m)]
+    hidden = {m: sys.modules.pop(m, None) for m in ("cv2", "PIL")}
+    sys.modules.update(cv2=None, PIL=None)  # an import of either raises
+    try:
+        _augmentation_checks(workdir)
+    finally:
+        for m, mod in hidden.items():
+            del sys.modules[m]
+            if mod is not None:
+                sys.modules[m] = mod
+    print(f"  OpenCV / PIL installed here: {present or 'neither'}, "
+          f"unimportable during the phase; phase "
+          f"{time.perf_counter() - t0:.2f} s")
+
+
+def _augmentation_checks(workdir):
+    import numpy as np
+
+    from rdfc_gan_torch.data import image_io
+    from rdfc_gan_torch.utils import data_augmentation as da
+
+    h, w = S2D_H, S2D_W
+    tmp = tempfile.mkdtemp(prefix="augment-", dir=workdir)
+    gen = np.random.default_rng(0)
+    depth = np.abs(gen.normal(2.0, 0.7, (h, w))).astype(np.float32)
+    depth[gen.random((h, w)) < 0.1] = 0
+    rgb = gen.integers(0, 256, (h, w, 3)).astype(np.uint8)
+    cam = dict(fx=518.8, fy=519.5, cx=w / 2, cy=h / 2, xres=w, yres=h)
+    noise = dict(ellipse_dropout_mean=10, ellipse_gamma_shape=5.0,
+                 ellipse_gamma_scale=1.0, gamma_shape=1000.0,
+                 gamma_scale=0.001, gaussian_scale=0.005,
+                 gp_rescale_factor=4)
+    xyz = da.compute_xyz(depth, cam)
+    pal = os.path.join(tmp, "labels.png")
+    labels = gen.integers(0, 40, (h, w)).astype(np.uint8)
+    _palette_png(pal, labels,
+                 bytes(gen.integers(0, 256, 3 * 40).astype(np.uint8)))
+
+    def ply(seed):
+        path = os.path.join(tmp, f"pc{seed}.ply")
+        pts, cols = da.depth_to_point_cloud(depth, 518.8, 519.5, w / 2,
+                                            h / 2, rgb)
+        da.write_point_cloud(path, pts, cols)
+        with open(path, "rb") as f:
+            return np.frombuffer(f.read(), np.uint8)
+
+    def png(seed):
+        path = os.path.join(tmp, f"d{seed}.png")
+        da.save_uint16_png(path, da.scale_depth(depth))
+        return image_io.imread(path)
+
+    calls = {
+        "depth2rgb": lambda r: da.depth2rgb(depth),
+        "scale_depth": lambda r: da.scale_depth(depth),
+        "unscale_depth": lambda r: da.unscale_depth(da.scale_depth(depth)),
+        "normalize_depth_img": lambda r: da.normalize_depth_img(
+            depth, np.uint16, 0.0, 10.0),
+        "depth_to_point_cloud": lambda r: da.depth_to_point_cloud(
+            depth, 518.8, 519.5, w / 2, h / 2)[0],
+        "write_point_cloud": ply,
+        "build_matrix_of_indices": lambda r: da.build_matrix_of_indices(h, w),
+        "compute_xyz": lambda r: da.compute_xyz(depth, cam),
+        "add_gaussian_noise": lambda r: da.add_gaussian_noise(depth, r),
+        "chromatic_transform": lambda r: da.chromatic_transform(
+            rgb, r, label=(depth > 2.5).astype(np.uint8)),
+        "dropout_random_ellipses_4corruptmask": lambda r:
+            da.dropout_random_ellipses_4corruptmask(
+                (depth > 2.5).astype(np.uint8), r, noise),
+        "dropout_random_ellipses_4mask": lambda r:
+            da.dropout_random_ellipses_4mask((depth > 0).astype(np.uint8),
+                                             r, noise),
+        "add_noise_to_depth": lambda r: da.add_noise_to_depth(depth, r,
+                                                              noise),
+        "add_noise_to_xyz": lambda r: da.add_noise_to_xyz(xyz, depth, r,
+                                                          noise),
+        "save_uint16_png": png,
+        "imread_indexed": lambda r: da.imread_indexed(pal),
+    }
+    # add_noise's two branches: seeds whose first draw is under 0.9
+    # (gaussian noise) and past it (motion blur)
+    for branch, pick in (("gaussian", lambda u: u < 0.9),
+                         ("motion blur", lambda u: u >= 0.9)):
+        seed = next(s for s in range(1000)
+                    if pick(np.random.default_rng(s).random()))
+        calls[f"add_noise ({branch})"] = lambda r, seed=seed: da.add_noise(
+            rgb, np.random.default_rng(seed))
+    seconds = {}
+    for name, fn in calls.items():
+        t1 = time.perf_counter()
+        a = fn(np.random.default_rng(7))
+        seconds[name] = time.perf_counter() - t1
+        b = fn(np.random.default_rng(7))
+        if not (isinstance(a, np.ndarray) and a.size and np.array_equal(a, b)):
+            fail(f"augmentation: {name} does not repeat from its seed")
+    if not np.array_equal(png(0), da.scale_depth(depth)):
+        fail("augmentation: save_uint16_png -> imread is not exact")
+    if not np.array_equal(da.imread_indexed(pal), labels):
+        fail("augmentation: imread_indexed does not give the palette indices")
+    try:
+        da.exr_saver(os.path.join(tmp, "d.exr"), depth)
+        fail("augmentation: exr_saver wrote an EXR")
+    except ValueError as e:
+        if "d.exr" not in str(e):
+            fail(f"augmentation: exr_saver's error names no file: {e}")
+    named = {n.split(" ")[0] for n in calls} | {"exr_saver"}
+    print(f"augmentation library at {h}x{w} ({len(named)} functions): "
+          f"each repeats from its seed, the uint16 PNG round trip and the "
+          f"palette indices are exact; seconds a call: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in seconds.items()))
+    if len(named) != 18:
+        fail(f"augmentation: {len(named)} functions called, not 18")
 
 
 def _rdfgan_counts_f32(blocks: int) -> dict:
@@ -5215,6 +5441,7 @@ def main():
         s2d_root = s2d_phase(workdir)
         v1_variants_phase(workdir, s2d_root)
         v1_family_phase(workdir, s2d_root)
+        augmentation_phase(workdir)
         nlspn_repeat_check(workdir)
         data_parallel_phase(workdir)
         split_counts = spatial_phase(workdir)

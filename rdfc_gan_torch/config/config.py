@@ -61,6 +61,11 @@ class Config(dict):
                 out[k] = v
         return out
 
+    def dump(self) -> str:
+        """The YAML text of the config, keys in its own order (the JAX
+        ``Config.dump``)."""
+        return yaml.safe_dump(self.to_dict(), sort_keys=False)
+
 
 def load_config(cfg: Config, source) -> Config:
     """Merge ``source`` into ``cfg``: a YAML path or a dict (reference
@@ -71,6 +76,12 @@ def load_config(cfg: Config, source) -> Config:
         with open(source) as f:
             source = yaml.safe_load(f) or {}
     return cfg.merge(source)
+
+
+def dump_config(cfg: Config, path: str):
+    """Write ``cfg.dump()`` to ``path`` (the JAX ``dump_config``)."""
+    with open(path, "w") as f:
+        f.write(cfg.dump())
 
 
 def default_config() -> Config:

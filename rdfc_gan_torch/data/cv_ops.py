@@ -2,13 +2,42 @@
 ``cv2`` for the types and shapes the datasets use (uint8, uint16, float32;
 one or three channels).
 
-- ``resize``: ``INTER_LINEAR`` and ``INTER_NEAREST`` (``cv2.resize``).
-  Linear follows OpenCV's separable path: source coordinates
-  ``(d + 0.5) * scale - 0.5`` rounded to f32, edge pixels clamped; uint8
-  runs its 11-bit fixed-point coefficients with OpenCV's vertical pass
-  (its SIMD rounding over whole vectors, its scalar rounding in the tail);
-  uint16 and f32 run in f32. Nearest takes ``floor(d * src / dst)``, which
-  is not ``F.interpolate``'s rule at every size.
+- ``resize``: ``INTER_LINEAR``, ``INTER_NEAREST`` and ``INTER_CUBIC``
+  (``cv2.resize``). Linear follows OpenCV's separable path: source
+  coordinates ``(d + 0.5) * scale - 0.5`` rounded to f32, edge pixels
+  clamped; uint8 runs its 11-bit fixed-point coefficients with OpenCV's
+  vertical pass (its SIMD rounding over whole vectors, its scalar rounding
+  in the tail); uint16 and f32 run in f32. Nearest takes ``floor(d * src /
+  dst)``, which is not ``F.interpolate``'s rule at every size. Cubic (f32
+  and f64, any channel count; ``resizeGeneric_``): the same coordinates,
+  A = -0.75 coefficients computed in f32 (OpenCV's coefficient type for
+  both), each of the four taps clamped to the image (border replication);
+  the row pass sums its taps left to right, each product rounded, in the
+  image's type; the column pass does so in f64, and in f32 runs OpenCV's
+  4-lane vector loop (the taps from the last to the first, a multiply and
+  an add each) over the first ``w * cn - w * cn % 4`` values of a row and
+  the left-to-right sum in the rest. Found by experiment against ``cv2``
+  5.0.0: bit-equal for f64; for f32 bit-equal with OpenCV's own code
+  (``cv2.ipp.setUseIPP(False)``), while its IPP build hands f32 with 1, 3
+  or 4 channels to IPP's cubic, which rounds otherwise.
+- ``filter2d``: ``cv2.filter2D(img, -1, kernel)`` on uint8 with
+  ``BORDER_REFLECT_101`` and the centred anchor: the kernel's nonzero taps
+  in row-major order (OpenCV keeps only those), summed in f32, then
+  rounded to even and saturated. For the normalised motion kernels of
+  ``utils.data_augmentation.add_noise`` (one row or one column of 1/k, k
+  odd, which OpenCV runs through its DFT path from k = 15) the exact sum is
+  never within 1/30 of a rounding tie, so every summation order rounds
+  alike: bit-equal with ``cv2`` there.
+- ``cvt_bgr2hls`` / ``cvt_hls2bgr``: ``cv2.cvtColor`` with
+  ``COLOR_BGR2HLS`` / ``COLOR_HLS2BGR`` on uint8 (H in [0, 180)):
+  ``x / 255`` in f32, OpenCV's float HLS formulas, then ``x * 255``
+  rounded. BGR -> HLS: the hue a fused multiply-add onto 0, 120 or 240,
+  then halved; where red leads and green < blue, 360 goes into the
+  multiply-add in OpenCV's 8-lane vector loop (the first ``w - w % 8``
+  pixels of a row) and is added after it in its scalar code (the rest);
+  the saturation's ``2 - (max + min)`` is ``2 - max - min`` in the
+  scalar code. HLS -> BGR: one formula throughout. Bit-equal with ``cv2``
+  over every colour of each.
 - ``rotation_matrix`` = ``cv2.getRotationMatrix2D``; ``warp_affine`` with
   ``INTER_NEAREST`` or ``INTER_LINEAR`` and a constant 0 border: the map
   is inverted in f64 and walked in OpenCV's 10-bit fixed point; linear
@@ -33,6 +62,7 @@ import numpy as np
 
 INTER_NEAREST = 0
 INTER_LINEAR = 1
+INTER_CUBIC = 2
 COLORMAP_JET = 2
 COLORMAP_VIRIDIS = 16
 COLORMAP_PLASMA = 15
@@ -42,6 +72,10 @@ _COEF_SCALE = 1 << _COEF_BITS
 _WARP_LANES = 16  # pixels a vector step of OpenCV's warp kernels takes
 # columns a vector step of OpenCV's f32 row and column filters takes
 _ROW_LANES, _COL_LANES = 4, 8
+# values a vector step of OpenCV's f32 cubic column pass takes; pixels a
+# vector step of its BGR -> HLS loop takes
+_CUBIC_LANES, _HLS_LANES = 4, 8
+_CUBIC_A = np.float32(-0.75)
 
 
 def _round_even(x):
@@ -122,17 +156,74 @@ def _resize_linear(img, dsize):
     return out if img.ndim == 3 else out[..., 0]
 
 
+def _cubic_coeffs(x: np.ndarray) -> np.ndarray:
+    """``interpolateCubic`` in f32: the four weights (4, n) of fractions
+    ``x``."""
+    f, a = np.float32, _CUBIC_A
+    x = x.astype(f)
+    x1, y = x + f(1), f(1) - x
+    c0 = ((a * x1 - f(5) * a) * x1 + f(8) * a) * x1 - f(4) * a
+    c1 = ((a + f(2)) * x - (a + f(3))) * x * x + f(1)
+    c2 = ((a + f(2)) * y - (a + f(3))) * y * y + f(1)
+    return np.stack([c0, c1, c2, f(1) - c0 - c1 - c2]).astype(f)
+
+
+def _cubic_axis(src: int, dst: int):
+    """Per output index the four source indices (clamped) and weights."""
+    f = ((np.arange(dst, dtype=np.float64) + 0.5) * (src / dst)
+         - 0.5).astype(np.float32)
+    s = np.floor(f)
+    idx = np.clip(s.astype(np.int64)[None, :] + np.arange(-1, 3)[:, None], 0,
+                  src - 1)
+    return idx, _cubic_coeffs(f - s)
+
+
+def _resize_cubic(img, dsize):
+    t = img.dtype.type
+    dw, dh = dsize
+    h = img.shape[0]
+    x = img.reshape(img.shape[0], img.shape[1], -1)
+    cn = x.shape[2]
+    ix, cx = _cubic_axis(img.shape[1], dw)
+    iy, cy = _cubic_axis(h, dh)
+    rows = None
+    for k in range(4):
+        p = (x[:, ix[k]] * cx[k].astype(t)[None, :, None]).astype(t)
+        rows = p if rows is None else (rows + p).astype(t)
+    S = [rows.reshape(h, dw * cn)[iy[k]] for k in range(4)]
+    b = [cy[k].astype(t)[:, None] for k in range(4)]
+    out = None
+    for k in range(4):
+        p = (S[k] * b[k]).astype(t)
+        out = p if out is None else (out + p).astype(t)
+    if t is np.float32:
+        body = dw * cn - dw * cn % _CUBIC_LANES
+        vec = (S[3][:, :body] * b[3]).astype(t)
+        for k in (2, 1, 0):
+            vec = ((S[k][:, :body] * b[k]).astype(t) + vec).astype(t)
+        out[:, :body] = vec
+    return out.reshape((dh, dw) + img.shape[2:])
+
+
 def resize(img: np.ndarray, dsize, interpolation: int = INTER_LINEAR
            ) -> np.ndarray:
-    """``cv2.resize(img, dsize=(w, h), interpolation=...)``."""
+    """``cv2.resize(img, dsize=(w, h), interpolation=...)``; an (H, W, 1)
+    image comes back (h, w), as cv2 returns it, for INTER_CUBIC."""
     img = np.ascontiguousarray(img)
     dw, dh = int(dsize[0]), int(dsize[1])
     h, w = img.shape[:2]
     if interpolation == INTER_NEAREST:
         return _resize_nearest(img, (dw, dh))
+    if interpolation == INTER_CUBIC:
+        if img.dtype not in (np.float32, np.float64):
+            raise ValueError(f"INTER_CUBIC takes float32 or float64, got "
+                             f"{img.dtype}")
+        out = (img.copy() if (dw, dh) == (w, h)
+               else _resize_cubic(img, (dw, dh)))
+        return out[..., 0] if out.ndim == 3 and out.shape[2] == 1 else out
     if interpolation != INTER_LINEAR:
-        raise ValueError(f"interpolation {interpolation}: only INTER_NEAREST "
-                         f"and INTER_LINEAR")
+        raise ValueError(f"interpolation {interpolation}: only INTER_NEAREST, "
+                         f"INTER_LINEAR and INTER_CUBIC")
     if (dw, dh) == (w, h):
         return img.copy()
     return _resize_linear(img, (dw, dh))
@@ -292,3 +383,87 @@ def apply_colormap(gray: np.ndarray, colormap: int) -> np.ndarray:
     if colormap not in TABLES:
         raise ValueError(f"colormap {colormap}: only PLASMA, VIRIDIS, JET")
     return TABLES[colormap][gray]
+
+
+def filter2d(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+    """``cv2.filter2D(img, -1, kernel)`` for a uint8 (H, W) or (H, W, C)
+    image (an (H, W, 1) one comes back (H, W), as cv2 returns it):
+    ``BORDER_REFLECT_101``, the anchor at the kernel's centre."""
+    if img.dtype != np.uint8:
+        raise ValueError(f"filter2d takes uint8, got {img.dtype}")
+    k = np.asarray(kernel, np.float32)
+    kh, kw = k.shape
+    ay, ax = kh // 2, kw // 2
+    x = img.reshape(img.shape[0], img.shape[1], -1)
+    h, w = x.shape[:2]
+    # numpy's "reflect" is OpenCV's REFLECT_101, folded as often as needed
+    pad = np.pad(x, ((ay, kh - 1 - ay), (ax, kw - 1 - ax), (0, 0)),
+                 mode="reflect")
+    acc = np.zeros(x.shape, np.float32)
+    for i, j in zip(*np.nonzero(k)):
+        acc = acc + (pad[i:i + h, j:j + w].astype(np.float32) * k[i, j])
+    out = np.clip(_round_even(acc), 0, 255).astype(np.uint8)
+    return out[..., 0] if img.ndim == 2 or x.shape[2] == 1 else out
+
+
+# OpenCV's sector table of HLS -> RGB: (b, g, r) from (p2, p1, tab2, tab3)
+_HLS_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1],
+                         [0, 1, 3], [2, 1, 0]])
+
+
+def cvt_bgr2hls(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, cv2.COLOR_BGR2HLS)`` of a uint8 (H, W, 3) BGR
+    image: (H, W, 3) uint8 H (0-179), L, S."""
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError("cvt_bgr2hls takes a uint8 (H, W, 3) image")
+    f = np.float32
+    x = img.astype(f) * f(1.0 / 255)
+    b, g, r = x[..., 0], x[..., 1], x[..., 2]
+    vmax = np.maximum(np.maximum(r, g), b)
+    vmin = np.minimum(np.minimum(r, g), b)
+    diff, vsum = vmax - vmin, vmax + vmin
+    l = vsum * f(0.5)
+    ok = diff > f(np.finfo(f).eps)
+    rmax, gmax = vmax == r, vmax == g
+    num = np.where(rmax, g - b, np.where(gmax, b - r, r - g))
+    base = np.where(rmax, f(0), np.where(gmax, f(120), f(240))).astype(f)
+    vec = img.shape[1] - img.shape[1] % _HLS_LANES
+    with np.errstate(divide="ignore", invalid="ignore"):
+        # 2 - (max + min) in the vector loop, 2 - max - min in the scalar
+        far = f(2) - vmax - vmin
+        far[:, :vec] = (f(2) - vsum)[:, :vec]
+        s = diff / np.where(l < f(0.5), vsum, far)
+        step = f(60) / diff
+        hue = _fma32(num, step, base)
+        # the vector loop adds 360 inside its multiply-add, the scalar
+        # code after the product where it went negative
+        hv = _fma32(num, step, np.full_like(num, 360))
+        hue[:, :vec] = np.where(rmax & (g < b), hv, hue)[:, :vec]
+        tail = hue[:, vec:]
+        hue[:, vec:] = np.where(tail < 0, tail + f(360), tail)
+    hue = np.where(ok, hue * f(0.5), f(0))
+    s = np.where(ok, s, f(0)).astype(f)
+    out = np.stack([hue, l * f(255), s * f(255)], -1)
+    return np.clip(_round_even(out), 0, 255).astype(np.uint8)
+
+
+def cvt_hls2bgr(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, cv2.COLOR_HLS2BGR)`` of a uint8 (H, W, 3) H
+    (0-179), L, S image: (H, W, 3) uint8 BGR."""
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError("cvt_hls2bgr takes a uint8 (H, W, 3) image")
+    f = np.float32
+    h = img[..., 0].astype(f)
+    l = img[..., 1].astype(f) * f(1.0 / 255)
+    s = img[..., 2].astype(f) * f(1.0 / 255)
+    p2 = np.where(l <= f(0.5), l * (f(1) + s), l + s - l * s).astype(f)
+    p1 = f(2) * l - p2
+    h = h * f(6.0 / 180)
+    h = np.where(h >= f(6), h - f(6), h)
+    sector = np.floor(h).astype(np.int64)
+    h = h - sector.astype(f)
+    tab = np.stack([p2, p1, p1 + (p2 - p1) * (f(1) - h),
+                    p1 + (p2 - p1) * h], -1).astype(f)
+    bgr = np.take_along_axis(tab, _HLS_SECTORS[sector], -1)
+    bgr = np.where((s == 0)[..., None], l[..., None], bgr)
+    return np.clip(_round_even(bgr * f(255)), 0, 255).astype(np.uint8)

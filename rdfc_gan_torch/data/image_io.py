@@ -5,8 +5,12 @@ Read: 8- and 16-bit grayscale, RGB and RGBA, non-interlaced, all five row
 filters; the zlib stream through the standard library. ``imread`` returns
 what ``cv2.IMREAD_UNCHANGED`` returns: (H, W) for grayscale, colour in BGR
 or BGRA order, uint8 or uint16 (16-bit samples are stored big-endian).
-``bgr2rgb`` flips the channel order (``cv2.COLOR_BGR2RGB``). Palette,
-gray-alpha, sub-byte depths and interlaced files raise ``ValueError``.
+``bgr2rgb`` flips the channel order (``cv2.COLOR_BGR2RGB``). Gray-alpha,
+sub-byte gray and interlaced files raise ``ValueError``; so does a palette
+file, which ``imread`` would have to expand to colours: ``read_indexed``
+reads one (colour type 3, bit depths 1, 2, 4 and 8) as its index array, as
+PIL's ``np.array(Image.open(path))`` does, and every other type as
+``decode_png`` gives it (colour in the file's order, as PIL).
 
 Write: the same types, from (H, W), (H, W, 1), BGR or BGRA arrays, as
 ``cv2.imwrite`` takes them. Each row gets the filter of least absolute sum
@@ -154,9 +158,25 @@ def _read_chunks(buf: bytes):
     raise ValueError("PNG file ends before its IEND chunk")
 
 
-def decode_png(buf: bytes, plain: bool = False) -> np.ndarray:
+def _palette_indices(data: bytes, h: int, w: int, depth: int,
+                     plain: bool) -> np.ndarray:
+    """The (h, w) uint8 palette indices of a colour type 3 image: rows of
+    ceil(w * depth / 8) bytes, each byte's pixels from its high bits."""
+    rowbytes = (w * depth + 7) // 8
+    rows = (unfilter_plain if plain else unfilter)(data, h, rowbytes, 1)
+    if depth == 8:
+        return rows[:, :w].copy()
+    per = 8 // depth
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    vals = (rows[..., None] >> shifts) & np.uint8((1 << depth) - 1)
+    return np.ascontiguousarray(vals.reshape(h, rowbytes * per)[:, :w])
+
+
+def decode_png(buf: bytes, plain: bool = False,
+               indexed: bool = False) -> np.ndarray:
     """Decode PNG bytes to an array in the file's channel order (RGB,
-    RGBA). ``plain`` unfilters with ``unfilter_plain``."""
+    RGBA). ``plain`` unfilters with ``unfilter_plain``. A palette file
+    gives its (H, W) uint8 index array with ``indexed``, else raises."""
     header, idat = None, []
     for kind, body in _read_chunks(buf):
         if kind == b"IHDR":
@@ -168,6 +188,10 @@ def decode_png(buf: bytes, plain: bool = False) -> np.ndarray:
     w, h, depth, ctype, comp, filt, interlace = header
     if interlace:
         raise ValueError("interlaced PNG files are not supported")
+    if ctype == 3 and indexed and depth in (1, 2, 4, 8) and not (
+            comp or filt):
+        return _palette_indices(zlib.decompress(b"".join(idat)), h, w,
+                                depth, plain)
     if ctype not in _CHANNELS or depth not in (8, 16) or comp or filt:
         raise ValueError(f"PNG colour type {ctype} at bit depth {depth} is "
                          f"not supported (8/16-bit gray, RGB or RGBA only)")
@@ -192,6 +216,14 @@ def imread(path: str, plain: bool = False) -> np.ndarray:
         img = np.ascontiguousarray(
             img[..., [2, 1, 0, 3][:img.shape[2]]])
     return img
+
+
+def read_indexed(path: str, plain: bool = False) -> np.ndarray:
+    """PIL's ``np.array(Image.open(path))`` of a PNG: a palette file's
+    (H, W) uint8 index array; gray (H, W) and colour in the file's order
+    (RGB, RGBA), uint8 or uint16, as ``decode_png`` gives them."""
+    with open(path, "rb") as f:
+        return decode_png(f.read(), plain=plain, indexed=True)
 
 
 def bgr2rgb(img: np.ndarray) -> np.ndarray:

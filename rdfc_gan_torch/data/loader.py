@@ -199,3 +199,30 @@ class DataLoader:
         finally:
             if threads is not None:
                 threads.shutdown(wait=True, cancel_futures=True)
+
+
+def build_dataloader(dataset, samples_per_gpu: int, workers_per_gpu: int = 0,
+                     num_gpus: int = 1, dist: bool = False,
+                     pin_memory: bool = True, drop_last: bool = True,
+                     shuffle: bool = True, seed: int = 0, sharding=None,
+                     worker_backend: str = "thread",
+                     device="cpu") -> DataLoader:
+    """The reference's missing ``build_dataloader`` factory with the JAX
+    package's signature (rdfc_gan_tpu/data/loader.py:236-248). The batch
+    is ``samples_per_gpu`` times ``num_gpus``, as there; a port process
+    drives one card, so with the default ``num_gpus`` 1 ``samples_per_gpu``
+    is the batch. ``dist`` takes this rank's shard of each epoch's order
+    (``rank`` and ``world`` from the process group, the JAX
+    ``per_process``); ``worker_backend`` is the thread or process pool of
+    ``workers_per_gpu`` workers (at least one). ``pin_memory`` and
+    ``sharding`` are accepted and left unused: batches go to ``device``
+    whole (a port process has one card, so there is nothing to shard
+    across, and the host-to-card copy is the loader's own)."""
+    del pin_memory, sharding
+    from ..parallel import rank, world_size
+
+    shard = dict(rank=rank(), world=world_size()) if dist else {}
+    return DataLoader(dataset, samples_per_gpu * max(int(num_gpus), 1),
+                      device=device, num_workers=max(workers_per_gpu, 1),
+                      shuffle=shuffle, drop_last=drop_last, seed=seed,
+                      worker_backend=worker_backend, **shard)

@@ -15,6 +15,14 @@ Each branch's skips are ``concat`` or ``add``; ``add`` skips have identity
 projections (rdf_generator.py:143-145), so the decoders and heads take no
 skip channels and each decoder width must equal its skip's.
 
+``nlspn_impl`` picks the NLSPN propagation as JAX does
+(rdf_generator.py:189-206): ``gather`` the reference-exact offset gather;
+else the shift-mask stencil, through ``stencil_propagate`` (``stencil``),
+``propagate_auto`` (``auto``: the card's chain for a CUDA tensor) or
+``nlspn_stencil_propagate`` (``pallas``, JAX's ``use_pallas="always"``:
+the kernel chain with the masks in bf16, whose plain version a CPU tensor
+takes).
+
 The JAX package's TPU-only devices change neither parameters nor math and
 are read from the config and ignored: ``packed_width``, the fused stem and
 head convolutions, remat (``nlspn_local_remat``) and ``axis_name``.
@@ -31,7 +39,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
-from ..ops.kernels.nlspn_kernel import propagate_auto
+from ..ops.kernels.nlspn_kernel import (nlspn_stencil_propagate,
+                                         propagate_auto)
 from ..ops.nlspn import NLSPNParamsSpec, nlspn_offset_affinity, nlspn_propagate
 from ..ops.nlspn_stencil import build_shift_masks, stencil_propagate
 from ..parallel import spatial
@@ -39,7 +48,7 @@ from ..registry import GENERATORS
 from .encoder_decoder import SKIPS, EncoderDecoder, concat_skip
 from .layers import AdaIN, AdaptiveInstanceNorm, ConvBNAct, INFuse
 
-NLSPN_IMPLS = ("auto", "stencil", "gather")
+NLSPN_IMPLS = ("auto", "stencil", "pallas", "gather")
 FUSES = ("WAdaIN", "AdaIN", "IN")
 
 
@@ -180,9 +189,10 @@ class RDFGenerator(nn.Module):
                                   feat_fix=origin_depth)
         else:
             M = build_shift_masks(offsets, aff, spec.prop_kernel, R)
-            prop_fn = (stencil_propagate if self.nlspn_impl == "stencil"
-                       else propagate_auto)
-            out = prop_fn(pred_init, M, spec.prop_time, R,
+            prop_fn = {"stencil": stencil_propagate,
+                       "pallas": nlspn_stencil_propagate,
+                       "auto": propagate_auto}[self.nlspn_impl]
+            out = prop_fn(pred_init, M, prop_time=spec.prop_time, R=R,
                           feat_fix=origin_depth,
                           preserve_input=spec.preserve_input)
         return out, max_offset

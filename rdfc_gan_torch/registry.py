@@ -58,5 +58,15 @@ def build_discriminator(cfg: Dict[str, Any], **extra):
     return DISCRIMINATORS.build(cfg, **extra)
 
 
+def build_model(cfg: Dict[str, Any], **extra):
+    """Mirror of the (missing) reference ``build_model`` (train.py:84-103):
+    a GAN engine (``RDFCGAN``, ``RDFGAN``) from a dict with a ``type``,
+    the engine's arguments (``cfg``, ``is_train``, ``steps_per_epoch``)
+    beside it."""
+    from . import engines, models  # noqa: F401  (register the engines)
+
+    return MODELS.build(cfg, **extra)
+
+
 def build_dataset(cfg: Dict[str, Any], **extra):
     return DATASETS.build(cfg, **extra)

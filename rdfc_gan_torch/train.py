@@ -53,9 +53,9 @@ import sys
 import time
 
 import torch
-import yaml
 
 from .cli import parse_config
+from .config import dump_config
 from .data import DataLoader
 from .engines import build_engine
 from .evaluator import Eval
@@ -187,8 +187,7 @@ def _train(cfg, logger, device, train_loader, val_loader) -> dict:
                           for t in (*m.parameters(), *m.buffers())])
     if is_main():
         os.makedirs(cfg.work_dir, exist_ok=True)
-        with open(os.path.join(cfg.work_dir, "config.yaml"), "w") as f:
-            yaml.safe_dump(cfg.to_dict(), f)
+        dump_config(cfg, os.path.join(cfg.work_dir, "config.yaml"))
 
     # the NLSPN generator: the RDFGAN's G or the flagship's G_A2B
     G = engine.modules.get("G", engine.modules.get("G_A2B"))

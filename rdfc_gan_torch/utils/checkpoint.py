@@ -26,7 +26,7 @@ them onto the port's optimizers and schedules
 0 with a warning and keeps its step, as the JAX ``resume_from`` does).
 ``save_jax_checkpoint`` writes a training engine's whole state in that
 format, the tree the JAX engine's template holds, which the JAX drivers
-read.
+read: every engine the port builds, the v1 driver's among them.
 
 Over ranks rank 0 alone writes, and every rank waits at a barrier after
 the write, so a resume on any rank reads a whole file; every rank reads.
@@ -273,9 +273,8 @@ def jax_state_tree(engine) -> dict:
 def save_jax_checkpoint(engine, filename: str, meta: Optional[Dict] = None):
     """Write the engine's whole state as the JAX drivers' ``.ckpt``, which
     the JAX ``load_checkpoint`` / ``resume_from`` read into the JAX
-    engine's template; over ranks rank 0 writes and all wait for it. The
-    v1 family's nets raise NotImplementedError (no converter to them in
-    either package)."""
+    engine's template (the v1 driver's too, ``tools/main_v1.py``); over
+    ranks rank 0 writes and all wait for it."""
     if not is_main():
         barrier()
         return

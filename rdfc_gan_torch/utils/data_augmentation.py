@@ -1,24 +1,46 @@
-"""The depth-corruption utilities ``folder_dataset`` needs (port of the
-part of rdfc_gan_tpu/utils/data_augmentation.py it uses; reference
-lib/utils/data_augmentation.py): ``ellipse_dropout``, with
-``cv2.ellipse(img, center, axes, angle, 0, 360, color, thickness=-1)``'s
-fill ported bit for bit, and ``exr_loader``, which raises.
+"""Depth-image utility and sensor-corruption library (port of
+rdfc_gan_tpu/utils/data_augmentation.py; reference
+lib/utils/data_augmentation.py, cleargrasp heritage): depth I/O and
+colour maps, point clouds, and the corruption family (gaussian and
+gamma noise, motion blur, HLS jitter, ellipse dropouts). Each function
+has the JAX function's name, signature, defaults and
+``np.random.Generator`` draw order, so the same seed gives the same
+array. The OpenCV and PIL calls of the JAX module go through the port's
+image layer, held against those libraries by
+``tests/test_torch_image_io.py`` and ``tests/test_torch_data_augmentation.py``:
+``cv_ops.filter2d`` (``add_noise``'s motion blur), ``cv_ops.cvt_bgr2hls``
+/ ``cvt_hls2bgr`` (``chromatic_transform``), ``cv_ops.resize`` with
+``INTER_CUBIC`` (``add_noise_to_xyz``), ``cv_ops.apply_colormap``
+(``depth2rgb``), ``image_io.imwrite`` (``save_uint16_png``),
+``image_io.read_indexed`` (``imread_indexed``) and ``fill_ellipse`` below
+(``ellipse_dropout`` and the two ``dropout_random_ellipses_*``).
 
-The fill follows OpenCV's drawing code for a filled whole ellipse with
-8-connected edges: the angle rounded to whole degrees; ``ellipse2Poly``'s
-polygon from OpenCV's table of sines in f32 (a point every 90, 30, 18 or 5
-degrees as the larger axis is under 3, 10, 15 pixels or not), in 16.16
-fixed point, repeated points dropped; then ``FillConvexPoly``: each edge
-drawn as an 8-connected fixed-point line (``Line2``, clipped to the image
-as ``clipLine`` clips it), and the scanlines between the left and the right
-edge filled, each edge stepped by a rounded fixed-point slope.
-``tests/test_torch_more_datasets.py`` holds it against ``cv2.ellipse``
-over thousands of random draws.
+EXR is neither read nor written: the build of OpenCV the JAX package is
+held against can do neither, so there is no reference to match;
+``exr_loader`` and ``exr_saver`` raise ``ValueError`` naming the file.
+
+``fill_ellipse`` is ``cv2.ellipse(img, center, axes, angle, 0, 360, color,
+thickness=-1)``'s fill, ported bit for bit. It follows OpenCV's drawing
+code for a filled whole ellipse with 8-connected edges: the angle rounded
+to whole degrees; ``ellipse2Poly``'s polygon from OpenCV's table of sines
+in f32 (a point every 90, 30, 18 or 5 degrees as the larger axis is under
+3, 10, 15 pixels or not), in 16.16 fixed point, repeated points dropped;
+then ``FillConvexPoly``: each edge drawn as an 8-connected fixed-point line
+(``Line2``, clipped to the image as ``clipLine`` clips it), and the
+scanlines between the left and the right edge filled, each edge stepped by
+a rounded fixed-point slope. ``tests/test_torch_more_datasets.py`` holds it
+against ``cv2.ellipse`` over thousands of random draws.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import numpy as np
+
+# cv2.COLORMAP_JET (data.cv_ops, which is imported inside the functions:
+# the data package imports this module)
+COLORMAP_JET = 2
 
 XY_SHIFT = 16
 XY_ONE = 1 << XY_SHIFT
@@ -27,13 +49,20 @@ SIN_TABLE = np.round(np.sin(np.deg2rad(np.arange(451))), 7).astype(
     np.float32).astype(np.float64)
 
 
-def exr_loader(path: str) -> np.ndarray:
-    """EXR depth is not read by the port: the build of OpenCV the JAX
-    package is held against can neither write nor read EXR, so there is no
-    reference to match. Raises ``ValueError`` naming the file."""
+def exr_loader(path: str, ndim: int = 3) -> np.ndarray:
+    """EXR depth is not read by the port (module docstring). Raises
+    ``ValueError`` naming the file."""
     raise ValueError(f"{path}: EXR depth is not supported by rdfc_gan_torch "
                      f"(no reference reader to match); store depth as "
                      f"uint16 millimetre PNG")
+
+
+def exr_saver(path: str, arr: np.ndarray):
+    """EXR is not written by the port (module docstring). Raises
+    ``ValueError`` naming the file."""
+    raise ValueError(f"{path}: EXR is not supported by rdfc_gan_torch (no "
+                     f"reference writer to match); save depth with "
+                     f"save_uint16_png")
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -242,3 +271,250 @@ def ellipse_dropout(depth: np.ndarray, rng: np.random.Generator,
         fill_ellipse(mask, center, axes, angle, 0)
     return out * mask.reshape(h, w, *([1] * (depth.ndim - 2)))
 
+
+
+
+# ------------------------------------------------------------- colormaps ---
+def depth2rgb(depth: np.ndarray, min_depth: Optional[float] = None,
+              max_depth: Optional[float] = None,
+              color_mode: int = COLORMAP_JET,
+              reverse_scale: bool = False) -> np.ndarray:
+    """Colormap a depth image to uint8 RGB (H, W, 3): depth scaled to
+    [0, 1] between ``min_depth`` and ``max_depth`` (its own min and max by
+    default), to uint8 by truncation, through the colour map (JET,
+    VIRIDIS or PLASMA)."""
+    from ..data import cv_ops, image_io
+
+    d = np.asarray(depth, np.float32)
+    lo = d.min() if min_depth is None else min_depth
+    hi = d.max() if max_depth is None else max_depth
+    norm = np.clip((d - lo) / max(hi - lo, 1e-8), 0, 1)
+    if reverse_scale:
+        norm = 1.0 - norm
+    gray = (norm * 255).astype(np.uint8)
+    if gray.ndim == 3 and gray.shape[2] == 1:
+        gray = gray[..., 0]
+    return image_io.bgr2rgb(cv_ops.apply_colormap(gray, color_mode))
+
+
+def scale_depth(depth: np.ndarray, scale: float = 1000.0) -> np.ndarray:
+    """meters -> uint16 millimeters (or custom scale)."""
+    return np.clip(depth * scale, 0, 65535).astype(np.uint16)
+
+
+# ----------------------------------------------------------- point clouds --
+def depth_to_point_cloud(depth: np.ndarray, fx: float, fy: float,
+                         cx: float, cy: float,
+                         rgb: Optional[np.ndarray] = None
+                         ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """Back-project a depth map (meters) to an (N, 3) point cloud of its
+    valid (z > 1e-6) pixels, with their colours when ``rgb`` is given."""
+    h, w = depth.shape[:2]
+    ys, xs = np.mgrid[0:h, 0:w]
+    z = depth.reshape(-1)
+    x = ((xs.reshape(-1) - cx) / fx) * z
+    y = ((ys.reshape(-1) - cy) / fy) * z
+    pts = np.stack([x, y, z], axis=1)
+    valid = z > 1e-6
+    cols = rgb.reshape(-1, 3)[valid] if rgb is not None else None
+    return pts[valid], cols
+
+
+def write_point_cloud(path: str, points: np.ndarray,
+                      colors: Optional[np.ndarray] = None):
+    """ASCII PLY writer (the reference's open3d dependency replaced)."""
+    n = points.shape[0]
+    with open(path, "w") as f:
+        f.write("ply\nformat ascii 1.0\n")
+        f.write(f"element vertex {n}\n")
+        f.write("property float x\nproperty float y\nproperty float z\n")
+        if colors is not None:
+            f.write("property uchar red\nproperty uchar green\n"
+                    "property uchar blue\n")
+        f.write("end_header\n")
+        for i in range(n):
+            row = f"{points[i, 0]:.6f} {points[i, 1]:.6f} {points[i, 2]:.6f}"
+            if colors is not None:
+                c = colors[i].astype(int)
+                row += f" {c[0]} {c[1]} {c[2]}"
+            f.write(row + "\n")
+
+
+# ------------------------------------------------------------ corruptions --
+def add_gaussian_noise(depth: np.ndarray, rng: np.random.Generator,
+                       sigma_frac: float = 0.01) -> np.ndarray:
+    """Depth-proportional gaussian sensor noise on the valid pixels."""
+    noise = rng.normal(0.0, 1.0, depth.shape).astype(np.float32)
+    return np.where(depth > 0, depth * (1.0 + sigma_frac * noise), depth)
+
+
+def save_uint16_png(path: str, image: np.ndarray):
+    """Write a uint16 PNG (data_augmentation.py:105-118: refuses
+    non-uint16 input instead of converting it)."""
+    from ..data import image_io
+
+    arr = np.asarray(image)
+    if arr.dtype != np.uint16:
+        raise ValueError(f"expected uint16, got {arr.dtype}")
+    image_io.imwrite(path, arr)
+
+
+def normalize_depth_img(depth: np.ndarray, dtype=np.uint8,
+                        min_depth: float = 0.0,
+                        max_depth: float = 1.0) -> np.ndarray:
+    """Scale a float depth map into the full range of an integer dtype
+    (data_augmentation.py:121-153): values outside [min, max] clamp,
+    invalid (<= 0) pixels map to 0."""
+    d = np.asarray(depth, np.float32)
+    lo, hi = float(min_depth), float(max_depth)
+    full = np.iinfo(dtype).max
+    norm = np.clip((d - lo) / max(hi - lo, 1e-8), 0.0, 1.0) * full
+    norm = np.where(d > 0, norm, 0)
+    return norm.astype(dtype)
+
+
+def unscale_depth(depth: np.ndarray, scale: float = 1000.0) -> np.ndarray:
+    """uint16 millimeters -> float32 meters (inverse of scale_depth)."""
+    return np.asarray(depth, np.float32) / scale
+
+
+def add_noise(image: np.ndarray, rng: np.random.Generator,
+              level: float = 0.1) -> np.ndarray:
+    """RGB corruption (data_augmentation.py:302-328): 90% additive gaussian
+    noise at a random sigma, 10% axis-aligned motion blur (a uint8
+    image)."""
+    from ..data import cv_ops
+
+    if rng.random() < 0.9:
+        sigma = rng.random() * rng.uniform(0, level) * 256
+        gauss = sigma * rng.standard_normal(image.shape[:2])
+        noisy = image + gauss[..., None]
+        return np.clip(noisy, 0, 255).astype(np.uint8)
+    size = int(rng.choice([3, 5, 7, 9, 11, 15]))
+    k = np.zeros((size, size), np.float32)
+    if rng.random() < 0.5:
+        k[(size - 1) // 2, :] = 1.0
+    else:
+        k[:, (size - 1) // 2] = 1.0
+    return cv_ops.filter2d(image, k / size).astype(np.uint8)
+
+
+def chromatic_transform(image: np.ndarray, rng: np.random.Generator,
+                        label: Optional[np.ndarray] = None,
+                        d_h: Optional[float] = None,
+                        d_s: Optional[float] = None,
+                        d_l: Optional[float] = None) -> np.ndarray:
+    """Random hue / luminosity / saturation jitter of a uint8 BGR image in
+    HLS space (data_augmentation.py:332-358); labelled pixels keep their
+    colours."""
+    from ..data import cv_ops
+
+    if d_h is None:
+        d_h = (rng.random() - 0.5) * 0.1 * 180
+    if d_l is None:
+        d_l = (rng.random() - 0.5) * 0.2 * 256
+    if d_s is None:
+        d_s = (rng.random() - 0.5) * 0.2 * 256
+    hls = cv_ops.cvt_bgr2hls(image)
+    h, l, s = hls[..., 0], hls[..., 1], hls[..., 2]
+    new = np.stack(((h + d_h) % 180, np.clip(l + d_l, 0, 255),
+                    np.clip(s + d_s, 0, 255)), -1).astype(np.uint8)
+    out = cv_ops.cvt_hls2bgr(new)
+    if label is not None:
+        iy, ix = np.where(label > 0)
+        out[iy, ix, :] = image[iy, ix, :]
+    return out
+
+
+def build_matrix_of_indices(height: int, width: int) -> np.ndarray:
+    """[H, W, 2] array with B[..., 0] = y, B[..., 1] = x
+    (data_augmentation.py:361-365)."""
+    return np.indices((height, width), dtype=np.float32).transpose(1, 2, 0)
+
+
+def compute_xyz(depth: np.ndarray, camera_params: dict) -> np.ndarray:
+    """Ordered [H, W, 3] point cloud from a metric depth image
+    (data_augmentation.py:368-388)."""
+    idx = build_matrix_of_indices(camera_params["yres"],
+                                  camera_params["xres"])
+    z = depth
+    x = (idx[..., 1] - camera_params["cx"]) * z / camera_params["fx"]
+    y = (idx[..., 0] - camera_params["cy"]) * z / camera_params["fy"]
+    return np.stack([x, y, z], axis=-1)
+
+
+def _dropout_ellipses(mask: np.ndarray, rng: np.random.Generator,
+                      noise_params: dict, seed_from_zero: bool,
+                      paint: int) -> np.ndarray:
+    """Poisson-many ellipses centred on the mask's zero (or nonzero)
+    pixels, gamma-drawn axes, whole-degree angles, filled with ``paint``
+    (a constant, so drawing straight into the copy is the reference's
+    temporary mask and scatter)."""
+    out = mask.copy()
+    n = rng.poisson(noise_params["ellipse_dropout_mean"])
+    pool = np.array(np.where(out == 0 if seed_from_zero else out > 0)).T
+    if n == 0 or pool.shape[0] == 0:
+        return out
+    centers = pool[rng.choice(pool.shape[0], size=n)]
+    xr = rng.gamma(noise_params["ellipse_gamma_shape"],
+                   noise_params["ellipse_gamma_scale"], size=n)
+    yr = rng.gamma(noise_params["ellipse_gamma_shape"],
+                   noise_params["ellipse_gamma_scale"], size=n)
+    angles = rng.integers(0, 360, size=n)
+    out = np.ascontiguousarray(out)
+    for i in range(n):
+        fill_ellipse(out, tuple(centers[i][::-1].astype(int)),
+                     (int(round(xr[i])), int(round(yr[i]))),
+                     int(angles[i]), int(paint))
+    return out
+
+
+def dropout_random_ellipses_4corruptmask(mask: np.ndarray,
+                                         rng: np.random.Generator,
+                                         noise_params: dict) -> np.ndarray:
+    """Grow a corruption mask by random ellipses seeded at its zero pixels
+    (DexNet-2.0 heritage, data_augmentation.py:391-424)."""
+    return _dropout_ellipses(mask, rng, noise_params, seed_from_zero=True,
+                             paint=1)
+
+
+def dropout_random_ellipses_4mask(valid_mask: np.ndarray,
+                                  rng: np.random.Generator,
+                                  noise_params: dict) -> np.ndarray:
+    """Drop random ellipses out of a validity mask
+    (data_augmentation.py:427-462)."""
+    return _dropout_ellipses(valid_mask, rng, noise_params,
+                             seed_from_zero=False, paint=0)
+
+
+def add_noise_to_depth(depth: np.ndarray, rng: np.random.Generator,
+                       noise_params: dict) -> np.ndarray:
+    """Multiplicative gamma noise (data_augmentation.py:465-476)."""
+    return depth * rng.gamma(noise_params["gamma_shape"],
+                             noise_params["gamma_scale"])
+
+
+def add_noise_to_xyz(xyz: np.ndarray, depth: np.ndarray,
+                     rng: np.random.Generator,
+                     noise_params: dict) -> np.ndarray:
+    """Approximate Gaussian-process noise: a low-resolution gaussian,
+    bicubic-upscaled, added at valid depth (data_augmentation.py:479-495;
+    the noised copy is returned, where the reference's ``return`` gave
+    None)."""
+    from ..data import cv_ops
+
+    out = xyz.copy()
+    h, w, c = xyz.shape
+    sh, sw = (np.array([h, w]) / noise_params["gp_rescale_factor"]).astype(int)
+    noise = rng.normal(0.0, noise_params["gaussian_scale"], size=(sh, sw, c))
+    noise = cv_ops.resize(noise, (w, h), interpolation=cv_ops.INTER_CUBIC)
+    out[depth > 0, :] += noise[depth > 0, :]
+    return out
+
+
+def imread_indexed(path: str) -> np.ndarray:
+    """A palette-indexed segmentation PNG as its index array
+    (data_augmentation.py:498-502)."""
+    from ..data import image_io
+
+    return np.atleast_3d(image_io.read_indexed(path))[..., 0]

@@ -18,6 +18,10 @@ NLSPN dummies (w, b, w_conf) and BatchNorm's ``num_batches_tracked``.
 ``convert_rdf_generator`` also takes the port's ``fuse`` variants
 (``fuse_depth_in_rgb_decoder``; the JAX function knows only W-AdaIN):
 INFuse's 1x1 conv as ``fuse_layers_{i}.Conv_0``, AdaIN's nothing.
+The v1 family (``convert_esanet``, ``convert_dcv_gan_generator``,
+``convert_dcv_gan_generator_vanilla``, ``convert_pixelgan``,
+``convert_pointnet``) inverts ``utils/convert.py``'s v1 converters: the
+same compact Flax names, built from the names the state dict has.
 ``net_tree_to_jax`` picks the converter of an engine's net.
 """
 
@@ -413,26 +417,260 @@ def convert_resnet_generator(sd: Dict[str, np.ndarray],
     return {"params": params, "batch_stats": {}}
 
 
+# ------------------------------------------------------------ v1 family --
+# The inverses of ``utils/convert.py``'s v1 converters (``_resnet_stage``,
+# ``_esanet_decoder``, ``esanet_state_dict_from_jax`` and the rest): each
+# walks the state dict's names and rebuilds the Flax compact names those
+# functions read, in their creation order. A module the dict lacks (a
+# parameterless ``LearnedUpsample``, an eval-mode tree's side conv, a
+# BatchNorm-free ``NonBottleneck1D``) has no entry, as in the Flax tree.
+def _sub(params: Dict, stats: Dict, name: str, p: Dict, st: Dict):
+    """Put a submodule's trees under ``name``; its batch statistics only
+    where it has any, as flax keeps them."""
+    params[name] = p
+    if st:
+        stats[name] = st
+
+
+def _v1_stem(groups, prefix):
+    p, st = {"Conv_0": _conv_entry(groups[f"{prefix}.conv1"])}, {}
+    _put_bn(p, st, "BatchNorm_0", groups[f"{prefix}.bn1"])
+    return p, st
+
+
+def _v1_stage(groups, prefix):
+    """``{prefix}.{j}.conv{k}/bn{k}[/downsample]`` -> ``BasicBlock_{j}`` or
+    ``Bottleneck_{j}`` (a third main conv makes a Bottleneck)."""
+    if f"{prefix}.0.conv3" in groups:
+        return _bottleneck_blocks(groups, prefix)
+    return _basicblock_blocks(groups, prefix)
+
+
+def _v1_conv_bn_act(groups, prefix):
+    p, st = {"Conv_0": _conv_entry(groups[f"{prefix}.conv"])}, {}
+    _put_bn(p, st, "BatchNorm_0", groups[f"{prefix}.bn"])
+    return p, st
+
+
+def _v1_se(groups, prefix):
+    return {"Conv_0": _conv_entry(groups[f"{prefix}.fc.0"]),
+            "Conv_1": _conv_entry(groups[f"{prefix}.fc.2"])}
+
+
+def _v1_non_bottleneck(groups, prefix):
+    p, st = {}, {}
+    for k, name in enumerate(("conv3x1_1", "conv1x3_1", "conv3x1_2",
+                              "conv1x3_2")):
+        p[f"Conv_{k}"] = _conv_entry(groups[f"{prefix}.{name}"])
+    for k in range(2):
+        if f"{prefix}.bn{k + 1}" in groups:
+            _put_bn(p, st, f"BatchNorm_{k}", groups[f"{prefix}.bn{k + 1}"])
+    if f"{prefix}.downsample" in groups:
+        p["Conv_4"] = _conv_entry(groups[f"{prefix}.downsample"])
+    return p, st
+
+
+def _v1_upsample(groups, params, prefix, name):
+    if f"{prefix}.conv" in groups:
+        params[name] = {"Conv_0": _conv_entry(groups[f"{prefix}.conv"])}
+
+
+def _v1_decoder_module(groups, prefix):
+    """An ``ESADecoderModule`` or a ``VanillaDecoderModule``."""
+    p, st = {}, {}
+    _sub(p, st, "ConvBNActESA_0", *_v1_conv_bn_act(groups,
+                                                   f"{prefix}.conv3x3"))
+    j = 0
+    while f"{prefix}.decoder_blocks.{j}.conv3x1_1" in groups:
+        _sub(p, st, f"NonBottleneck1D_{j}", *_v1_non_bottleneck(
+            groups, f"{prefix}.decoder_blocks.{j}"))
+        j += 1
+    if f"{prefix}.side_output" in groups:
+        p["Conv_0"] = _conv_entry(groups[f"{prefix}.side_output"])
+    _v1_upsample(groups, p, f"{prefix}.upsample", "LearnedUpsample_0")
+    return p, st
+
+
+def _v1_skips(groups, params, stats, pre):
+    """``skip_layer3``, ``2``, ``1``, those the dict has, as
+    ``ConvBNActESA_{n}`` in that order."""
+    n = 0
+    for i in (2, 1, 0):
+        if f"{pre}skip_layer{i + 1}.conv" in groups:
+            _sub(params, stats, f"ConvBNActESA_{n}", *_v1_conv_bn_act(
+                groups, f"{pre}skip_layer{i + 1}"))
+            n += 1
+
+
+def _esanet_trees(groups, pre: str = "", two_modality: bool = False):
+    """The inverse of ``convert.esanet_state_dict_from_jax``: an ESANet's
+    entries under ``pre`` -> its Flax (params, batch_stats)."""
+    p, st = {}, {}
+    if two_modality:
+        _sub(p, st, "ResNetStem_0", *_v1_stem(groups, f"{pre}stem_rgb"))
+        _sub(p, st, "ResNetStem_1", *_v1_stem(groups, f"{pre}stem_depth"))
+        for br, off in (("rgb", 0), ("depth", 4)):
+            for i in range(4):
+                _sub(p, st, f"ResNetStage_{i + off}", *_v1_stage(
+                    groups, f"{pre}{br}_layer{i + 1}"))
+        for i in range(5):
+            p[f"SqueezeAndExciteFusionAdd_{i}"] = {
+                "SqueezeAndExcitation_0": _v1_se(
+                    groups, f"{pre}se_layer{i}.se_rgb"),
+                "SqueezeAndExcitation_1": _v1_se(
+                    groups, f"{pre}se_layer{i}.se_depth")}
+    else:
+        _sub(p, st, "ResNetStem_0", *_v1_stem(groups, f"{pre}stem"))
+        for i in range(4):
+            _sub(p, st, f"ResNetStage_{i}", *_v1_stage(
+                groups, f"{pre}layer{i + 1}"))
+        for i in range(5):
+            if f"{pre}se_layer{i}.fc.0" in groups:
+                p[f"SqueezeAndExcitation_{i}"] = _v1_se(groups,
+                                                        f"{pre}se_layer{i}")
+    if f"{pre}context_module.final_conv.conv" in groups:
+        pp, ps = {}, {}
+        n = 0
+        while f"{pre}context_module.features.{n}.1.conv" in groups:
+            _sub(pp, ps, f"ConvBNActESA_{n}", *_v1_conv_bn_act(
+                groups, f"{pre}context_module.features.{n}.1"))
+            n += 1
+        _sub(pp, ps, f"ConvBNActESA_{n}", *_v1_conv_bn_act(
+            groups, f"{pre}context_module.final_conv"))
+        _sub(p, st, "PyramidPoolingModule_0", pp, ps)
+    _v1_skips(groups, p, st, pre)
+    for i in range(3):
+        _sub(p, st, f"ESADecoderModule_{i}", *_v1_decoder_module(
+            groups, f"{pre}decoder{i + 1}"))
+    p["Conv_0"] = _conv_entry(groups[f"{pre}conv_out"])
+    for i in range(2):
+        _v1_upsample(groups, p, f"{pre}upsample{i + 1}",
+                     f"LearnedUpsample_{i}")
+    return p, st
+
+
+def convert_esanet(sd: Dict[str, np.ndarray], prefix: str = "",
+                   two_modality: bool = False):
+    """``ESANetOneModality`` (or, with ``two_modality``, ``ESANet``) state
+    dict, its keys under ``prefix`` -> Flax trees."""
+    p, st = _esanet_trees(walk_state_dict(sd), prefix, two_modality)
+    return {"params": p, "batch_stats": st}
+
+
+def convert_dcv_gan_generator(sd: Dict[str, np.ndarray],
+                              use_nlspn_refine: bool = True,
+                              adain_weighting: bool = False,
+                              fuse: str = "WAdaIN"):
+    """``DCVGANGenerator`` state dict -> Flax trees: ``core`` through
+    ``convert_rdf_generator``, ``global_guidance_module`` (where the dict
+    has it) through ``convert_esanet``."""
+    core = convert_rdf_generator({k[5:]: v for k, v in sd.items()
+                                  if k.startswith("core.")},
+                                 use_nlspn_refine=use_nlspn_refine,
+                                 adain_weighting=adain_weighting, fuse=fuse)
+    params, stats = {}, {}
+    if any(k.startswith("global_guidance_module.") for k in sd):
+        g = convert_esanet(sd, prefix="global_guidance_module.")
+        _sub(params, stats, "global_guidance_module", g["params"],
+             g["batch_stats"])
+    _sub(params, stats, "core", core["params"], core["batch_stats"])
+    return {"params": params, "batch_stats": stats}
+
+
+def _v1_wadain(groups, pre):
+    fl = f"{pre}.style.linear"
+    sub = {"EqualLinear_0": {"weight": np.asarray(
+        groups[fl]["weight_orig"]).T, "bias": groups[fl]["bias"]}}
+    if f"{pre}.gamma_weight_layer" in groups:
+        sub["Conv_0"] = _conv_entry(groups[f"{pre}.gamma_weight_layer"])
+        sub["Conv_1"] = _conv_entry(groups[f"{pre}.beta_weight_layer"])
+    return sub
+
+
+def convert_dcv_gan_generator_vanilla(sd: Dict[str, np.ndarray]):
+    """``DCVGANGeneratorVanilla`` state dict -> Flax trees: the guidance
+    ESANet as ``ESANetOneModality_0``, the two stems and torsos, the RGB
+    decoder's skip projections, the ten decoder stages (RGB and depth in
+    turn), the W-AdaIN layers the dict has, the four heads."""
+    groups = walk_state_dict(sd)
+    p, st = {}, {}
+    if any(k.startswith("global_guidance_module.") for k in sd):
+        _sub(p, st, "ESANetOneModality_0",
+             *_esanet_trees(groups, "global_guidance_module."))
+    _sub(p, st, "ResNetStem_0", *_v1_stem(groups, "rgb_stem"))
+    _sub(p, st, "ResNetStem_1", *_v1_stem(groups, "depth_stem"))
+    for br, off in (("rgb", 0), ("depth", 4)):
+        for i in range(4):
+            _sub(p, st, f"ResNetStage_{i + off}", *_v1_stage(
+                groups, f"{br}_layer{i + 1}"))
+    _v1_skips(groups, p, st, "")
+    for i in range(10):
+        _sub(p, st, f"VanillaDecoderModule_{i}", *_v1_decoder_module(
+            groups, f"{('rgb', 'depth')[i % 2]}_decoder{i // 2 + 1}"))
+    for i in range(6):
+        if f"fuse_layer{i + 1}.style.linear" in groups:
+            p[f"AdaptiveInstanceNorm_{i}"] = _v1_wadain(groups,
+                                                        f"fuse_layer{i + 1}")
+    for i, name in enumerate(("rgb_depth_head", "rgb_conf_head",
+                              "depth_depth_head", "depth_conf_head")):
+        p[f"Conv_{i}"] = _conv_entry(groups[name])
+    return {"params": p, "batch_stats": st}
+
+
+def convert_pixelgan(sd: Dict[str, np.ndarray]):
+    """``PixelGANDiscriminator`` (``net.{0,2,3,5}``) -> ``Conv_{0,1,2}`` and
+    ``BatchNorm_0``."""
+    groups = walk_state_dict(sd)
+    params, stats = {}, {}
+    for i, idx in enumerate((0, 2, 5)):
+        params[f"Conv_{i}"] = _conv_entry(groups[f"net.{idx}"])
+    _put_bn(params, stats, "BatchNorm_0", groups["net.3"])
+    return {"params": params, "batch_stats": stats}
+
+
+def convert_pointnet(sd: Dict[str, np.ndarray]):
+    """``PointNetDiscriminator`` -> ``Dense_{0-6}`` (Linear (out, in) ->
+    Dense (in, out)) and ``BatchNorm_{0-5}``."""
+    groups = walk_state_dict(sd)
+    params, stats = {}, {}
+    for i in range(7):
+        g = groups[f"fc{i + 1}"]
+        params[f"Dense_{i}"] = {"kernel": np.ascontiguousarray(
+            np.asarray(g["weight"]).T), "bias": g["bias"]}
+        if i < 6:
+            _put_bn(params, stats, f"BatchNorm_{i}", groups[f"bn{i + 1}"])
+    return {"params": params, "batch_stats": stats}
+
+
 def net_tree_to_jax(cfg, name: str, module, sd: Dict[str, np.ndarray]):
     """The Flax trees of an engine's net ``name`` from its state dict
-    ``sd`` (numpy), by the module's class and the engine config's options.
-    The v1 family's nets raise: neither package converts to them."""
-    from ..models import (NNET, PatchGANDiscriminator, PSPNet, RDFGenerator,
+    ``sd`` (numpy), by the module's class and the engine config's options:
+    every net the port's engines build."""
+    from ..models import (NNET, DCVGANGenerator, DCVGANGeneratorVanilla,
+                          PatchGANDiscriminator, PixelGANDiscriminator,
+                          PointNetDiscriminator, PSPNet, RDFGenerator,
                           ResnetGenerator)
     from .convert import generator_options, model_options
 
     if isinstance(module, RDFGenerator):
         return convert_rdf_generator(sd, **generator_options(cfg, name,
                                                              module))
+    if isinstance(module, DCVGANGenerator):
+        return convert_dcv_gan_generator(sd, **generator_options(
+            cfg, name, module))
+    if isinstance(module, DCVGANGeneratorVanilla):
+        return convert_dcv_gan_generator_vanilla(sd)
     if isinstance(module, ResnetGenerator):
         return convert_resnet_generator(sd)
-    if isinstance(module, PatchGANDiscriminator):
-        return convert_patchgan(sd)
     if isinstance(module, NNET):
         return convert_nnet(sd, depth=model_options(cfg, name).get(
             "depth", 2.2))
     if isinstance(module, PSPNet):
         return convert_pspnet(sd)
-    raise NotImplementedError(
-        f"{name}: no converter to the JAX tree of {type(module).__name__} "
-        f"(the v1 family has none in either package)")
+    for cls, fn in ((PatchGANDiscriminator, convert_patchgan),
+                    (PixelGANDiscriminator, convert_pixelgan),
+                    (PointNetDiscriminator, convert_pointnet)):
+        if isinstance(module, cls):
+            return fn(sd)
+    raise NotImplementedError(f"{name}: no converter to the JAX tree of "
+                              f"{type(module).__name__}")
