@@ -1,0 +1,7 @@
+"""``issue_ms.serve`` in the NLSPN serve cells, whose runs spread less than
+the flagship's, so that their end-to-end metrics carry bounds of their
+own."""
+
+from harness import common
+
+read = common.reader("issue_ms.serve")

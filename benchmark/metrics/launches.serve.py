@@ -1,0 +1,8 @@
+"""launches.serve: device kernels a request in the traced slice (the
+profiler's count)."""
+
+
+def read(ctx):
+    if ctx.trace is None or ctx.spec.traffic["driver"] != "serve":
+        return None
+    return len(ctx.trace.kernels()) / ctx.trace.units
