@@ -1,0 +1,6 @@
+"""``stall_pct.serve`` in the NLSPN serve cells, which carry end-to-end
+metrics of their own."""
+
+from harness import common
+
+read = common.reader("stall_pct.serve")

@@ -42,6 +42,7 @@ from ..models.rdf_generator import RDFGenerator
 from ..parallel import all_reduce_grads, spatial
 from ..registry import MODELS, build_discriminator, build_generator
 from ..utils import pretrained
+from ..utils.profiling import span
 from .base import BaseEngine, clip_gradients, make_optimizer
 
 
@@ -103,18 +104,27 @@ class RDFGAN(BaseEngine):
         ``depth_only`` is accepted for the driver's interface: this engine
         has no auxiliary heads to skip. ``grid`` and ``assemble``: width
         sharding as ``RDFCGAN.forward_test`` (an ``RDFGenerator`` G; its
-        NLSPN block runs on the row's gathered width)."""
+        NLSPN block runs on the row's gathered width).
+
+        Spans (``utils.profiling.span``): ``rdfc.serve`` around the call,
+        ``rdfc.G`` around the net inside it."""
         del depth_only
-        self.n_forward += 1
-        G = self.modules["G"].eval()
-        if grid is None:
-            return _as_ret_dict(G(rgb, raw_depth))
-        if grid.M > 1 and not isinstance(G, RDFGenerator):
-            raise NotImplementedError(
-                f"width sharding covers the RDFGenerator, not "
-                f"{type(G).__name__}")
-        return spatial.serve(lambda r, d: _as_ret_dict(G(r, d)), grid, rgb,
-                             raw_depth, assemble=assemble)
+        with span("rdfc.serve"):
+            self.n_forward += 1
+            G = self.modules["G"].eval()
+
+            def serve(r, d):
+                with span("rdfc.G"):
+                    return _as_ret_dict(G(r, d))
+
+            if grid is None:
+                return serve(rgb, raw_depth)
+            if grid.M > 1 and not isinstance(G, RDFGenerator):
+                raise NotImplementedError(
+                    f"width sharding covers the RDFGenerator, not "
+                    f"{type(G).__name__}")
+            return spatial.serve(serve, grid, rgb, raw_depth,
+                                 assemble=assemble)
 
     __call__ = forward_test
 
@@ -126,13 +136,16 @@ class RDFGAN(BaseEngine):
         return gen.manual_seed(int(self.cfg.seed) * 1000003 + int(step))
 
     def _optimize(self, name: str, loss: torch.Tensor):
-        opt = self.optimizers[name]
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        all_reduce_grads(self.modules[name].parameters())
-        clip_gradients(self.cfg, self.modules[name].parameters())
-        opt.step()
-        self.schedulers[name].step()
+        """Backward, all-reduce, clip, step and schedule of net ``name``,
+        in the span ``rdfc.train.update.<name>``."""
+        with span("rdfc.train.update." + name):
+            opt = self.optimizers[name]
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            all_reduce_grads(self.modules[name].parameters())
+            clip_gradients(self.cfg, self.modules[name].parameters())
+            opt.step()
+            self.schedulers[name].step()
 
     def train_step(self, batch: Dict[str, torch.Tensor],
                    update_g: bool = True,
@@ -142,7 +155,10 @@ class RDFGAN(BaseEngine):
         (B,1,1,1) is the wgangp interpolation draw; by default it comes from
         ``step_generator(self.n_step)``. Returns the losses (and
         ``nlspn_max_offset``) as detached device scalars: reading them is
-        the caller's one device sync."""
+        the caller's one device sync. The span ``rdfc.train.G_loss`` opens
+        twice, around G's forward (which the D loss reads too) and around
+        the G loss's terms; ``rdfc.train.D_loss`` around the D loss; the
+        updates are in ``_optimize``'s spans."""
         cfg = self.cfg
         G, D = self.modules["G"].train(), self.modules["D"].train()
         real_A, real_B = batch["rgb"], batch["gt_depth"]
@@ -153,14 +169,14 @@ class RDFGAN(BaseEngine):
         image_loss_weight = mask / (global_count(mask.sum()) + 1e-6)
         stats = {}
         grad = torch.enable_grad() if update_g else torch.no_grad()
-        with grad, self.autocast():
+        with grad, self.autocast(), span("rdfc.train.G_loss"):
             ret = _as_ret_dict(G(real_A, corrupted_B))
         fake = ret["depth_map_1"]
         if "nlspn_max_offset" in ret:
             stats["nlspn_max_offset"] = ret["nlspn_max_offset"]
 
         # --- D update first
-        with self.autocast():
+        with self.autocast(), span("rdfc.train.D_loss"):
             loss_fake = self.criterion_gan(D(fake.detach()), False)
             loss_real = self.criterion_gan(D(real_B), True)
             loss_d = (loss_real + loss_fake) * 0.5
@@ -184,7 +200,7 @@ class RDFGAN(BaseEngine):
         # --- G update with the updated D
         if update_g:
             with _frozen(D):
-                with self.autocast():
+                with self.autocast(), span("rdfc.train.G_loss"):
                     loss_gan = self.criterion_gan(D(fake), True)
                     l1 = {}
                     for name, key, lam in (

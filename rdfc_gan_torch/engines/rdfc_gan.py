@@ -65,6 +65,7 @@ from ..parallel import all_reduce_grads, rank_rows, spatial, world_size
 from ..registry import MODELS, build_discriminator, build_generator
 from ..utils import pretrained
 from ..utils.image_ops import add_pepper_noise, pepper_draw
+from ..utils.profiling import span
 from .base import BaseEngine, clip_gradients, make_optimizer
 
 NET_KEYS = ("G_A2B", "G_B2A", "disc_A", "disc_B", "G_normal", "G_label")
@@ -154,20 +155,29 @@ class RDFCGAN(BaseEngine):
         and raw_depth are this data row's rows at the whole width W, which
         M must divide; the rank serves its W / M columns and returns its
         shards of the outputs, or with ``assemble`` the whole width
-        (``parallel.spatial.serve``)."""
-        self.n_forward += 1
-        if grid is not None:
-            return spatial.serve(self._forward_test, grid, rgb, raw_depth,
-                                 depth_only, assemble=assemble)
-        return self._forward_test(rgb, raw_depth, depth_only)
+        (``parallel.spatial.serve``).
+
+        Spans (``utils.profiling.span``): ``rdfc.serve`` around the call,
+        and inside it ``rdfc.G_label``, ``rdfc.G_normal`` and
+        ``rdfc.G_A2B``, one per net, in that order."""
+        with span("rdfc.serve"):
+            self.n_forward += 1
+            if grid is not None:
+                return spatial.serve(self._forward_test, grid, rgb,
+                                     raw_depth, depth_only,
+                                     assemble=assemble)
+            return self._forward_test(rgb, raw_depth, depth_only)
 
     def _forward_test(self, rgb: torch.Tensor, raw_depth: torch.Tensor,
                       depth_only: bool) -> dict:
         mods = {k: m.eval() for k, m in self.modules.items()}
         if not depth_only:
-            label = mods["G_label"](rgb)
-        pred_normal = norm_normalize(mods["G_normal"](rgb))
-        ret = mods["G_A2B"](rgb, raw_depth, pred_normal)
+            with span("rdfc.G_label"):
+                label = mods["G_label"](rgb)
+        with span("rdfc.G_normal"):
+            pred_normal = norm_normalize(mods["G_normal"](rgb))
+        with span("rdfc.G_A2B"):
+            ret = mods["G_A2B"](rgb, raw_depth, pred_normal)
         out = dict(pred_depth=ret["pred_depth"], pred_normal=pred_normal)
         if not depth_only:
             out["pred_label"] = label
@@ -249,17 +259,19 @@ class RDFCGAN(BaseEngine):
 
     def _optimize(self, names, loss: torch.Tensor):
         """One backward of ``loss``, then each named optimizer's clip, step
-        and schedule, in order."""
-        for name in names:
-            self.optimizers[name].zero_grad(set_to_none=True)
-        loss.backward()
-        for name in names:
-            all_reduce_grads(p for k in OPT_NETS[name]
-                             for p in self.modules[k].parameters())
-            clip_gradients(self.cfg, [p for k in OPT_NETS[name]
-                                      for p in self.modules[k].parameters()])
-            self.optimizers[name].step()
-            self.schedulers[name].step()
+        and schedule, in order, in the span ``rdfc.train.update.<names>``
+        (joined by ``+``)."""
+        with span("rdfc.train.update." + "+".join(names)):
+            for name in names:
+                self.optimizers[name].zero_grad(set_to_none=True)
+            loss.backward()
+            for name in names:
+                all_reduce_grads(p for k in OPT_NETS[name]
+                                 for p in self.modules[k].parameters())
+                clip_gradients(self.cfg, [p for k in OPT_NETS[name]
+                                          for p in self.modules[k].parameters()])
+                self.optimizers[name].step()
+                self.schedulers[name].step()
 
     def _g_loss(self, batch, draws):
         cfg, m = self.cfg, self.modules
@@ -328,19 +340,22 @@ class RDFCGAN(BaseEngine):
         loss and the D update. ``draws`` (``pepper``: (batch uniform,
         (B,1,H,W) field); ``keep``: G_label's two keep masks) default to
         ``draws(self.n_step, batch)``. Returns the 23 losses as detached
-        device scalars: reading them is the caller's one device sync."""
+        device scalars: reading them is the caller's one device sync. The
+        losses are computed in the spans ``rdfc.train.G_loss`` and
+        ``rdfc.train.D_loss``, the updates in ``_optimize``'s."""
         m = self.modules
         for net in m.values():
             net.train()
         if draws is None:
             draws = self.draws(self.n_step, batch)
-        with _frozen(m["disc_A"], m["disc_B"]), self.autocast():
+        with _frozen(m["disc_A"], m["disc_B"]), self.autocast(), \
+                span("rdfc.train.G_loss"):
             log, fake_B, fake_A = self._g_loss(batch, draws)
         self._optimize(("G", "Nor", "label"), log["loss_G"])
 
         real_A, real_B = batch["rgb"], batch["gt_depth"]
         gan = self.criterion_gan
-        with self.autocast():
+        with self.autocast(), span("rdfc.train.D_loss"):
             d_log = {}
             for d, real, fake in (("A", real_B, fake_B),
                                   ("B", real_A, fake_A)):

@@ -45,6 +45,7 @@ from ..ops.nlspn import NLSPNParamsSpec, nlspn_offset_affinity, nlspn_propagate
 from ..ops.nlspn_stencil import build_shift_masks, stencil_propagate
 from ..parallel import spatial
 from ..registry import GENERATORS
+from ..utils.profiling import span
 from .encoder_decoder import SKIPS, EncoderDecoder, concat_skip
 from .layers import AdaIN, AdaptiveInstanceNorm, ConvBNAct, INFuse
 
@@ -175,27 +176,29 @@ class RDFGenerator(nn.Module):
     def _nlspn_block(self, guide, confidence, pred_init, origin_depth):
         """Offset/affinity conv -> shift-mask fold -> propagation. Returns
         the refined depth and the batch max |offset| (the stencil is exact
-        only while it stays within ``nlspn_offset_radius``)."""
-        prop = self.nlspn_refine_module.prop_layer
-        spec, R = self.nlspn_spec, self.nlspn_offset_radius
-        raw = prop.conv_offset_aff(guide)
-        gather = self.nlspn_impl == "gather"
-        offsets, aff = nlspn_offset_affinity(
-            raw, confidence, prop.aff_scale_const, spec,
-            conf_sample_radius=None if gather else R)
-        max_offset = offsets.detach().abs().max().float()
-        if gather:
-            out = nlspn_propagate(pred_init, offsets, aff, spec,
-                                  feat_fix=origin_depth)
-        else:
-            M = build_shift_masks(offsets, aff, spec.prop_kernel, R)
-            prop_fn = {"stencil": stencil_propagate,
-                       "pallas": nlspn_stencil_propagate,
-                       "auto": propagate_auto}[self.nlspn_impl]
-            out = prop_fn(pred_init, M, prop_time=spec.prop_time, R=R,
-                          feat_fix=origin_depth,
-                          preserve_input=spec.preserve_input)
-        return out, max_offset
+        only while it stays within ``nlspn_offset_radius``). All of it runs
+        in the span ``rdfc.nlspn_block`` (``utils.profiling.span``)."""
+        with span("rdfc.nlspn_block"):
+            prop = self.nlspn_refine_module.prop_layer
+            spec, R = self.nlspn_spec, self.nlspn_offset_radius
+            raw = prop.conv_offset_aff(guide)
+            gather = self.nlspn_impl == "gather"
+            offsets, aff = nlspn_offset_affinity(
+                raw, confidence, prop.aff_scale_const, spec,
+                conf_sample_radius=None if gather else R)
+            max_offset = offsets.detach().abs().max().float()
+            if gather:
+                out = nlspn_propagate(pred_init, offsets, aff, spec,
+                                      feat_fix=origin_depth)
+            else:
+                M = build_shift_masks(offsets, aff, spec.prop_kernel, R)
+                prop_fn = {"stencil": stencil_propagate,
+                           "pallas": nlspn_stencil_propagate,
+                           "auto": propagate_auto}[self.nlspn_impl]
+                out = prop_fn(pred_init, M, prop_time=spec.prop_time, R=R,
+                              feat_fix=origin_depth,
+                              preserve_input=spec.preserve_input)
+            return out, max_offset
 
     def forward(self, rgb: torch.Tensor, depth: torch.Tensor,
                 normal: Optional[torch.Tensor] = None) -> dict:

@@ -64,7 +64,7 @@ from .parallel import (all_reduce_max, all_reduce_sum, broadcast_from_rank0,
 from .test import build_split, build_val_loader
 from .utils import Logger, MovingAverage, set_random_seed
 from .utils.checkpoint import load_checkpoint, resume_from, save_checkpoint
-from .utils.profiling import StepTimer, trace
+from .utils.profiling import trace
 
 _MINIMIZE = ("RMSE", "MAE", "iRMSE", "iMAE", "REL")
 _PROFILE_STEP = 50  # the traced step of --profile_dir (train.py:121)
@@ -198,7 +198,6 @@ def _train(cfg, logger, device, train_loader, val_loader) -> dict:
     best = float("inf") if minimize else float("-inf")
     metrics = None
     step_seconds, wait_seconds, samples = [], [], []
-    timer = StepTimer()
     profile_dir = cfg.get("profile_dir") if is_main() else None
 
     def checkpoint(name, **meta):
@@ -218,7 +217,6 @@ def _train(cfg, logger, device, train_loader, val_loader) -> dict:
         for i, batch in enumerate(train_loader):
             with trace(profile_dir if it == _PROFILE_STEP else None):
                 losses.add(engine.train_step(batch))
-            timer.tick()
             it += 1
             if it % cfg.log_interval == 0:
                 losses.flush(epoch, i, cfg.batch_size)
@@ -233,8 +231,11 @@ def _train(cfg, logger, device, train_loader, val_loader) -> dict:
         wait_seconds += train_loader.wait_seconds
         # the trailing partial window is logged too
         losses.flush(epoch, i, cfg.batch_size)
-        logger.log(f"epoch {epoch}: step mean {timer.mean_ms:.1f} ms, max "
-                   f"{timer.max_ms:.1f} ms (last {len(timer.times)})")
+        recent = step_seconds[-50:]
+        logger.log(f"epoch {epoch}: step mean "
+                   f"{1e3 * sum(recent) / max(len(recent), 1):.1f} ms, max "
+                   f"{1e3 * max(recent, default=0.0):.1f} ms "
+                   f"(last {len(recent)})")
 
         if (epoch + 1) % cfg.save_interval == 0:
             checkpoint(f"epoch_{epoch + 1}.pth", epoch=epoch + 1)

@@ -4,10 +4,13 @@
     is present) around the block, written as a Chrome trace
     ``dir/trace_<pid>_<n>.json`` (open it in chrome://tracing or Perfetto);
     a no-op when ``dir`` is falsy;
+  * ``span(name)``: a named range of the program (``rdfc.serve``, one per
+    served net, ``rdfc.nlspn_block``, the train step's loss and update
+    phases) that a profiler session records beside its own events, on
+    its clock; a shared no-op context when no session records;
   * ``fps_harness``: images per second over ``n_images`` after ``warmup``
     calls, each call followed by a device synchronize (the reference's
-    ``--cal_fps`` protocol, RDF-GAN/lib/tools/main.py:318-350);
-  * ``StepTimer``: rolling step-time statistics for the train loop.
+    ``--cal_fps`` protocol, RDF-GAN/lib/tools/main.py:318-350).
 """
 
 from __future__ import annotations
@@ -19,8 +22,22 @@ import time
 from typing import Callable, Iterable, Optional
 
 import torch
+from torch.profiler import record_function
 
 _TRACES = itertools.count()
+_NULL = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``record_function(name)`` while a profiler session records, else a
+    shared no-op context. ``record_function`` costs about 11 us an enter
+    and exit even with no session on; the guard, a fraction of a
+    microsecond. An export outside a profiler session takes no span into
+    its graph (strict export folds the guard to False). Names start with
+    ``rdfc.``, which no ATen op's name does."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return _NULL
 
 
 @contextlib.contextmanager
@@ -73,29 +90,3 @@ def fps_harness(forward: Callable, batches: Iterable, n_images: int = 300,
         _sync()
         done += batch["rgb"].shape[0]
     return done / (time.perf_counter() - t0)
-
-
-class StepTimer:
-    """Rolling mean/max step time over the last ``window`` ticks; host-side,
-    negligible overhead."""
-
-    def __init__(self, window: int = 50):
-        self.window = window
-        self.times = []
-        self._last = None
-
-    def tick(self):
-        now = time.perf_counter()
-        if self._last is not None:
-            self.times.append(now - self._last)
-            if len(self.times) > self.window:
-                self.times.pop(0)
-        self._last = now
-
-    @property
-    def mean_ms(self) -> float:
-        return 1e3 * sum(self.times) / max(len(self.times), 1)
-
-    @property
-    def max_ms(self) -> float:
-        return 1e3 * max(self.times) if self.times else 0.0

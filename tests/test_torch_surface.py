@@ -248,6 +248,9 @@ NOT_PORTED = {
                             "ops/kernels/build.py)",
     "hard_sync": "block_until_ready over a pytree: the port calls "
                  "torch.cuda.synchronize()",
+    "StepTimer": "rolling step times of the train loop: the port's "
+                 "train.py keeps every step's seconds (step_seconds) and "
+                 "logs the mean and max of the last 50",
     "load_checkpoint_orbax": _ORBAX, "save_checkpoint_orbax": _ORBAX,
     "apply_pretrained_torsos": _TORSO, "apply_torso_dicts": _TORSO,
     "convert_tensor": _TORSO, "load_resnet_torso": _TORSO,
