@@ -1655,13 +1655,68 @@ def _flagship_args(workdir, extra=()):
             "--out_width", str(W), "--device", "cuda", *extra]
 
 
+def _wrapper_in_launches(engine, forwards: int) -> int:
+    """The IN forward's (#7) launches that ``forwards`` flagship
+    ``forward_test`` calls make through its wrapper (``build.LAUNCHES``):
+    4 a call, but none in a call served by CUDA graphs captured in an
+    earlier call (``engine.graphs.replayed``), which runs no wrapper; the
+    kernels of those the profiler counts (``_replayed_in_kernels``)."""
+    return 4 * (forwards - engine.graphs.replayed)
+
+
+def _replayed_in_kernels(engine, batch, depth_only=False, n=3):
+    """Serve ``batch`` until its key replays, then ``n`` calls under the
+    profiler: check that each was a replay and that the device ran the 4
+    IN forward kernels (#7) of each, counted from the profiler's kernel
+    events. A session with no device events is tried again, three times
+    in all."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def forward():
+        return engine.forward_test(rgb=batch["rgb"],
+                                   raw_depth=batch["raw_depth"],
+                                   depth_only=depth_only)
+
+    for _ in range(2):  # the warm-up and the capture of a new key
+        forward()
+    torch.cuda.synchronize()
+    mode = "--depth_only" if depth_only else "full"
+    for _ in range(3):
+        before = engine.graphs.replayed
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                forward()
+            torch.cuda.synchronize()
+        replays = engine.graphs.replayed - before
+        if replays != n:
+            fail(f"flagship {mode}: {replays} of {n} calls replayed")
+        device = [e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if device:
+            break
+    else:
+        fail(f"flagship {mode}: the profiler saw no device events in three "
+             f"sessions, so the replays' IN kernels were not measured")
+    kernels = sum(bool(re.search(r"\binstance_norm_fwd_kernel\b", k))
+                  for k in device)
+    print(f"  {n} replayed forwards ({mode}, profiler): {len(device)} "
+          f"device events, {kernels} instance_norm_fwd_kernel")
+    if kernels != 4 * n:
+        fail(f"flagship {mode}: {kernels} IN forward kernels in {n} "
+             f"replayed forwards, expected {4 * n}")
+
+
 def flagship_serve_phase(workdir):
     """Serve the flagship RDFC-GAN through rdfc_gan_torch.test.run with and
     without --depth_only (seeded weights: rdfc_gan_torch.test seeds torch
     before it builds the nets), counting kernel launches; check the
-    metrics, the outputs and 4 IN launches per forward, and hold pred_depth
-    against the plain IN path. Returns (launch counts of the full run,
-    engine, batch)."""
+    metrics, the outputs and 4 IN launches per forward (by the wrappers'
+    count in the forwards that ran them, by the profiler in replayed
+    ones), and hold pred_depth against the plain IN path. Returns (launch
+    counts of the full run, engine, batch)."""
     import numpy as np
     import torch
 
@@ -1696,13 +1751,15 @@ def flagship_serve_phase(workdir):
               f"{np.median(bs):.3f}, p90 {np.percentile(bs, 90):.3f}, max "
               f"{bs.max():.3f}; {n_img / (bs.sum() / 1e3):.2f} img/s served "
               f"(forward + metrics), run wall {wall:.2f} s incl. build")
-        print(f"  peak device memory {peak / 2**20:.1f} MiB; forwards {fwd}; "
-              f"kernel launches {counts}")
+        want = _wrapper_in_launches(res["engine"], fwd)
+        print(f"  peak device memory {peak / 2**20:.1f} MiB; forwards {fwd}, "
+              f"{res['engine'].graphs.replayed} replayed; kernel launches "
+              f"{counts}")
         if not all(np.isfinite(v) for v in metrics.values()):
             fail(f"flagship {mode}: non-finite metrics {metrics}")
-        if counts != {"instance_norm_fwd": 4 * fwd}:
+        if counts != {"instance_norm_fwd": want}:
             fail(f"flagship {mode}: launches {counts}, expected "
-                 f"{{'instance_norm_fwd': {4 * fwd}}}")
+                 f"{{'instance_norm_fwd': {want}}}")
         fps = port_test.run(parse_config(args + ["--cal_fps"]))["fps"]
         print(f"  --cal_fps: {fps:.2f} img/s (300 images, batch {B}, loader "
               f"included, synchronized per batch)")
@@ -1710,6 +1767,8 @@ def flagship_serve_phase(workdir):
         del res
     batch = next(iter(port_test.build_val_loader(
         parse_config(_flagship_args(workdir)), engine.device)))
+    for depth_only in (False, True):
+        _replayed_in_kernels(engine, batch, depth_only)
 
     def forward(depth_only=False):
         return engine.forward_test(rgb=batch["rgb"],
@@ -1790,7 +1849,8 @@ def flagship_train_phase(workdir):
     # once on the batch of 8; the evaluation's forwards 4 W-AdaIN each
     want = {"conv3x3_fwd": 2 * 2 * blocks * steps,
             "conv3x3_bwd": 2 * 2 * blocks * steps,
-            "instance_norm_fwd": (2 * 4 + n_in) * steps + 4 * evals,
+            "instance_norm_fwd": (2 * 4 + n_in) * steps
+            + _wrapper_in_launches(engine, evals),
             "instance_norm_bwd": (2 * 4 + n_in) * steps}
     sec = np.asarray(res["step_seconds"][1:]) * 1e3
     print(f"flagship train: rdf_cycle_patchgan_config.yaml at {H}x{W}, "
@@ -2037,7 +2097,8 @@ def jax_ckpt_phase(workdir, device="cuda", flagship=None, nlspn=None,
             flagship, "serve", ["--load_from", path])))
         _sync(device)
         counts, fwd = dict(build.LAUNCHES), res["forwards"]
-        counted({"instance_norm_fwd": 4 * fwd}, counts,
+        counted({"instance_norm_fwd": _wrapper_in_launches(res["engine"],
+                                                           fwd)}, counts,
                 f"flagship served from {os.path.basename(path)}")
         with torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                         deterministic=True, allow_tf32=False):
@@ -2245,7 +2306,9 @@ def flagship_breakdown_phase(engine, batch):
                     continue
                 hooks.append(m.register_forward_hook(
                     lambda mod, a, o, k=kind: kinds[k].append((mod, a))))
-        engine.forward_test(rgb=rgb, raw_depth=raw)
+        # the eager call: a replayed CUDA graph runs no module's forward,
+        # so no hook would see its inputs
+        engine._forward_test(rgb, raw, False)
         for h in hooks:
             h.remove()
         kind_ms = {k: _device_ms(lambda c=c: [m(*a) for m, a in c])
@@ -2415,11 +2478,12 @@ def file_dataset_phase(workdir):
                if type(m).__name__ == "InstanceNorm")
     dumps = len(res["samples"])
     # a step as in the flagship train phase; a sample dump is one
-    # forward_test (4 W-AdaIN) and two G_B2A applications
+    # forward_test (4 W-AdaIN, none through the wrapper where it replays)
+    # and two G_B2A applications
     want = {"conv3x3_fwd": 2 * 2 * blocks * steps,
             "conv3x3_bwd": 2 * 2 * blocks * steps,
             "instance_norm_fwd": (2 * 4 + n_in) * steps
-            + (4 + 2 * n_in) * dumps,
+            + _wrapper_in_launches(engine, dumps) + 2 * n_in * dumps,
             "instance_norm_bwd": (2 * 4 + n_in) * steps}
     sec = np.asarray(res["step_seconds"][1:]) * 1e3
     wait = np.asarray(res["wait_seconds"]) * 1e3
@@ -2477,9 +2541,10 @@ def file_dataset_phase(workdir):
     if len(metrics) != 8 or not all(np.isfinite(v)
                                     for v in metrics.values()):
         fail(f"served metrics {metrics}")
-    if counts != {"instance_norm_fwd": 4 * fwd}:
+    want = _wrapper_in_launches(served["engine"], fwd)
+    if counts != {"instance_norm_fwd": want}:
         fail(f"flagship serve on files: launches {counts}, expected "
-             f"{{'instance_norm_fwd': {4 * fwd}}}")
+             f"{{'instance_norm_fwd': {want}}}")
     del served
 
     nlspn = os.path.join(ROOT, "configs", "rdf_gan_nlspn_config.yaml")

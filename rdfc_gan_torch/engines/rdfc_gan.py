@@ -67,11 +67,20 @@ from ..utils import pretrained
 from ..utils.image_ops import add_pepper_noise, pepper_draw
 from ..utils.profiling import span
 from .base import BaseEngine, clip_gradients, make_optimizer
+from .graphs import ServedGraphs, run_stages
 
 NET_KEYS = ("G_A2B", "G_B2A", "disc_A", "disc_B", "G_normal", "G_label")
+# the nets forward_test serves, in call order
+SERVED = ("G_label", "G_normal", "G_A2B")
+# forward_test's maps, in the order it returns them
+MAPS = ("pred_depth", "pred_normal", "pred_label", "nlspn_max_offset")
 # which nets each optimizer steps
 OPT_NETS = {"G": ("G_A2B", "G_B2A"), "Nor": ("G_normal",),
             "label": ("G_label",), "D": ("disc_A", "disc_B")}
+
+
+def _maps(out: dict) -> dict:
+    return {k: out[k] for k in MAPS if k in out}
 
 
 @contextlib.contextmanager
@@ -115,6 +124,7 @@ class RDFCGAN(BaseEngine):
         # forward_test calls served, so a caller can relate kernel launch
         # counts to requests
         self.n_forward = 0
+        self.graphs = ServedGraphs()
         if not is_train:
             return
         self.criterion_gan = GANLoss(cfg.gan_loss_type)
@@ -149,7 +159,26 @@ class RDFCGAN(BaseEngine):
                      assemble: bool = False) -> dict:
         """rgb: (B,3,H,W); raw_depth: (B,1,H,W), on the engine's device.
         Returns pred_depth (B,1,H,W), pred_normal (B,3,H,W) and, unless
-        ``depth_only``, pred_label (B,num_classes,H,W) logits.
+        ``depth_only``, pred_label (B,num_classes,H,W) logits. A served
+        net found in train mode is put in eval mode first; the others are
+        left as they are.
+
+        On the card the call replays the served nets as CUDA graphs
+        (``engines.graphs.ServedGraphs``, ``self.graphs``) when its inputs
+        are contiguous CUDA tensors, ``grid`` is None, autograd is off and
+        no export or compile trace is running; each other call runs the
+        nets eagerly. A key is (rgb's and raw_depth's shapes and dtypes,
+        the device, ``depth_only``), with the nets' identities, the cuDNN
+        and matmul settings that choose kernels and the autocast state;
+        four are kept. A key's first call runs eagerly on a side stream,
+        its second captures one graph a net (G_label, G_normal with
+        ``norm_normalize``, G_A2B reading G_normal's static output), and
+        every later one copies the inputs in and replays. The returned maps are clones, so no later
+        call overwrites them. The graphs read the parameters' and buffers'
+        storage, so a train step, an optimizer's update or
+        ``load_state_dict`` needs nothing; a key whose eager call made the
+        host wait on the card (a G_A2B that refines with NLSPN builds its
+        grids on the host) stays eager.
 
         ``grid`` (``parallel.grid``, a ``model`` axis over M ranks): rgb
         and raw_depth are this data row's rows at the whole width W, which
@@ -159,31 +188,47 @@ class RDFCGAN(BaseEngine):
 
         Spans (``utils.profiling.span``): ``rdfc.serve`` around the call,
         and inside it ``rdfc.G_label``, ``rdfc.G_normal`` and
-        ``rdfc.G_A2B``, one per net, in that order."""
+        ``rdfc.G_A2B``, one per net, in that order; a replay opens
+        ``rdfc.graph_replay`` inside each net's span."""
         with span("rdfc.serve"):
             self.n_forward += 1
             if grid is not None:
                 return spatial.serve(self._forward_test, grid, rgb,
                                      raw_depth, depth_only,
                                      assemble=assemble)
-            return self._forward_test(rgb, raw_depth, depth_only)
+            if not ServedGraphs.engages(rgb, raw_depth):
+                return self._forward_test(rgb, raw_depth, depth_only)
+            nets, stages = self._served(depth_only)
+            return _maps(self.graphs((depth_only,), nets, stages,
+                                     (rgb, raw_depth)))
 
     def _forward_test(self, rgb: torch.Tensor, raw_depth: torch.Tensor,
                       depth_only: bool) -> dict:
-        mods = {k: m.eval() for k, m in self.modules.items()}
-        if not depth_only:
-            with span("rdfc.G_label"):
-                label = mods["G_label"](rgb)
-        with span("rdfc.G_normal"):
-            pred_normal = norm_normalize(mods["G_normal"](rgb))
-        with span("rdfc.G_A2B"):
-            ret = mods["G_A2B"](rgb, raw_depth, pred_normal)
-        out = dict(pred_depth=ret["pred_depth"], pred_normal=pred_normal)
-        if not depth_only:
-            out["pred_label"] = label
+        _, stages = self._served(depth_only)
+        return _maps(run_stages(stages, (rgb, raw_depth)))
+
+    def _served(self, depth_only: bool):
+        """The served nets, each in eval mode, and their stages in call
+        order (``engines.graphs``): (span, fn(rgb, raw_depth, out))."""
+        keys = SERVED[1:] if depth_only else SERVED
+        nets = tuple(self.modules[k] for k in keys)
+        for net in nets:
+            if net.training:
+                net.eval()
+        stages = [(f"rdfc.{k}", getattr(self, f"_serve_{k}")) for k in keys]
+        return nets, stages
+
+    def _serve_G_label(self, rgb, raw_depth, out):
+        out["pred_label"] = self.modules["G_label"](rgb)
+
+    def _serve_G_normal(self, rgb, raw_depth, out):
+        out["pred_normal"] = norm_normalize(self.modules["G_normal"](rgb))
+
+    def _serve_G_A2B(self, rgb, raw_depth, out):
+        ret = self.modules["G_A2B"](rgb, raw_depth, out["pred_normal"])
+        out["pred_depth"] = ret["pred_depth"]
         if "nlspn_max_offset" in ret:
             out["nlspn_max_offset"] = ret["nlspn_max_offset"]
-        return out
 
     __call__ = forward_test
 

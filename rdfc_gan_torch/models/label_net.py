@@ -34,7 +34,7 @@ import torch
 import torch.nn as nn
 
 from ..parallel import spatial
-from .layers import BatchNorm2d, bilinear_resize
+from .layers import BatchNorm2d, bilinear_resize, device_matrix
 from .resnet import DeepStem, make_stages
 
 
@@ -82,16 +82,17 @@ class AdaptiveAvgPool(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         H, W = spatial.plane_size(x)
-        ph, pw = _pool_matrix(H, self.b), _pool_matrix(W, self.b)
-        if spatial.active() is not None:
-            # this rank's image columns, then the partial sums summed over
-            # the row: the bins come out whole on every rank
-            x, pw = spatial.width_matrix(pw, x)
-        ph, pw = (torch.from_numpy(m).to(x.device) for m in (ph, pw))
-        out = torch.einsum("ih,bchw,jw->bcij", ph, x.float(), pw)
-        if spatial.active() is not None:
-            out = spatial.width_sum(out)
-        return out.to(x.dtype)
+        ph = device_matrix(_pool_matrix, H, self.b, x.device)
+        if spatial.active() is None:
+            pw = device_matrix(_pool_matrix, W, self.b, x.device)
+            return torch.einsum("ih,bchw,jw->bcij", ph, x.float(),
+                                pw).to(x.dtype)
+        # this rank's image columns, then the partial sums summed over the
+        # row: the bins come out whole on every rank
+        x, pw = spatial.width_matrix(_pool_matrix(W, self.b), x)
+        out = torch.einsum("ih,bchw,jw->bcij", ph, x.float(),
+                           torch.from_numpy(pw).to(x.device))
+        return spatial.width_sum(out).to(x.dtype)
 
 
 class PSPModule(nn.Module):

@@ -25,7 +25,8 @@ reference PyTorch state-dict names:
     ``ops/kernels/norm_kernel`` on the card.
   * ``bilinear_resize`` — layers.py:675-714: ``jax.image.resize``'s
     half-pixel bilinear (antialiased when it downsamples) by default, and
-    align_corners=True; both as interpolation matmuls.
+    align_corners=True; both as interpolation matmuls, whose matrices
+    stay on the device (``device_matrix``).
   * ``NonBottleneck1D`` — layers.py:633-672, the ERFNet block of ESANet's
     decoders.
 """
@@ -34,7 +35,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Tuple
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
@@ -276,6 +277,35 @@ def _half_pixel_matrix(src: int, dst: int) -> np.ndarray:
     return np.where(inside[None, :], w, f32(0.0)).T.astype(f32)
 
 
+def device_matrix(build: Callable[[int, int], np.ndarray], src: int,
+                  dst: int, device: torch.device,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``torch.from_numpy(build(src, dst)).to(device, dtype).float()``:
+    a numpy builder's matrix (``_interp_matrix``, ``_half_pixel_matrix``,
+    ``label_net._pool_matrix``) in f32 on ``device``, its values rounded
+    through ``dtype``. Built once a (builder, sizes, device, dtype) and
+    kept (``_resident_matrix``), so that a later call copies nothing to the
+    device and waits for nothing, as a served call captured as a CUDA graph
+    must. A ``torch.export`` or compile trace builds its own, as before,
+    and keeps none: its tensors are fake."""
+    if torch.compiler.is_compiling():
+        return torch.from_numpy(build(src, dst)).to(device, dtype).float()
+    return _resident_matrix(build, src, dst, device, dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_matrix(build, src: int, dst: int, device: torch.device,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """``device_matrix``'s kept matrix. Made outside inference mode, so
+    that a train step can save it for its backward; copied to a card from
+    pinned memory, so the host does not wait for the copy."""
+    with torch.inference_mode(False):
+        host = torch.from_numpy(build(src, dst))
+        if device.type == "cuda":
+            host = host.pin_memory()
+        return host.to(device, non_blocking=True).to(dtype).float()
+
+
 def bilinear_resize(x: torch.Tensor, size: Tuple[int, int],
                     align_corners: bool = False,
                     replicated: bool = False) -> torch.Tensor:
@@ -307,12 +337,12 @@ def bilinear_resize(x: torch.Tensor, size: Tuple[int, int],
     mat = _interp_matrix if align_corners else _half_pixel_matrix
     out = x.reshape(B * C, H, W)
     if h != H:
-        wy = torch.from_numpy(mat(H, h)).to(x.device, x.dtype).float()
+        wy = device_matrix(mat, H, h, x.device, x.dtype)
         out = torch.matmul(wy, out.float()).to(x.dtype)
     if grid is not None:
         out = spatial.resize_width(out, mat, w, replicated)
     elif w != W:
-        wx = torch.from_numpy(mat(W, w)).to(x.device, x.dtype).float()
+        wx = device_matrix(mat, W, w, x.device, x.dtype)
         out = torch.matmul(out.float(), wx.t()).to(x.dtype)
     return out.reshape(B, C, h, out.shape[-1])
 
