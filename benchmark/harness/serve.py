@@ -84,8 +84,12 @@ def compare(ctx, device, pool, got: dict, scale,
             control: str = None) -> dict:
     """``<map>_err``: the largest |got - reference| over max |reference|,
     and ``<map>_rms``: the norm of got - reference over the reference's
-    norm, of each map, the worst over a sample of the pool's batches. ``got`` maps a pool index to its host maps; with
-    ``control`` the reference in that precision stands in for them."""
+    norm, of each map, the worst over a sample of the pool's batches. A map
+    that the reference conditions (``Engine.conditioning``) also gets
+    ``<map>_cerr``: the largest of each pixel's |got - reference| (over
+    channels) times that pixel's weight, over max |reference|. ``got``
+    maps a pool index to its host maps; with ``control`` the reference in
+    that precision stands in for them."""
     spec, seed = ctx.spec, ctx.seed
     k = int(spec.traffic["check_batches"])
     picks = sorted(random.Random(seed).sample(sorted(got), min(k, len(got))))
@@ -96,6 +100,7 @@ def compare(ctx, device, pool, got: dict, scale,
     for j in picks:
         b = data.to_device(pool[j], device)
         want = _maps(ref.forward_test(b["rgb"], b["raw_depth"]))
+        cond = {k2: c.cpu() for k2, c in ref.conditioning(b["rgb"]).items()}
         if control is None:
             have = got[j]
         else:
@@ -104,13 +109,19 @@ def compare(ctx, device, pool, got: dict, scale,
         for name, w in want.items():
             w = w.float().cpu()
             h = have.get(name)
+            keys = (f"{name}_err", f"{name}_rms") + (
+                (f"{name}_cerr",) if name in cond else ())
             if h is None or h.shape != w.shape:
-                errs = (float("inf"), float("inf"))
+                errs = (float("inf"),) * len(keys)
             else:
                 d = h.float() - w
-                errs = (float(d.abs().max() / w.abs().max().clamp_min(1e-30)),
+                top = w.abs().max().clamp_min(1e-30)
+                errs = (float(d.abs().max() / top),
                         float(d.norm() / w.norm().clamp_min(1e-30)))
-            for key, err in zip((f"{name}_err", f"{name}_rms"), errs):
+                if name in cond:
+                    errs += (float((d.abs().amax(1, keepdim=True)
+                                    * cond[name]).max() / top),)
+            for key, err in zip(keys, errs):
                 if err != err:  # NaN
                     err = float("inf")
                 worst[key] = max(worst.get(key, 0.0), err)

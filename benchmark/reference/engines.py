@@ -1,8 +1,9 @@
 """Plain f32 engines of the two configurations: the reference's
 ``forward_test`` and ``train_step`` of RDF-GAN (G and a PatchGAN D) and of
 RDFC-GAN (six nets, four optimizers, the 16-term generator loss), written
-from the published engines' equations over ``models.py``. Imports
-``torch`` and this folder only.
+from the published engines' equations over ``models.py``, each net built
+by the file of its type in ``nets/``. Imports ``torch``, this folder and
+the standard library's ``os`` and ``importlib`` only.
 
 Every loss is the weighted sum of its elementwise terms in f32: the
 default weight 1 / (numel + 1e-6), the image weight mask / (sum(mask) +
@@ -13,6 +14,9 @@ caller, who hands the same to the measured program.
 """
 
 from __future__ import annotations
+
+import importlib.util
+import os
 
 import torch
 
@@ -101,54 +105,70 @@ def pepper(img, active, u, snr=0.98, p=0.9):
 
 
 # ---------------------------------------------------------- networks --
+# each net's reference is found by the ``type`` of its entry in the
+# configuration's ``model``: ``nets/<type>.py``, whose
+# ``build(net, cfg) -> nn.Module`` gets that entry and the whole file
+NETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "nets")
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+class SpecError(LookupError):
+    """A net whose ``type`` has no file in ``nets/``."""
+
+
+# checkpoint key -> configuration key, each engine's nets in the reference
+# checkpoint's order
+NET_KEYS = {
+    "RDFGAN": {"G": "G", "D": "D"},
+    "RDFCGAN": {"G_A2B": "G_A2B", "G_normal": "Normal_G",
+                "G_label": "Label_G", "G_B2A": "G_B2A", "disc_A": "D_A",
+                "disc_B": "D_B"},
+}
+SERVED = ("G", "G_A2B", "G_normal", "G_label")
+
+
+def _normal_net(net: dict, cfg: dict):
+    return models.TorchNNET(cfg["out_height"], cfg["out_width"],
+                            net.get("width", 1.6), net.get("depth", 2.2))
+
+
+def _label_net(net: dict, cfg: dict):
+    return models.TorchPSPNet(
+        cfg["num_classes"], tuple(net.get("planes", (64, 128, 256, 512))),
+        net.get("stem_features", 64))
+
+
+# the flagship engine fixes these two nets' kinds: their entries hold no
+# ``type``
+FIXED = {"G_normal": _normal_net, "G_label": _label_net}
+
+
+def net_builder(type_name):
+    """The ``build`` of ``nets/<type_name>.py``."""
+    if not isinstance(type_name, str) or not type_name.isidentifier():
+        raise SpecError(f"net type {type_name!r} is not a name")
+    path = os.path.join(NETS, type_name + ".py")
+    if not os.path.isfile(path):
+        raise SpecError(f"no file {os.path.relpath(path, ROOT)}")
+    spec = importlib.util.spec_from_file_location(
+        f"{__package__}.nets.{type_name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.build
+
+
 def build_nets(cfg: dict, train: bool, device="cpu"):
-    """The configuration's nets (``cfg``: the configuration file's
-    ``model`` and sizes), keyed as the reference checkpoint, on
-    ``device`` (``meta`` for shapes alone)."""
+    """The configuration's nets (``cfg``: the configuration file), keyed as
+    the reference checkpoint, on ``device`` (``meta`` for shapes alone).
+    Every net's type is found before any net is built."""
     m = cfg["model"]
-    nets = {}
+    keys = {k: c for k, c in NET_KEYS[m["type"]].items()
+            if train or k in SERVED}
+    builders = {k: FIXED[k] if k in FIXED else net_builder(m[c].get("type"))
+                for k, c in keys.items()}
     with torch.device(device):
-        if m["type"] == "RDFGAN":
-            nets["G"] = _generator(m["G"])
-            if train:
-                nets["D"] = _patchgan(m["D"])
-        else:
-            nets["G_A2B"] = _generator(m["G_A2B"])
-            n = m.get("Normal_G", {})
-            nets["G_normal"] = models.TorchNNET(
-                cfg["out_height"], cfg["out_width"], n.get("width", 1.6),
-                n.get("depth", 2.2))
-            lab = m.get("Label_G", {})
-            nets["G_label"] = models.TorchPSPNet(
-                cfg["num_classes"], tuple(lab.get("planes",
-                                                  (64, 128, 256, 512))),
-                lab.get("stem_features", 64))
-            if train:
-                b2a = m["G_B2A"]
-                nets["G_B2A"] = models.TorchResnetGenerator(
-                    b2a.get("input_channels", 1),
-                    b2a.get("output_channels", 3), b2a.get("ngf", 64),
-                    b2a.get("n_blocks", 6))
-                nets["disc_A"] = _patchgan(m["D_A"])
-                nets["disc_B"] = _patchgan(m["D_B"])
-    return nets
-
-
-def _generator(g: dict):
-    keys = ("semantic_channels_in", "rgb_channels_encoder",
-            "depth_channels_encoder", "rgb_channels_decoder",
-            "depth_channels_decoder", "adain_weighting", "use_nlspn_refine",
-            "nlspn_configs")
-    kw = {k: g[k] for k in keys if k in g}
-    kw.setdefault("use_nlspn_refine", False)
-    return models.TorchRDFGenerator(encoder_type=g.get("encoder_rgb",
-                                                       "resnet18"), **kw)
-
-
-def _patchgan(d: dict):
-    kw = {k: tuple(d[k]) for k in ("out_channels", "kernel_size", "stride",
-                                   "padding") if k in d}
-    return models.TorchPatchGAN(d.get("in_channels", 1), **kw)
+        return {k: builders[k](m.get(c, {}), cfg) for k, c in keys.items()}
 
 
 def _set_keep(psp, keep):
@@ -194,6 +214,22 @@ class Engine:
         ret = self.call("G_A2B", rgb, raw_depth, normal)
         return dict(pred_depth=ret["pred_depth"], pred_normal=normal,
                     pred_label=label)
+
+    @torch.no_grad()
+    def conditioning(self, rgb) -> dict:
+        """Per served map whose rounding error the map's own formula
+        amplifies, a per-pixel weight in (0, 1] that takes the
+        amplification back out (after ``forward_test``, in eval mode). The
+        flagship's normal is G_normal's output divided by its own norm, so a
+        rounding error e of that output moves the normal by about e / |xyz|;
+        the weight min(1, |xyz| / median |xyz|) makes weight x error about
+        e / median |xyz| at every pixel, and leaves pixels of the median
+        norm or more unweighted."""
+        if self.kind == "RDFGAN":
+            return {}
+        norm = self.call("G_normal", rgb)[:, :3].float().norm(
+            dim=1, keepdim=True)
+        return {"pred_normal": (norm / norm.median()).clamp(max=1.0)}
 
     # -- training
     def make_optimizers(self):

@@ -575,6 +575,7 @@ class TorchNLSPN(nn.Module):
         self.k_f = prop_kernel
         self.prop_time = prop_time
         self.affinity = affinity
+        self.affinity_gamma = affinity_gamma
         self.conf_prop = conf_prop
         self.preserve_input = preserve_input
         self.num = prop_kernel * prop_kernel - 1

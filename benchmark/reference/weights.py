@@ -15,10 +15,12 @@ Every floating entry of every net's state dict, in the order of
   * a PReLU slope 0.25 + U(-0.05, 0.05);
   * NLSPN's frozen dummies and affinity scale as the reference
     initialises them (w = 1, b = 0, w_conf = 1, aff_scale_const =
-    gamma x neighbours), and its offset/affinity conv a random weight
-    whose offset rows are scaled by ``scale_offsets`` to a stated largest
-    offset on a probe batch and whose affinity rows are scaled by
-    ``AFF_WEIGHT_SCALE`` and raised by ``AFF_BIAS``.
+    gamma x neighbours, gamma the one its module was built with), and its
+    offset/affinity conv a random weight whose offset rows are scaled to a
+    stated largest offset on a probe batch (``offset_scale``) and whose
+    affinity rows are scaled by ``AFF_WEIGHT_SCALE`` and raised by
+    ``AFF_BIAS``. Every NLSPN inside the generator ``G`` is so treated,
+    however deep its net holds it.
 """
 
 from __future__ import annotations
@@ -57,7 +59,7 @@ def _kind(sd: dict, name: str, t: torch.Tensor) -> str:
     return "small"
 
 
-def fill(nets: dict, seed: int, device, affinity_gamma: float = 0.5) -> None:
+def fill(nets: dict, seed: int, device) -> None:
     """Fill every net's state in place from one draw of the seed's
     generator on ``device``."""
     entries = []
@@ -103,32 +105,41 @@ def fill(nets: dict, seed: int, device, affinity_gamma: float = 0.5) -> None:
                     bias[:bias.numel() // 2] += 1.0
                 if isinstance(mod, models.TorchNLSPN):
                     mod.aff_scale_const.fill_(
-                        affinity_gamma * mod.num if mod.affinity == "TGASS"
+                        mod.affinity_gamma * mod.num
+                        if mod.affinity == "TGASS"
                         else float(mod.num) if mod.affinity == "TC" else 1.0)
 
 
+def offset_convs(generator) -> list:
+    """The offset/affinity conv of every NLSPN refinement inside
+    ``generator``, however deep."""
+    return [m.prop_layer.conv_offset_aff for m in generator.modules()
+            if isinstance(m, models.TorchNLSPNRefineModule)]
+
+
+def _n_off(conv) -> int:
+    return 2 * (conv.out_channels // 3)
+
+
 @torch.no_grad()
-def scale_offsets(generator, rgb, raw_depth, target: float,
-                  train: bool = False) -> float:
-    """Scale the offset rows of ``generator``'s NLSPN offset/affinity conv
-    so that the largest |offset| on the probe batch is ``target``, with
-    BatchNorm in eval mode (as served) or, with ``train``, on the batch's
-    statistics (as trained; the running statistics are put back); returns
-    the scale."""
-    conv = generator.nlspn_refine_module.prop_layer.conv_offset_aff
-    seen = {}
-    hook = conv.register_forward_hook(lambda m, i, o: seen.setdefault(
-        "raw", o))
+def offset_scale(generator, rgb, raw_depth, target: float,
+                 train: bool = False) -> float:
+    """The scale of the offset rows of ``generator``'s NLSPN
+    offset/affinity convs under which the largest |offset| over them on the
+    probe batch is ``target``, with BatchNorm in eval mode (as served) or,
+    with ``train``, on the batch's statistics (as trained; the running
+    statistics are put back)."""
+    convs = offset_convs(generator)
+    seen = []
+    hooks = [c.register_forward_hook(lambda m, i, o: seen.append(
+        o[:, :_n_off(m)].abs().max())) for c in convs]
     buffers = {k: v.clone() for k, v in generator.named_buffers()}
     generator.train(train)(rgb, raw_depth)
     for k, v in generator.named_buffers():
         v.copy_(buffers[k])
-    hook.remove()
-    n_off = 2 * (conv.out_channels // 3)
-    scale = target / float(seen["raw"][:, :n_off].abs().max())
-    conv.weight[:n_off] *= scale
-    conv.bias[:n_off] *= scale
-    return scale
+    for h in hooks:
+        h.remove()
+    return target / float(max(seen))
 
 
 def make(cfg: dict, train: bool, seed: int, device, probe=None,
@@ -142,20 +153,18 @@ def make(cfg: dict, train: bool, seed: int, device, probe=None,
     nets = engines.build_nets(cfg, train, "meta")
     for k in nets:
         nets[k] = nets[k].to_empty(device=device)
-    g = cfg["model"].get("G", {})
-    gamma = g.get("nlspn_configs", {}).get("affinity_gamma", 0.5)
-    fill(nets, seed, device, gamma)
-    if "G" in nets and nets["G"].use_nlspn_refine:
-        prop = nets["G"].nlspn_refine_module.prop_layer.conv_offset_aff
-        n_off = 2 * (prop.out_channels // 3)
+    fill(nets, seed, device)
+    convs = offset_convs(nets["G"]) if "G" in nets else []
+    if convs:
         with torch.no_grad():
-            prop.weight[n_off:] *= AFF_WEIGHT_SCALE
-            prop.bias[n_off:] += AFF_BIAS
+            for conv in convs:
+                conv.weight[_n_off(conv):] *= AFF_WEIGHT_SCALE
+                conv.bias[_n_off(conv):] += AFF_BIAS
         if scale is None:
-            scale = scale_offsets(nets["G"], *probe,
-                                  cfg["nlspn_target_offset"], probe_train)
-        else:
-            with torch.no_grad():
-                prop.weight[:n_off] *= scale
-                prop.bias[:n_off] *= scale
+            scale = offset_scale(nets["G"], *probe,
+                                 cfg["nlspn_target_offset"], probe_train)
+        with torch.no_grad():
+            for conv in convs:
+                conv.weight[:_n_off(conv)] *= scale
+                conv.bias[:_n_off(conv)] *= scale
     return nets, scale

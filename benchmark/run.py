@@ -107,9 +107,13 @@ def flop_count(spec) -> float:
 
     train = spec.traffic["driver"] == "train"
     h = hashlib.sha256(json.dumps(spec.config, sort_keys=True).encode())
-    for name in sorted(os.listdir(os.path.join(HERE, "reference"))):
-        if name.endswith(".py"):
-            with open(os.path.join(HERE, "reference", name), "rb") as f:
+    # every file of the reference, its subfolders' too
+    for d, dirs, files in os.walk(os.path.join(HERE, "reference")):
+        dirs.sort()
+        for name in sorted(f for f in files if f.endswith(".py")):
+            path = os.path.join(d, name)
+            h.update(os.path.relpath(path, HERE).encode())
+            with open(path, "rb") as f:
                 h.update(f.read())
     key = f"{spec.config['name']}-{spec.traffic['batch']}-" \
           f"{'train' if train else 'serve'}-{h.hexdigest()[:16]}"
