@@ -12,6 +12,11 @@ core does: ``nlspn_offset_radius`` 2 and ``nlspn_impl`` ``"auto"``
 or with ``return_tuple`` the v1 5-tuple (depth_map_1, confidence_map_1,
 depth_map_2, confidence_map_2, pred_depth).
 
+The guidance net runs inside the span ``rdfc.G_guidance``
+(``utils.profiling.span``), which a served call opens inside ``rdfc.G``,
+before the core's ``rdfc.nlspn_block``; with no profiler on it is the
+shared no-op context.
+
 The constructor takes the JAX module's keys and no others; ``axis_name``
 is read and ignored (the BatchNorms sync over the ranks by themselves).
 The NLSPN stage belongs to ``core``: ``ops.nlspn_guard.probe_max_offset``
@@ -26,6 +31,7 @@ import torch
 import torch.nn as nn
 
 from ..registry import GENERATORS
+from ..utils.profiling import span
 from .esanet import ESANetOneModality
 from .rdf_generator import RDFGenerator
 
@@ -83,7 +89,8 @@ class DCVGANGenerator(nn.Module):
         """rgb: (B,3,H,W); depth: (B,1,H,W)."""
         guidance = rgb
         if self.use_guidance:
-            guidance = self.global_guidance_module(rgb)
+            with span("rdfc.G_guidance"):
+                guidance = self.global_guidance_module(rgb)
             if isinstance(guidance, (tuple, list)):
                 guidance = guidance[0]
         ret = self.core(rgb, depth, guidance)

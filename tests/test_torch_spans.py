@@ -1,11 +1,13 @@
 """The program's spans (``rdfc_gan_torch.utils.profiling.span``) on the CPU,
 at the tiny sizes of the serving and train-step tests (32x48, batch 2;
-``configs/rdfc_gan_tiny.yaml`` and a narrow NLSPN RDF-GAN):
+``configs/rdfc_gan_tiny.yaml``, a narrow NLSPN RDF-GAN and a narrow
+ESANet-guided one):
 
 - ``forward_test`` of both engines under ``torch.profiler`` opens
   ``rdfc.serve`` once a call, with the served nets' spans inside it in
   call order (``rdfc.G_label``, ``rdfc.G_normal``, ``rdfc.G_A2B``; the
-  RDF-GAN's ``rdfc.G`` with ``rdfc.nlspn_block`` inside it);
+  RDF-GAN's ``rdfc.G`` with ``rdfc.nlspn_block`` inside it, and with a
+  guided G ``rdfc.G_guidance`` before that block);
 - one train step of each engine opens the loss and update spans, each
   optimizer's step inside an update span;
 - with no profiler on, ``span`` never calls ``record_function``;
@@ -51,9 +53,33 @@ model:
     out_channels: [8, 16, 16, 16, 1]
 compute_dtype: float32
 """
+# the v1 generator with its ESANet guidance, narrow decoders
+GUIDED_TINY = """\
+model:
+  type: RDFGAN
+  G:
+    type: DCVGANGenerator
+    guidance_channels_decoder: [8, 8, 8]
+    rgb_channels_encoder: [8, 8, 8, 8, 8, 8]
+    depth_channels_encoder: [8, 8, 8, 8, 8, 8]
+    rgb_channels_decoder: [8, 8, 8, 8]
+    depth_channels_decoder: [8, 8, 8, 8]
+    fuse_depth_in_rgb_decoder: WAdaIN
+    use_nlspn_refine: true
+    nlspn_configs: {prop_kernel: 3, prop_time: 3, affinity: TGASS,
+                    affinity_gamma: 0.5, conf_prop: true,
+                    preserve_input: false}
+  D:
+    type: PatchGANDiscriminator
+    in_channels: 1
+    out_channels: [8, 16, 16, 16, 1]
+compute_dtype: float32
+"""
+TINY_YAML = {"nlspn": NLSPN_TINY, "guided": GUIDED_TINY}
 # the spans a served call opens inside rdfc.serve, in call order
 SERVED = {"flagship": ["rdfc.G_label", "rdfc.G_normal", "rdfc.G_A2B"],
-          "nlspn": ["rdfc.G", "rdfc.nlspn_block"]}
+          "nlspn": ["rdfc.G", "rdfc.nlspn_block"],
+          "guided": ["rdfc.G", "rdfc.G_guidance", "rdfc.nlspn_block"]}
 # the spans a train step opens at its top level, in order
 STEP = {"flagship": ["rdfc.train.G_loss", "rdfc.train.update.G+Nor+label",
                      "rdfc.train.D_loss", "rdfc.train.update.D"],
@@ -66,9 +92,9 @@ def _engine(kind, tmp_path, is_train):
     if kind == "flagship":
         cfg_path = os.path.join(ROOT, "configs", "rdfc_gan_tiny.yaml")
     else:
-        cfg_path = str(tmp_path / "nlspn_tiny.yaml")
+        cfg_path = str(tmp_path / f"{kind}_tiny.yaml")
         with open(cfg_path, "w") as f:
-            f.write(NLSPN_TINY)
+            f.write(TINY_YAML[kind])
     cfg = parse_config(["--dataset", "synthetic", "--model_cfg_path",
                         cfg_path, "--work_dir", str(tmp_path / "w"),
                         "--out_height", str(H), "--out_width", str(W),
@@ -129,10 +155,13 @@ def test_served_call_opens_serve_with_its_nets_inside(served, kind):
     for call in calls:
         inner = [e for e in evs if e is not call and _inside(call, e)]
         assert [e[0] for e in inner] == SERVED[kind]
-    if kind == "nlspn":
+    if kind != "flagship":
         g, block = [e for e in evs if e[0] in ("rdfc.G",
                                                "rdfc.nlspn_block")][:2]
         assert _inside(g, block)
+    if kind == "guided":
+        guide = [e for e in evs if e[0] == "rdfc.G_guidance"][0]
+        assert _inside(g, guide) and guide[2] <= block[1]
     assert len(evs) == 2 * (1 + len(SERVED[kind]))
 
 
@@ -193,3 +222,8 @@ def test_span_calls_no_record_function_without_a_profiler(served,
     _profiled(lambda: engines["nlspn"].forward_test(b["rgb"],
                                                     b["raw_depth"]))
     assert calls == ["rdfc.serve", "rdfc.G", "rdfc.nlspn_block"]
+    del calls[:]
+    _profiled(lambda: engines["guided"].forward_test(b["rgb"],
+                                                     b["raw_depth"]))
+    assert calls == ["rdfc.serve", "rdfc.G", "rdfc.G_guidance",
+                     "rdfc.nlspn_block"]

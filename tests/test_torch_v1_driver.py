@@ -4,7 +4,9 @@ segmentation helpers; ``cv_ops.resize`` against ``cv2`` at EvalV1's
 228x304 -> 480x640; ``EvalV1`` against the JAX ``EvalV1`` on an
 ``nyuv2_s2d`` fixture with the same predictions handed to both;
 ``PointCloudsHandler``'s points and ``.pcd`` bytes; the v1 driver's flags
-and model dict against ``tools/main_v1.py``'s; and tiny runs of
+and model dict against ``tools/main_v1.py``'s, and its guided model
+against ``configs/rdf_gan_guided_config.yaml`` and the benchmark's
+``rdfgan-guided``; and tiny runs of
 ``python -m rdfc_gan_torch.tools.main_v1`` (train an epoch, then
 ``--inference`` and ``--cal_fps`` from its ``epoch_1.pth``),
 ``main_vanilla`` and ``dataset_checker``. ``--device cuda`` without a card
@@ -15,6 +17,7 @@ order), the resize and the ``.pcd`` bytes exact.
 """
 
 import functools
+import json
 import os
 import re
 import sys
@@ -23,6 +26,7 @@ import cv2
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from rdfc_gan_torch.data import DataLoader as TLoader
 from rdfc_gan_torch.data import SyntheticDataset, cv_ops
@@ -243,6 +247,28 @@ def test_make_cfg_matches_jax(extra):
     for k in ("n_epochs", "lr", "lambda_l1_fusion", "conf_prop",
               "n_critic", "dataset", "batch_size"):
         assert t[k] == j[k], k
+
+
+# the published RDF-GAN: its guidance, NLSPN and the paper's W-AdaIN
+GUIDED = ["--use_guidance", "--use_nlspn_to_refine",
+          "--fuse_depth_in_rgb_decoder", "WAdaIN"]
+
+
+def test_guided_model_is_the_yaml_and_the_benchmark_configuration():
+    """The model ``main_v1`` builds under GUIDED is, key for key, the model
+    of ``configs/rdf_gan_guided_config.yaml`` and of the benchmark's
+    ``rdfgan-guided`` configuration, which names that YAML."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    want = t_main.make_cfg(t_main.build_parser().parse_args(
+        ["--work_dir", "w"] + GUIDED)).model.to_dict()
+    with open(os.path.join(root, "configs",
+                           "rdf_gan_guided_config.yaml")) as f:
+        assert yaml.safe_load(f)["model"] == want
+    with open(os.path.join(root, "benchmark", "configs",
+                           "rdfgan-guided.json")) as f:
+        bench = json.load(f)
+    assert bench["model"] == want
+    assert bench["port_yaml"] == "configs/rdf_gan_guided_config.yaml"
 
 
 def _metrics(path):
